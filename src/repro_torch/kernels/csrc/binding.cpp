@@ -1,0 +1,50 @@
+// PyTorch binding of the paged attention kernels — the only source that
+// includes PyTorch's headers.  The Python wrappers (kernels/paged_attention.py,
+// kernels/flash_attention.py) have already checked device, dtype, shape and
+// contiguity; this file launches on PyTorch's current stream and checks the
+// launch.
+#include <torch/extension.h>
+
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+
+#include "kernels.h"
+
+namespace {
+
+void paged_decode(const torch::Tensor& q, const torch::Tensor& k_arena,
+                  const torch::Tensor& v_arena, const torch::Tensor& tables,
+                  const torch::Tensor& lengths, torch::Tensor out,
+                  double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  repro_torch::launch_paged_decode(
+      q.scalar_type() == at::kBFloat16, q.data_ptr(), k_arena.data_ptr(),
+      v_arena.data_ptr(), tables.data_ptr<int>(), lengths.data_ptr<int>(),
+      out.data_ptr(), q.size(0), q.size(1), k_arena.size(2), q.size(2),
+      k_arena.size(1), tables.size(1), static_cast<float>(sm_scale),
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void paged_prefill(const torch::Tensor& q, const torch::Tensor& k_arena,
+                   const torch::Tensor& v_arena, const torch::Tensor& table,
+                   const torch::Tensor& positions, torch::Tensor out,
+                   int64_t tq, double sm_scale, int64_t window) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  repro_torch::launch_paged_prefill(
+      q.scalar_type() == at::kBFloat16, q.data_ptr(), k_arena.data_ptr(),
+      v_arena.data_ptr(), table.data_ptr<int>(), positions.data_ptr<int>(),
+      out.data_ptr(), q.size(0), q.size(1), k_arena.size(2), q.size(2),
+      k_arena.size(1), table.size(0), tq, static_cast<float>(sm_scale),
+      window, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("paged_decode", &paged_decode, "paged flash-decode (CUDA)");
+  m.def("paged_prefill", &paged_prefill,
+        "paged chunked-prefill flash attention (CUDA)");
+}

@@ -1,0 +1,26 @@
+// Plain C++ launchers of the paged attention kernels.  They take raw
+// pointers and the stream, so no CUDA source includes PyTorch's headers;
+// binding.cpp alone does, and checks the launch right after each call.
+#pragma once
+
+#include <cuda_runtime_api.h>
+
+namespace repro_torch {
+
+// q (b, H, dh); arenas (n_blocks, bs, K, dh); tables (b, n_pages) i32;
+// lengths (b,) i32; out (b, H, dh).  All of q's type (f32 or bf16).
+void launch_paged_decode(bool bf16, const void* q, const void* k_arena,
+                         const void* v_arena, const int* tables,
+                         const int* lengths, void* out, int b, int H, int K,
+                         int dh, int bs, int n_pages, float sm_scale,
+                         cudaStream_t stream);
+
+// q (C, H, dh); arenas (n_blocks, bs, K, dh); table (span,) i32;
+// positions (C,) i32; out (C, H, dh); tq queries per CTA.
+void launch_paged_prefill(bool bf16, const void* q, const void* k_arena,
+                          const void* v_arena, const int* table,
+                          const int* positions, void* out, int C, int H, int K,
+                          int dh, int bs, int span, int tq, float sm_scale,
+                          int window, cudaStream_t stream);
+
+}  // namespace repro_torch

@@ -1,0 +1,56 @@
+"""Dispatch of the attention kernels by where the tensors lie.
+
+A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
+tensor goes to the hand-written Hopper kernel, whose wrapper raises on
+anything it does not take.  There is no fallback from the kernel to the
+plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ref as _ref
+
+
+def _on_cuda(name: str, q: torch.Tensor) -> bool:
+    if q.is_cuda:
+        return True
+    if q.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for device "
+                     f"{q.device}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
+                           v_arena: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Paged flash-decode: q (b, H, dh) over arenas (n_blocks, bs, K, dh)
+    through block_tables (b, n_pages) for the first lengths[i] >= 1
+    positions of each row."""
+    if _on_cuda("paged_decode_attention", q):
+        return _paged.paged_decode_attention(q, k_arena, v_arena,
+                                             block_tables, lengths,
+                                             sm_scale=sm_scale)
+    return _ref.paged_decode_attention_ref(q, k_arena, v_arena, block_tables,
+                                           lengths, sm_scale=sm_scale)
+
+
+def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,
+                            v_arena: torch.Tensor, table: torch.Tensor,
+                            positions: torch.Tensor, *,
+                            sm_scale: Optional[float] = None,
+                            window: int = 0) -> torch.Tensor:
+    """Paged chunked-prefill attention: q (C, H, dh) at absolute positions
+    (C,) over the arenas through table (span,), causal."""
+    if _on_cuda("paged_prefill_attention", q):
+        return _fa.paged_prefill_attention(q, k_arena, v_arena, table,
+                                           positions, sm_scale=sm_scale,
+                                           window=window)
+    return _ref.paged_prefill_attention_ref(q, k_arena, v_arena, table,
+                                            positions, sm_scale=sm_scale,
+                                            window=window)

@@ -1,0 +1,123 @@
+"""Weights across the two packages.
+
+The reference keeps parameters as a pytree with every decoder layer's
+leaves stacked on a leading L axis; its checkpoints flatten that tree into
+a numpy dict keyed by "/"-joined paths (``train/checkpoint.py``'s
+``_flatten``: ``embed/table``, ``final_norm/scale``,
+``layers/attn/wq/w`` of shape (L, d, H·dh), ...).  :func:`load_reference`
+splits the stacked ``layers/...`` leaves along axis 0 into the port's
+per-layer modules (dense weights transposed to PyTorch's (out, in)), and
+:func:`export_reference` is its exact inverse, so weights round-trip.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import LM
+
+Arrays = Dict[str, np.ndarray]
+
+_NORMS = ("ln1", "ln2", "attn/q_norm", "attn/k_norm")
+_DENSES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wi_gate",
+           "mlp/wi_up", "mlp/wo")
+
+
+def _layer_leaves(model: LM) -> Iterator[Tuple[str, str, bool]]:
+    """(reference path under ``layers/``, port attribute path under a
+    decoder layer, is a dense weight) for every per-layer leaf the model
+    has."""
+    layer = model.layers[0]
+    for name in _NORMS:
+        mod = _get(layer, name.replace("/", "."))
+        if mod is not None:
+            yield f"{name}/scale", f"{name.replace('/', '.')}.scale", False
+    for name in _DENSES:
+        mod = _get(layer, name.replace("/", "."))
+        if mod is None:
+            continue
+        attr = name.replace("/", ".")
+        yield f"{name}/w", f"{attr}.weight", True
+        if mod.bias is not None:
+            yield f"{name}/b", f"{attr}.bias", False
+
+
+def _get(obj, dotted: str):
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+        if obj is None:
+            return None
+    return obj
+
+
+def _top_leaves(model: LM) -> Iterator[Tuple[str, str, bool]]:
+    yield "embed/table", "embed", False
+    yield "final_norm/scale", "final_norm.scale", False
+    if model.lm_head is not None:
+        yield "lm_head/w", "lm_head.weight", True
+
+
+@torch.no_grad()
+def load_reference(model: LM, arrays: Arrays) -> LM:
+    """Copy the reference's flattened params into ``model`` (its device and
+    dtype).  Every leaf of the model must be present with the reference's
+    shape; extra keys are an error too."""
+    used = set()
+
+    def put(key: str, attr_owner, attr: str, dense: bool, value) -> None:
+        dst = _get(attr_owner, attr)
+        value = np.asarray(value)
+        if value.dtype.name == "bfloat16":       # ml_dtypes: torch can't read
+            value = value.astype(np.float32)
+        src = torch.tensor(value)
+        if dense:
+            src = src.T
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{key}: reference shape {tuple(src.shape)} "
+                             f"!= port shape {tuple(dst.shape)}")
+        dst.copy_(src.to(dtype=dst.dtype, device=dst.device))
+        used.add(key)
+
+    for key, attr, dense in _top_leaves(model):
+        put(key, model, attr, dense, arrays[key])
+    for key, attr, dense in _layer_leaves(model):
+        stacked = arrays[f"layers/{key}"]
+        if stacked.shape[0] != len(model.layers):
+            raise ValueError(f"layers/{key}: {stacked.shape[0]} layers in "
+                             f"the reference, {len(model.layers)} here")
+        for i, layer in enumerate(model.layers):
+            put(f"layers/{key}", layer, attr, dense, stacked[i])
+    extra = set(arrays) - used
+    if extra:
+        raise ValueError(f"reference leaves the port has no place for: "
+                         f"{sorted(extra)}")
+    return model
+
+
+@torch.no_grad()
+def export_reference(model: LM) -> Arrays:
+    """The inverse of :func:`load_reference`: the model's weights as the
+    reference's flattened params (stacked layers, (in, out) dense
+    weights), in their own dtype on the host."""
+    def host(t: torch.Tensor, dense: bool) -> np.ndarray:
+        t = t.T if dense else t
+        return t.detach().float().cpu().numpy().astype(
+            _np_dtype(t.dtype))
+
+    out: Arrays = {}
+    for key, attr, dense in _top_leaves(model):
+        out[key] = host(_get(model, attr), dense)
+    for key, attr, dense in _layer_leaves(model):
+        out[f"layers/{key}"] = np.stack(
+            [host(_get(layer, attr), dense) for layer in model.layers])
+    return out
+
+
+def _np_dtype(dtype: torch.dtype):
+    """numpy dtype for a torch dtype; bf16 (which numpy lacks) goes out as
+    f32, which holds it exactly."""
+    if dtype == torch.bfloat16:
+        return np.float32
+    return torch.empty((), dtype=dtype).numpy().dtype

@@ -1,0 +1,212 @@
+"""Decoder-only LM over a paged KV arena — the port's counterpart of the
+paged serving functions of the reference package's
+``models/transformer.py``.
+
+One ``DecoderLayer`` module per layer in an ``nn.ModuleList`` (the
+reference stacks layers on a leading axis for ``lax.scan``).  Entry points:
+
+  * :func:`init_lm` / :func:`init_block_arena` — weights and the arena;
+  * :func:`prefill_paged_lm` — one chunk of chunked prefill;
+  * :func:`decode_paged_lm` — one batched decode step;
+  * :func:`decode_paged_multi_lm` — ``n_steps`` fused greedy steps whose
+    token feedback stays on the device (a Python loop, no host sync).
+
+The arena is written in place.  Only the dense family without sliding
+windows or M-RoPE is ported: :func:`check_supported` raises on the others.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Arena = Dict[str, torch.Tensor]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for the families later slices port."""
+    reasons = []
+    if cfg.family != "dense" or cfg.is_moe or cfg.n_enc_layers:
+        reasons.append(f"family {cfg.family!r}")
+    if cfg.sliding_window or cfg.local_global_ratio:
+        reasons.append("sliding-window attention")
+    if cfg.mrope_sections:
+        reasons.append("M-RoPE")
+    if cfg.decode_window:
+        reasons.append("append-buffer decode")
+    if reasons:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(reasons)} not ported yet")
+
+
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """(cos, sin) for ``positions`` at the config's rotary width and theta
+    (the supported family has one theta for every layer)."""
+    return L.rope_table(positions, int(cfg.d_head * cfg.partial_rotary),
+                        cfg.rope_theta)
+
+
+# =============================================================================
+# modules and init
+# =============================================================================
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
+        super().__init__()
+        self.ln1 = L.RMSNorm(cfg.d_model, cfg, device)
+        self.attn = L.Attention(cfg, device, gen)
+        self.ln2 = L.RMSNorm(cfg.d_model, cfg, device)
+        self.mlp = L.MLP(cfg, device, gen)
+
+
+class LM(nn.Module):
+    """Embedding, decoder layers, final norm, and the tied (or separate)
+    LM head over the padded vocab."""
+
+    def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(L.trunc_normal(
+            (cfg.padded_vocab, cfg.d_model), 1.0, cfg.dtype, device, gen))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device, gen)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg, device)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        L.init_dense(cfg.d_model, cfg.padded_vocab, cfg,
+                                     device, gen))
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.final_norm(x)
+        if self.lm_head is None:
+            return L.embedding_logits(self.embed, x)
+        return self.lm_head(x)
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0,
+            device: Optional[torch.device] = None) -> LM:
+    """Random weights from ``seed`` (a ``torch.Generator`` on the device),
+    with the reference's init distributions."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        model = LM(cfg, dev, gen)
+    return model.requires_grad_(False).eval()
+
+
+def init_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: Optional[torch.device] = None) -> Arena:
+    """Paged KV arena ``{"k", "v"}`` of shape (L, n_blocks, block_size, K,
+    dh): every sequence's cache is a list of fixed-size blocks carved from
+    this one allocation (``serving.kvpool`` owns the map).  Block 0 is the
+    junk sink for masked writes — never handed to a sequence."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _mlp_residual(layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
+    return x + layer.mlp(layer.ln2(x))
+
+
+# =============================================================================
+# paged forward
+# =============================================================================
+@torch.no_grad()
+def prefill_paged_lm(model: LM, tokens: torch.Tensor, arena: Arena,
+                     table: torch.Tensor, n_past: int, true_c: int
+                     ) -> torch.Tensor:
+    """One CHUNK of chunked prefill for a single sequence.
+
+    tokens: (1, C) int — the chunk, zero-padded past ``true_c``; table:
+    (span,) i32 block table of the sequence (0-padded); n_past: tokens
+    already in the arena; true_c: real chunk length.  The chunk's K/V land
+    at absolute positions ``n_past .. n_past+true_c-1`` (padded tail rows go
+    to the junk block); its queries attend causally over everything cached
+    so far — chunking changes scheduling, not math.  Writes the arena in
+    place and returns logits (1, C, V_padded)."""
+    cfg = model.cfg
+    C = tokens.shape[1]
+    bs = arena["k"].shape[2]
+    span = table.shape[0]
+    positions = torch.arange(C, dtype=torch.int32,
+                             device=tokens.device) + n_past
+    cos, sin = _rope_tables(cfg, positions)
+    valid = positions < n_past + true_c
+    page = (positions // bs).clamp(0, span - 1).long()
+    write_bid = torch.where(valid, table[page], 0).long()
+    write_off = (positions % bs).long()
+    x = L.embedding_apply(model.embed, tokens)
+    for li, layer in enumerate(model.layers):
+        x = x + L.attention_prefill_paged_apply(
+            layer.attn, layer.ln1(x), cos, sin, arena["k"][li],
+            arena["v"][li], table, positions, write_bid, write_off)
+        x = _mlp_residual(layer, x)
+    return model.logits(x)
+
+
+@torch.no_grad()
+def decode_paged_lm(model: LM, arena: Arena, tokens: torch.Tensor,
+                    tables: torch.Tensor, lengths: torch.Tensor,
+                    active: torch.Tensor) -> torch.Tensor:
+    """One batched decode step over all rows of a paged batch.
+
+    tokens: (b, 1) int; tables: (b, n_pages) i32; lengths: (b,) i32 valid
+    token counts; active: (b,) bool.  Inactive rows ride along for static
+    shapes but write into the junk block and their outputs are garbage.
+    Writes the arena in place and returns logits (b, V_padded)."""
+    cfg = model.cfg
+    bs = arena["k"].shape[2]
+    n_pages = tables.shape[1]
+    cos, sin = _rope_tables(cfg, lengths[:, None])
+    page = (lengths // bs).clamp(0, n_pages - 1).long()
+    write_bid = torch.where(active, tables.gather(1, page[:, None])[:, 0],
+                            0).long()
+    write_off = torch.where(active, lengths % bs, 0).long()
+    x = L.embedding_apply(model.embed, tokens)
+    for li, layer in enumerate(model.layers):
+        x = x + L.attention_decode_paged_apply(
+            layer.attn, layer.ln1(x), cos, sin, arena["k"][li],
+            arena["v"][li], tables, lengths, write_bid, write_off)
+        x = _mlp_residual(layer, x)
+    return model.logits(x)[:, 0, :]
+
+
+@torch.no_grad()
+def decode_paged_multi_lm(model: LM, arena: Arena, tokens: torch.Tensor,
+                          tables: torch.Tensor, lengths: torch.Tensor,
+                          active: torch.Tensor, n_steps: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """``n_steps`` fused greedy decode steps over a paged batch — the
+    device-resident decode loop.
+
+    Each iteration is exactly one :func:`decode_paged_lm` step followed by
+    the greedy feedback: the argmax token becomes the next input for active
+    rows and their lengths advance by one, all on the device, so the host
+    never waits on intermediate state.  Inactive rows keep their token and
+    length and write into the junk block.  The caller guarantees every
+    active row's block table covers ``lengths + n_steps`` positions and no
+    row finishes mid-loop.
+
+    tokens: (b, 1) i32.  Returns ``(toks (n_steps, b) i32, next (b, 1) i32,
+    lengths (b,) i32)``; the arena is written in place."""
+    act_col = active[:, None]
+    act_i = active.to(torch.int32)
+    nxt, ln = tokens, lengths
+    toks = []
+    for _ in range(n_steps):
+        logits = decode_paged_lm(model, arena, nxt, tables, ln, active)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        nxt = torch.where(act_col, tok[:, None], nxt)
+        ln = ln + act_i
+        toks.append(tok)
+    return torch.stack(toks), nxt, ln

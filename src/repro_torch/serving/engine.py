@@ -1,0 +1,1206 @@
+"""Real-execution serving engine over a PAGED KV arena — the port's
+counterpart of the reference package's ``serving/engine.py`` with
+``kv_layout="paged"``.
+
+Every ``PagedInstance`` owns one block arena (``models.registry.
+make_block_arena``) mapped by the ``serving.kvpool`` allocator: sequences
+hold exactly the fixed-size blocks their tokens need, admission is by block
+availability, a radix prefix cache lets requests share prompt-prefix blocks
+by refcount, prefill is chunked (long prompts advance one chunk per tick,
+interleaved with decode), and attention reads K/V through block tables —
+the Hopper kernels of ``kernels/`` on the GPU, their plain versions on the
+CPU.
+
+The serving surface is the ``ServingBackend`` protocol (``serving.api``):
+``submit`` typed :class:`InferenceRequest`s, ``step`` one scheduler tick,
+``drain`` to completion, ``stats`` for the session aggregates, with
+pluggable admission policies, per-request energy attribution (per-request
+joules sum to the session total), open-loop arrivals, and the
+device-resident decode loop: loop state stays on the device, greedy tokens
+feed back on the device, a fused dispatch runs ``fused_steps`` steps, and
+token readbacks land a tick later through pinned host buffers.
+
+How the JAX-specific parts of the reference translate:
+
+  * the donated arena becomes in-place ``index_put_`` writes into the
+    (L, n_blocks, bs, K, dh) arena tensors;
+  * ``copy_to_host_async`` becomes a ``non_blocking`` copy into a pinned
+    host buffer with a CUDA event recorded after it (:class:`_Readback`);
+    landing waits on that event only;
+  * ``jnp.asarray`` uploads become pinned ``non_blocking`` host→device
+    copies (:func:`_h2d`), counted as ``h2d_transfers`` exactly as the
+    reference counts them;
+  * ``warmup`` and the shape-key bookkeeping stay, so ``compile_retraces``
+    keeps its meaning; eager PyTorch compiles nothing, so it stays 0.
+
+Not ported yet, and refused with ``NotImplementedError``: the slotted
+layout, preemption and swap, ``mesh=``/``roles=`` (sharding and
+disaggregation), ``telemetry=`` and ``quality_selector=``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import perf_model as PM
+from repro_torch.core.catalog import Variant
+from repro_torch.models import registry as R
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs import MetricsRegistry, PhaseProfiler
+from repro_torch.serving.api import DONE, InferenceRequest, \
+    InferenceResponse, serve_prompts
+from repro_torch.serving.kvpool import BlockAllocator, RadixPrefixCache
+from repro_torch.serving.policies import SchedulerPolicy, make_policy
+from repro_torch.serving.scheduler import SchedulerCore, latency_percentile
+
+__all__ = ["latency_percentile", "EngineVariant", "build_engine_family",
+           "PagedInstance", "RealEngine"]
+
+
+@dataclasses.dataclass
+class EngineVariant:
+    variant: Variant
+    cfg: ModelConfig
+    params: R.LM
+
+
+def build_engine_family(base_cfg: ModelConfig, fracs=(1.0, 0.5, 0.25),
+                        seed: int = 0,
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> List[EngineVariant]:
+    """Instantiate a real quality ladder by depth reduction, with random
+    weights from ``seed`` on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    out = []
+    for i, frac in enumerate(sorted(fracs)):
+        n_layers = max(int(base_cfg.n_layers * frac), 1)
+        cfg = base_cfg.with_(n_layers=n_layers,
+                             name=f"{base_cfg.name}-x{frac:g}")
+        params = R.init_params(cfg, seed=seed, device=dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        v = Variant(family=base_cfg.name, name=f"x{frac:g}", quality=i + 1,
+                    accuracy=0.80 + 0.05 * i, flops_g=n_params * 2 / 1e9,
+                    params_m=n_params / 1e6, mem_gb=n_params * 4 / 2**30 + 0.1)
+        out.append(EngineVariant(v, cfg, params))
+    return out
+
+
+def _pow2_bucket(n: int, cap: int) -> int:
+    """Smallest power of two ≥ n, clamped to ``cap`` — ALWAYS a member of
+    ``_bucket_ladder(cap)``, so a shape chosen at serve time is guaranteed
+    to be one that warmup ran."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+def _bucket_ladder(cap: int) -> List[int]:
+    """All values ``_pow2_bucket`` can produce for a given cap: powers of
+    two below it, plus the cap itself.  Warmup walks exactly this ladder."""
+    out: List[int] = []
+    b = 1
+    while b < cap:
+        out.append(b)
+        b *= 2
+    out.append(cap)
+    return out
+
+
+def _h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host→device upload of a loop-state buffer.  On CUDA the array is
+    staged in pinned memory and copied ``non_blocking`` (a copy from
+    pageable memory would block the host until the stream drains); on the
+    CPU it is copied, so later host edits never alias it."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
+
+
+class _Readback:
+    """An asynchronous device→host copy of a small tensor: on CUDA a
+    ``non_blocking`` copy into a pinned buffer with an event recorded after
+    it, so the host only waits on that event when it lands the value; on
+    the CPU the tensor itself."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = t, None
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+@dataclasses.dataclass
+class _PendingDecode:
+    """One dispatched-but-not-landed decode call of the pipelined loop: the
+    (k, B) greedy-token readback in flight, the dispatch-time (seq, row)
+    snapshot that maps token columns back to sequences, and enough
+    accounting to charge the work when it lands.  Landing in a LATER tick
+    than ``tick_id`` means the readback overlapped a full tick of host work
+    (free); landing in the same tick is a forced flush and counts as a
+    ``host_syncs`` blocking round-trip."""
+    toks: _Readback                       # (k, B) i32
+    rows: List[Tuple["_PagedSeq", int]]   # (seq, dispatch-time row)
+    k: int
+    occupied: int
+    dispatch_s: float
+    tick_id: int
+
+
+@dataclasses.dataclass
+class _PendingFirst:
+    """A prefill's first generated token, still on the device: the final
+    chunk's last-position argmax with its readback in flight.  The device
+    scalar is written into the uploaded ``next`` buffer whenever loop state
+    is pushed (so decode never waits on its value); the host only reads it
+    to record ``seq.tokens[0]`` — one tick later, or immediately (a counted
+    sync) when the request is n_new == 1."""
+    seq: "_PagedSeq"
+    tok: torch.Tensor                     # () i32 on the device
+    host: _Readback
+    tick_id: int
+
+
+def _tick_info(prefill_s: float = 0.0, decode_s: float = 0.0,
+               decode_steps: int = 0, occupied: int = 0,
+               blocks_in_use: int = 0, prefill_rids=None, decode_rids=None,
+               emitted=None) -> Dict[str, object]:
+    return {"prefill_s": prefill_s, "decode_s": decode_s,
+            "decode_steps": decode_steps, "occupied": occupied,
+            "blocks_in_use": blocks_in_use,
+            "prefill_rids": prefill_rids or [],   # [(rid, seconds), ...]
+            "decode_rids": decode_rids or [],     # rows sharing the decode
+            "emitted": emitted or []}             # [(rid, token), ...]
+
+
+def _note_shape(inst, key: Tuple) -> None:
+    """Retrace accounting: every entry the serve loop hits registers its
+    shape key here; a key not pre-seeded by ``warmup`` (``inst._shapes``)
+    is a post-warmup shape miss — the event the bucket ladders exist to
+    prevent — and increments the instance's lifetime ``retraces`` counter
+    (sessions report the delta)."""
+    if key not in inst._shapes:
+        inst._shapes.add(key)
+        inst.retraces += 1
+
+
+# disabled-by-default phase profiler: instances constructed outside a
+# RealEngine observe into this shared no-op (registry=None) shim; the
+# engine overrides ``inst.profiler`` with its own at configure()
+_NULL_PROFILER = PhaseProfiler()
+
+
+@dataclasses.dataclass
+class _PagedSeq:
+    """Host-side state of one sequence in a paged instance.
+
+    Carries the request's scheduling metadata (``priority``/``slo``/
+    ``deadline_s``) plus a stable admission counter ``seq``, matching the
+    attribute contract of ``scheduler._Entry`` — so the engine's active
+    :class:`~repro_torch.serving.policies.SchedulerPolicy` can order the
+    instance-level chunked-prefill queue with the same ``select`` it uses
+    for admission."""
+    rid: int
+    t_arrival: float
+    prompt: np.ndarray
+    n_new: int
+    row: int                        # batch row (static decode shape)
+    blocks: List[int]               # owned block refs (shared prefix + fresh)
+    n_done: int                     # prompt tokens whose K/V are in the arena
+    cached_tokens: int              # prefix-cache hit size at admission
+    remaining: int = 0
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    t_first: Optional[float] = None
+    priority: int = 0
+    pending_steps: int = 0          # decode steps dispatched but not landed
+                                    # (``remaining`` is decremented at
+                                    # DISPATCH; completion waits for landing)
+    pending_first: Optional[_PendingFirst] = None
+    slo: str = "interactive"
+    deadline_s: Optional[float] = None
+    seq: int = 0                    # admission order (policy tie-break)
+
+    @property
+    def prefilled(self) -> bool:
+        return self.n_done >= len(self.prompt)
+
+
+class PagedInstance:
+    """One serving instance over a paged KV arena.
+
+    Memory is ``n_blocks`` fixed-size blocks (``kvpool.BlockAllocator`` owns
+    the map); a sequence holds exactly ``ceil((prompt+n_new)/block_size)``
+    blocks, minus whatever the radix prefix cache already has.  The decode
+    batch is ``max_seqs`` static rows; admission is bounded by *blocks*, not
+    rows."""
+
+    profiler: PhaseProfiler = _NULL_PROFILER
+
+    def __init__(self, ev: EngineVariant, chips: int, n_blocks: int,
+                 block_size: int = 16, max_seqs: int = 8, max_len: int = 96,
+                 chunk_blocks: int = 2, prefix_caching: bool = True,
+                 cache_watermark: float = 0.25, chunk_burst: int = 4,
+                 policy: Optional[SchedulerPolicy] = None,
+                 pipeline: bool = True, fused_steps: int = 8):
+        self.ev = ev
+        self.chips = chips
+        self.params = ev.params
+        self.device = next(ev.params.parameters()).device
+        self.block_size = block_size
+        self.max_len = max_len
+        self.max_seqs = max_seqs
+        self.n_pages = -(-max_len // block_size)
+        self.chunk_tokens = chunk_blocks * block_size
+        self.chunk_burst = chunk_burst   # max prefill chunks per tick when
+                                         # the batch is decode-starved
+        # keep this fraction of the arena free of *cache-only* blocks: a
+        # tree that grows to fill the arena makes every admission evict —
+        # and LRU eviction under full-arena pressure throws away exactly
+        # the chains the next FIFO request was about to hit (cache thrash)
+        self.cache_watermark = cache_watermark
+        # the engine's admission policy also orders THIS instance's chunked-
+        # prefill queue (None / is_fifo → admission-order)
+        self.policy = policy
+        self.arena = R.make_block_arena(ev.cfg, n_blocks, block_size,
+                                        dtype=torch.float32,
+                                        device=self.device)
+        self.alloc = BlockAllocator(n_blocks, block_size)
+        self.prefix: Optional[RadixPrefixCache] = (
+            RadixPrefixCache(self.alloc) if prefix_caching else None)
+        self.rows: List[Optional[_PagedSeq]] = [None] * max_seqs
+        self.tables = np.zeros((max_seqs, self.n_pages), np.int32)
+        self.lengths = np.zeros((max_seqs,), np.int32)
+        self._next = np.zeros((max_seqs, 1), np.int32)
+        self._prefillq: Deque[_PagedSeq] = deque()
+        self._adm_seq = 0                # admission counter (policy tie-break)
+        self.prefill_chunks = 0
+        self.prefix_hit_tokens = 0
+        self._shapes: set = set()        # shape keys seen (see _note_shape)
+        self.retraces = 0                # lifetime post-warmup shape misses
+        # --- device-resident decode hot path ---------------------------------
+        # ``pipeline=False`` is the synchronous reference loop: loop state is
+        # re-uploaded every tick and every dispatch lands in its own tick —
+        # kept as the greedy-parity oracle.
+        self.pipeline = pipeline
+        self.fused_steps = max(int(fused_steps), 1)
+        # device mirrors of (next, tables, lengths, active): uploaded only
+        # when an EVENT (admission, prefill completion, release, compaction)
+        # dirties the host copies — steady-state decode runs on the device
+        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self._dev_B = 0
+        self._dev_active: Optional[np.ndarray] = None
+        self._dirty = True
+        self._inflight: Deque[_PendingDecode] = deque()
+        self._pending_first: List[_PendingFirst] = []
+        self._tick_id = 0
+        # per-tick landing accumulators (reset at each tick() entry)
+        self._ev_emitted: List[Tuple[int, int]] = []
+        self._ev_finished: List[_PagedSeq] = []
+        self._ld_s = 0.0                 # landed decode seconds this tick
+        self._ld_steps = 0
+        self._ld_occ = 0
+        self._ld_rids: List[int] = []
+        # host↔device traffic + dispatch counters (lifetime; session deltas)
+        self.host_syncs = 0
+        self.h2d_transfers = 0
+        self.decode_dispatches = 0
+
+    # --- lifecycle -----------------------------------------------------------
+    def reset(self) -> None:
+        """Recycle from the warm pool: fresh allocator/prefix state; arena
+        contents are stale but unreachable (no tables point at them)."""
+        self.alloc = BlockAllocator(self.alloc.n_blocks, self.block_size)
+        if self.prefix is not None:
+            self.prefix = RadixPrefixCache(self.alloc)
+        self.rows = [None] * self.max_seqs
+        self.tables[:] = 0
+        self.lengths[:] = 0
+        self._next[:] = 0
+        self._prefillq.clear()
+        self._inflight.clear()
+        self._pending_first.clear()
+        self._dev = None
+        self._dev_B = 0
+        self._dev_active = None
+        self._dirty = True
+
+    def _put(self, arr: np.ndarray) -> torch.Tensor:
+        return _h2d(arr, self.device)
+
+    def warmup(self) -> None:
+        """Run every shape the serve loop can reach — the (single) prefill
+        chunk size at every KV-span page bucket, and per power-of-two row
+        bucket (``_row_buckets``) the fused decode at both step counts the
+        loop dispatches (k = 1 and k = ``fused_steps``) — and seed the
+        shape keys ``_note_shape`` checks.  ``true_c = 0`` / an all-False
+        mask route every warmup write to the junk block, so logical state
+        is untouched."""
+        dummy = torch.zeros((1, self.chunk_tokens), dtype=torch.int32,
+                            device=self.device)
+        for span in self._page_buckets():
+            self._shapes.add(("prefill_paged", span))
+            R.prefill_paged(self.params, {"tokens": dummy}, self.arena,
+                            torch.zeros((span,), dtype=torch.int32,
+                                        device=self.device), 0, 0)
+        ks = sorted({1, self.fused_steps})
+        for B in self._row_buckets():
+            for k in ks:
+                self._shapes.add(("decode_multi", B, k))
+                R.decode_paged_multi(
+                    self.params, self.arena,
+                    {"tokens": self._put(self._next[:B])},
+                    self._put(self.tables[:B]), self._put(self.lengths[:B]),
+                    self._put(np.zeros((B,), bool)), k)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # --- capacity ------------------------------------------------------------
+    @property
+    def occupied(self) -> int:
+        return sum(1 for s in self.rows if s is not None)
+
+    @property
+    def capacity(self) -> int:
+        return self.max_seqs
+
+    @property
+    def busy(self) -> bool:
+        return self.occupied > 0
+
+    def _avail_blocks(self) -> int:
+        return self.alloc.num_free + (self.prefix.evictable_blocks()
+                                      if self.prefix else 0)
+
+    def admission_signature(self) -> Tuple:
+        """Free-capacity fingerprint for admission gating: a failed
+        block-aware admission is only re-attempted once the allocator state
+        (free list OR any refcount) or a batch row changed."""
+        return (sum(1 for s in self.rows if s is None), self.alloc.version)
+
+    def can_admit(self, prompt_len: int, n_new: int) -> bool:
+        """Admission control by BLOCK availability: a free batch row plus
+        enough free-or-evictable blocks for the worst case (no prefix hit)
+        of the WHOLE sequence."""
+        assert prompt_len + n_new <= self.max_len, \
+            f"prompt {prompt_len} + n_new {n_new} > max_len {self.max_len}"
+        need = self.alloc.blocks_for_tokens(prompt_len + n_new)
+        assert need <= self.alloc.num_allocatable, \
+            f"request needs {need} blocks > arena {self.alloc.num_allocatable}"
+        if all(s is not None for s in self.rows):
+            return False
+        return self._avail_blocks() >= need
+
+    # --- admission -----------------------------------------------------------
+    def admit_next(self, rid: int, t_arrival: float, prompt: np.ndarray,
+                   n_new: int, priority: int = 0, slo: str = "interactive",
+                   deadline_s: Optional[float] = None
+                   ) -> Tuple[_PagedSeq, float]:
+        """Reserve blocks + a batch row; NO forward pass happens here —
+        prefill is chunked across subsequent ticks.  Shared prompt-prefix
+        blocks come from the radix cache already prefilled."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        true_len = int(prompt.shape[0])
+        row = self.rows.index(None)
+        matched: List[int] = []
+        n_cached = 0
+        if self.prefix is not None:
+            matched, n_cached = self.prefix.match(prompt)
+        need = self.alloc.blocks_for_tokens(true_len + n_new) - len(matched)
+        if need > self.alloc.num_free and self.prefix is not None:
+            self.prefix.evict(need - self.alloc.num_free)
+        blocks = matched + self.alloc.alloc(need)
+        seq = _PagedSeq(rid, t_arrival, prompt, n_new, row, blocks,
+                        n_done=n_cached, cached_tokens=n_cached,
+                        remaining=n_new, priority=priority, slo=slo,
+                        deadline_s=deadline_s, seq=self._adm_seq)
+        self._adm_seq += 1
+        self.tables[row, :len(blocks)] = blocks
+        self.tables[row, len(blocks):] = 0
+        self.lengths[row] = 0            # row inactive until prefill completes
+        self._next[row, 0] = 0
+        self.rows[row] = seq
+        self._prefillq.append(seq)
+        self.prefix_hit_tokens += n_cached
+        self._dirty = True               # admission event: mirrors changed
+        return seq, 0.0
+
+    def _release(self, seq: _PagedSeq) -> None:
+        self.alloc.free(seq.blocks)      # decref: prefix-tree refs survive
+        self.rows[seq.row] = None
+        self.tables[seq.row, :] = 0
+        self.lengths[seq.row] = 0
+        self._next[seq.row, 0] = 0
+        self._compact(seq.row)
+        self._dirty = True               # release event: mirrors changed
+        self._enforce_watermark()
+
+    def _compact(self, hole: int) -> None:
+        """Keep occupied rows a contiguous prefix: move the highest occupied
+        row into the freed hole (host bookkeeping only — arena blocks never
+        move), so ``tick`` decodes over a power-of-two row bucket instead of
+        all ``max_seqs`` static rows."""
+        last = max((i for i, s in enumerate(self.rows) if s is not None),
+                   default=-1)
+        if last <= hole:
+            return
+        seq = self.rows[last]
+        self.rows[hole], self.rows[last] = seq, None
+        seq.row = hole
+        self.tables[hole] = self.tables[last]
+        self.tables[last, :] = 0
+        self.lengths[hole] = self.lengths[last]
+        self.lengths[last] = 0
+        self._next[hole, 0] = self._next[last, 0]
+        self._next[last, 0] = 0
+
+    def _row_buckets(self) -> List[int]:
+        """Decode-batch buckets: the ``_bucket_ladder`` over ``max_seqs``."""
+        return _bucket_ladder(self.max_seqs)
+
+    def _page_buckets(self) -> List[int]:
+        """Prefill KV-span buckets: the ``_bucket_ladder`` over ``n_pages``.
+        A chunk's queries can only see the first ``n_past + true_c``
+        positions, so the table is sliced to the smallest covering
+        bucket."""
+        return _bucket_ladder(self.n_pages)
+
+    def _enforce_watermark(self) -> None:
+        """Trim cache-only blocks until the free watermark holds, so the
+        next admission draws from the free list instead of fighting the
+        tree for whatever LRU eviction happens to surrender."""
+        if self.prefix is None:
+            return
+        target = int(self.cache_watermark * self.alloc.num_allocatable)
+        if self.alloc.num_free < target:
+            self.prefix.evict(target - self.alloc.num_free)
+
+    # --- serving -------------------------------------------------------------
+    def _prefill_chunk(self, seq: _PagedSeq) -> None:
+        """Advance one chunk of ``seq``'s prompt through the arena.  The
+        final chunk's last-position logits yield the first generated token
+        (never discarded), and the prompt's full blocks register in the
+        prefix tree for future sharing.  The first token STAYS ON THE
+        DEVICE: its argmax is dispatched with an async readback and the
+        host records its value through the pipelined landing path."""
+        start = seq.n_done
+        true_c = min(self.chunk_tokens, len(seq.prompt) - start)
+        padded = np.zeros((1, self.chunk_tokens), np.int32)
+        padded[0, :true_c] = seq.prompt[start:start + true_c]
+        # slice the visible KV span to its page bucket: this chunk's queries
+        # end at start + true_c, so later pages are causally invisible
+        span = _pow2_bucket(-(-(start + true_c) // self.block_size),
+                            self.n_pages)
+        _note_shape(self, ("prefill_paged", span))
+        self.h2d_transfers += 2          # padded chunk + table-slice uploads
+        logits = R.prefill_paged(self.params, {"tokens": self._put(padded)},
+                                 self.arena,
+                                 self._put(self.tables[seq.row][:span]),
+                                 start, true_c)
+        seq.n_done += true_c
+        self.prefill_chunks += 1
+        if seq.prefilled:
+            tok = logits[0, true_c - 1].argmax().to(torch.int32)
+            pf = _PendingFirst(seq, tok, _Readback(tok), self._tick_id)
+            self._pending_first.append(pf)
+            seq.pending_first = pf
+            seq.remaining -= 1
+            seq.t_first = time.perf_counter()
+            self.lengths[seq.row] = len(seq.prompt)
+            self._dirty = True           # row activation: mirrors changed
+            if self.prefix is not None:
+                self.prefix.insert(seq.prompt, seq.blocks)
+
+    # --- pipelined landing ----------------------------------------------------
+    def _land_first(self, pf: _PendingFirst) -> None:
+        """Record a pending first token on the host.  Landing in the tick
+        that created it is a forced (blocking) round-trip and counts as a
+        ``host_syncs``; landing later overlapped host work for free."""
+        seq = pf.seq
+        if pf.tick_id == self._tick_id:
+            self.host_syncs += 1
+        first = int(pf.host.numpy())
+        seq.tokens.append(first)         # tokens[0]: decode landings wait
+        self._ev_emitted.append((seq.rid, first))
+        seq.pending_first = None
+        if pf in self._pending_first:
+            self._pending_first.remove(pf)
+        if self.rows[seq.row] is seq:
+            self._next[seq.row, 0] = first
+
+    def _land_item(self, item: _PendingDecode) -> None:
+        """Land one dispatched decode call: wait for its (k, B) token
+        readback, append tokens in dispatch order, advance the landing
+        accumulators, and complete sequences whose final tokens arrived.
+        A sequence's pending first token (if any) lands first — per-request
+        token order is part of the greedy-parity contract."""
+        if item.tick_id == self._tick_id:
+            self.host_syncs += 1         # same-tick landing: no overlap
+        t0 = time.perf_counter()
+        toks = item.toks.numpy()         # waits for the readback's event
+        t_land = time.perf_counter() - t0
+        self._ld_s += item.dispatch_s + t_land
+        self.profiler.observe("decode_dispatch", item.dispatch_s)
+        self.profiler.observe("decode_land", t_land)
+        self._ld_steps += item.k
+        self._ld_occ = max(self._ld_occ, item.occupied)
+        done: List[_PagedSeq] = []
+        for s, col in item.rows:
+            if s.pending_first is not None:
+                self._land_first(s.pending_first)
+            self._ld_rids.append(s.rid)
+            for i in range(item.k):
+                t = int(toks[i, col])
+                s.tokens.append(t)
+                self._ev_emitted.append((s.rid, t))
+            s.pending_steps -= item.k
+            self._next[s.row, 0] = int(toks[item.k - 1, col])
+            if s.remaining <= 0 and s.pending_steps <= 0:
+                done.append(s)
+        for s in done:                   # release AFTER the sweep: _compact
+            self._ev_finished.append(s)  # moves rows and would skew columns
+            self._release(s)
+
+    def _land_ready(self) -> None:
+        """Collect readbacks dispatched BEFORE this tick — they overlapped
+        at least one full tick of host work, so these landings are free (no
+        ``host_syncs``)."""
+        for pf in list(self._pending_first):
+            if pf.tick_id < self._tick_id:
+                self._land_first(pf)
+        while self._inflight and self._inflight[0].tick_id < self._tick_id:
+            self._land_item(self._inflight.popleft())
+
+    def _flush_decodes(self) -> None:
+        """Force-land every in-flight decode call (upload precondition:
+        host mirrors must equal device state).  Pending FIRST tokens stay
+        pending — the upload writes their device scalars into ``next``
+        instead of waiting on them."""
+        while self._inflight:
+            self._land_item(self._inflight.popleft())
+
+    def _flush_all(self) -> None:
+        """Force-land everything, first tokens included (the synchronous
+        reference loop)."""
+        self._flush_decodes()
+        for pf in list(self._pending_first):
+            self._land_first(pf)
+
+    def _upload(self, B: int, active: np.ndarray) -> None:
+        """Push fresh loop state (next, tables, lengths, active) for row
+        bucket ``B`` — the EVENT path.  Unlanded first tokens are written
+        into the uploaded ``next`` buffer as device scalars, so a prefill
+        completion never blocks the loop on its own argmax."""
+        assert not self._inflight, "upload with stale in-flight decodes"
+        nxt = self._put(self._next[:B])
+        for pf in self._pending_first:
+            nxt[pf.seq.row, 0] = pf.tok
+        self._dev = {"next": nxt,
+                     "tables": self._put(self.tables[:B]),
+                     "lengths": self._put(self.lengths[:B]),
+                     "active": self._put(active[:B])}
+        self.h2d_transfers += 4
+        self._dev_B = B
+        self._dev_active = active[:B].copy()
+        self._dirty = False
+
+    def _choose_k(self, act_rows: List[_PagedSeq]) -> int:
+        """Fused-dispatch step count: ``fused_steps`` when every active row
+        can absorb k on-device steps with zero host intervention — no
+        prefill work queued, ``remaining >= k``, and block-table headroom
+        for k more tokens — else 1.  Fusion equals k single steps, so
+        eligibility only shapes dispatch granularity, never tokens."""
+        k = self.fused_steps
+        if k <= 1 or not self.pipeline or self._prefillq:
+            return 1
+        bs = self.block_size
+        for s in act_rows:
+            if (s.remaining < k
+                    or len(s.blocks) * bs < int(self.lengths[s.row]) + k):
+                return 1
+        return k
+
+    def _decodable(self) -> int:
+        return sum(1 for s in self.rows
+                   if s is not None and s.prefilled and s.remaining > 0)
+
+    def _next_prefill(self, now: Optional[float]) -> int:
+        """Index into ``_prefillq`` of the next chunk to advance, delegated
+        to the engine's admission policy (FIFO or no policy: the head)."""
+        if (self.policy is None or getattr(self.policy, "is_fifo", False)
+                or len(self._prefillq) == 1):
+            return 0
+        return self.policy.select_prefill(list(self._prefillq), now)
+
+    def tick(self, now: Optional[float] = None, allow_fused: bool = True
+             ) -> Tuple[List[_PagedSeq], Dict[str, object]]:
+        """One scheduler tick of the PIPELINED decode loop: an adaptive
+        prefill budget, then one batched decode DISPATCH over all decoding
+        rows (fused to ``fused_steps`` device-fed steps when eligible),
+        then the LANDING of whatever readbacks finished overlapping earlier
+        ticks.  ``now`` is the engine's session-relative clock, passed
+        through to the policy ordering the prefill queue.
+
+        Steady state touches the host ZERO times per tick: loop state lives
+        on the device (``_dev``), the greedy token feeds back on the device,
+        and tick N's (k, B) token block lands while tick N+1's dispatch is
+        already queued.  Only EVENTS (admission, prefill completion,
+        release) dirty the mirrors and trigger a flush + one re-upload.
+
+        Prefill policy: while the batch is decode-starved (fewer decodable
+        rows than half the row capacity), burst up to ``chunk_burst``
+        policy-ordered chunks, and back off to a SINGLE chunk per tick once
+        decode concurrency is healthy."""
+        self._tick_id += 1
+        self._ev_emitted = []
+        self._ev_finished = []
+        self._ld_s = 0.0
+        self._ld_steps = 0
+        self._ld_occ = 0
+        self._ld_rids = []
+        prefill_rids: List[Tuple[int, float]] = []
+        prefill_s = 0.0
+        burst = 0
+        while self._prefillq and burst < self.chunk_burst:
+            if burst > 0 and self._decodable() >= max(
+                    1, min(self.occupied, self.max_seqs // 2)):
+                break                            # decode is busy: yield
+            qi = self._next_prefill(now)
+            seq = self._prefillq[qi]
+            tc = time.perf_counter()
+            self._prefill_chunk(seq)
+            dtc = time.perf_counter() - tc
+            prefill_rids.append((seq.rid, dtc))
+            prefill_s += dtc
+            burst += 1
+            if seq.prefilled:
+                del self._prefillq[qi]
+                if seq.remaining <= 0:           # n_new == 1: the request IS
+                    self._land_first(seq.pending_first)  # its first token
+                    self._ev_finished.append(seq)
+                    self._release(seq)
+        active = np.array([s is not None and s.prefilled and s.remaining > 0
+                           for s in self.rows])
+        occ = int(active.sum())
+        B = self._dev_B
+        if occ:
+            # occupied rows are a compact prefix (see _compact): decode over
+            # the smallest power-of-two row bucket covering them
+            B = _pow2_bucket(self.occupied, self.max_seqs)
+            if (self._dirty or self._dev is None or B != self._dev_B
+                    or not self.pipeline
+                    or not np.array_equal(active[:B], self._dev_active)):
+                # EVENT path: land in-flight work (mirrors must equal the
+                # device state), then push fresh loop state once
+                self._flush_decodes()    # may release rows -> recompute
+                active = np.array([s is not None and s.prefilled
+                                   and s.remaining > 0 for s in self.rows])
+                occ = int(active.sum())
+                if occ:
+                    B = _pow2_bucket(self.occupied, self.max_seqs)
+                    self._upload(B, active)
+        if occ:
+            act_rows = [s for s in self.rows[:B]
+                        if s is not None and s.prefilled and s.remaining > 0]
+            k = self._choose_k(act_rows) if allow_fused else 1
+            _note_shape(self, ("decode_multi", B, k))
+            t1 = time.perf_counter()
+            toks, nxt, ln = R.decode_paged_multi(
+                self.params, self.arena, {"tokens": self._dev["next"]},
+                self._dev["tables"], self._dev["lengths"],
+                self._dev["active"], k)
+            self._dev["next"], self._dev["lengths"] = nxt, ln
+            readback = _Readback(toks)
+            dispatch_s = time.perf_counter() - t1
+            self.decode_dispatches += 1
+            for s in act_rows:           # predictive mirrors: decremented at
+                s.remaining -= k         # dispatch; truth lands later
+                s.pending_steps += k
+                self.lengths[s.row] += k
+            self._inflight.append(_PendingDecode(
+                readback, [(s, s.row) for s in act_rows], k, occ, dispatch_s,
+                self._tick_id))
+        # LANDING: readbacks dispatched before this tick overlapped a full
+        # tick of host work — collect them for free; the synchronous
+        # reference mode (pipeline=False) lands everything immediately
+        if self.pipeline:
+            self._land_ready()
+        else:
+            self._flush_all()
+        return self._ev_finished, _tick_info(
+            prefill_s=prefill_s, decode_s=self._ld_s,
+            decode_steps=self._ld_steps, occupied=self._ld_occ,
+            blocks_in_use=self.alloc.blocks_in_use(),
+            prefill_rids=prefill_rids, decode_rids=self._ld_rids,
+            emitted=self._ev_emitted)
+
+
+# =============================================================================
+# engine
+# =============================================================================
+class _Session:
+    """One serve session's bookkeeping: the policy queue, the open-loop
+    release schedule, per-request energy meters, the admission gate, and
+    the aggregate counters ``stats`` reports."""
+
+    def __init__(self, core: SchedulerCore, instances,
+                 registry: MetricsRegistry) -> None:
+        self.core = core
+        self.registry = registry
+        self.t0 = time.perf_counter()
+        self.future: List[Tuple[float, int, int]] = []   # (t_abs, seq, rid)
+        self._fseq = 0
+        self.requests: Dict[int, InferenceRequest] = {}
+        self.meters: Dict[int, float] = {}
+        self.admit_gate: Dict[int, Tuple] = {}           # id(inst) → (rid, sig)
+        self.admit_t: Dict[int, float] = {}
+        self.responses: List[InferenceResponse] = []
+        self.energy = 0.0
+        self.decode_steps = 0
+        self.occ_frac_sum = 0.0
+        self.inflight_sum = 0
+        self.admitted_sum = 0
+        self.tick_samples = 0
+        self.blocks_peak = 0
+        self.progressed = False
+        # wall seconds already charged per instance (prefill + decode); the
+        # remainder of the serve wall is charged at idle power at drain, so
+        # an allocated-but-idle instance is never free
+        self.accounted_s = {id(i): 0.0 for i in instances}
+        # instance counters are lifetime (they survive reset/warm reuse);
+        # stats report THIS session's delta
+        self.counters0 = {name: sum(getattr(i, name) for i in instances)
+                          for name in _INSTANCE_COUNTERS}
+
+    def schedule(self, req: InferenceRequest) -> None:
+        if req.arrival_s is None:
+            self.core.submit(req.rid, self.t0, priority=req.priority,
+                             deadline_s=req.deadline_s, slo=req.slo)
+        else:
+            heapq.heappush(self.future,
+                           (self.t0 + float(req.arrival_s), self._fseq,
+                            req.rid))
+            self._fseq += 1
+
+    def rel(self, now: float) -> float:
+        """Session-relative seconds — the clock policies see."""
+        return now - self.t0
+
+
+# lifetime instance counters a session reports as deltas, by stats name
+_INSTANCE_COUNTERS = {"prefill_chunks": "prefill_chunks",
+                      "prefix_hit_tokens": "prefix_hit_tokens",
+                      "retraces": "compile_retraces",
+                      "host_syncs": "host_syncs",
+                      "h2d_transfers": "h2d_transfers",
+                      "decode_dispatches": "decode_dispatches"}
+
+
+class RealEngine:
+    """Maps a ConfigGraph onto paged instances and serves
+    :class:`InferenceRequest`s with continuous batching through the
+    ``ServingBackend`` protocol, measuring wall latencies and attributing
+    occupancy-scaled energy (the reference's power model,
+    ``core.perf_model``) and carbon (``ci_g_per_kwh``) per request.
+
+    ``device`` is where the family's weights live (the GPU by default; the
+    CPU on request).  The reference's ``kv_layout="slotted"``,
+    ``preemption``, ``telemetry``, ``quality_selector``, ``mesh`` and
+    ``roles`` are not ported yet and raise ``NotImplementedError``."""
+
+    def __init__(self, family: Sequence[EngineVariant], n_slots: int = 4,
+                 max_len: int = 96, *, kv_layout: str = "paged",
+                 block_size: int = 16, n_blocks: Optional[int] = None,
+                 max_seqs: Optional[int] = None, chunk_blocks: int = 2,
+                 prefix_caching: bool = True,
+                 policy: Union[str, SchedulerPolicy, None] = "fifo",
+                 preemption: bool = False, ci_g_per_kwh: float = 0.0,
+                 telemetry=None, decode_pipeline: bool = True,
+                 fused_steps: int = 8, quality_selector=None, mesh=None,
+                 roles=None,
+                 device: Optional[Union[str, torch.device]] = None):
+        unported = {"kv_layout='slotted'": kv_layout == "slotted",
+                    "preemption": preemption,
+                    "telemetry": telemetry is not None,
+                    "quality_selector": quality_selector is not None,
+                    "mesh": mesh is not None, "roles": bool(roles)}
+        missing = [k for k, v in unported.items() if v]
+        if missing:
+            raise NotImplementedError(
+                f"not ported yet: {', '.join(missing)}")
+        if kv_layout != "paged":
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        self.device = resolve_device(device)
+        for ev in family:
+            where = {p.device for p in ev.params.parameters()}
+            if where != {self.device}:
+                raise ValueError(f"variant {ev.variant.name} lives on "
+                                 f"{sorted(map(str, where))}, engine on "
+                                 f"{self.device}")
+        self.family = {ev.variant.name: ev for ev in family}
+        self.instances: List[PagedInstance] = []
+        self.max_len = max_len
+        self.kv_layout = kv_layout
+        self.block_size = block_size
+        # equal-arena default: the paged pool holds exactly the KV tokens a
+        # slotted cache of n_slots × max_len would reserve, plus the junk
+        # block
+        self.n_blocks = (n_blocks if n_blocks is not None
+                         else -(-n_slots * max_len // block_size) + 1)
+        self.max_seqs = max_seqs if max_seqs is not None else 4 * n_slots
+        self.chunk_blocks = chunk_blocks
+        self.prefix_caching = prefix_caching
+        self.policy = make_policy(policy)
+        # decode hot path: ``decode_pipeline=False`` selects the synchronous
+        # reference loop (re-upload + blocking readback every tick) — the
+        # greedy-parity oracle; ``fused_steps`` bounds on-device step fusion
+        self.decode_pipeline = decode_pipeline
+        self.fused_steps = fused_steps
+        self.ci_g_per_kwh = ci_g_per_kwh
+        # one engine-owned phase profiler shared by every instance; it stays
+        # disabled (registry None) until telemetry is ported
+        self.profiler = PhaseProfiler()
+        self._pool: Dict[Tuple[str, int], List[PagedInstance]] = {}
+        self._session: Optional[_Session] = None
+        self._last_stats: Dict[str, float] = {}
+        self.last_admit_order: List[int] = []
+        self.last_outputs: Dict[int, np.ndarray] = {}
+        self.last_responses: List[InferenceResponse] = []
+
+    def _new_instance(self, ev: EngineVariant, chips: int) -> PagedInstance:
+        return PagedInstance(ev, chips, n_blocks=self.n_blocks,
+                             block_size=self.block_size,
+                             max_seqs=self.max_seqs, max_len=self.max_len,
+                             chunk_blocks=self.chunk_blocks,
+                             prefix_caching=self.prefix_caching,
+                             policy=self.policy,
+                             pipeline=self.decode_pipeline,
+                             fused_steps=self.fused_steps)
+
+    def configure(self, graph) -> float:
+        """Apply a configuration graph; returns reconfig seconds (measured).
+
+        Warm path: instances are returned to a (variant, chips) pool and
+        reused — weights and KV arenas survive controller re-invocations;
+        only genuinely new (variant, chips) pairs pay allocation and
+        warmup."""
+        assert self._session is None, "configure during an open serve session"
+        t0 = time.perf_counter()
+        for inst in self.instances:
+            self._pool.setdefault((inst.ev.variant.name, inst.chips),
+                                  []).append(inst)
+        self.instances = []
+        for (vname, chips), w in graph.edges:
+            for _ in range(w):
+                warm = self._pool.get((vname, chips), [])
+                if warm:
+                    inst = warm.pop()
+                    inst.reset()
+                else:
+                    inst = self._new_instance(self.family[vname], chips)
+                    inst.warmup()
+                inst.profiler = self.profiler
+                self.instances.append(inst)
+        return time.perf_counter() - t0
+
+    # --- ServingBackend protocol ---------------------------------------------
+    def submit(self, req: InferenceRequest) -> None:
+        """Enqueue a typed request.  The first submit after idle opens a
+        session (t0 = now); ``arrival_s`` schedules an open-loop release
+        relative to it."""
+        assert self.instances, "configure() first"
+        if self._session is None:
+            reg = MetricsRegistry.standard(f"real-{self.kv_layout}",
+                                           labels={"kv_layout":
+                                                   self.kv_layout})
+            self.policy.reset_holds()    # rids repeat across sessions
+            self._session = _Session(SchedulerCore(self.policy),
+                                     self.instances, reg)
+            self.last_admit_order = []
+            self.last_outputs = {}
+        s = self._session
+        assert req.rid not in s.requests, f"duplicate rid {req.rid}"
+        s.requests[req.rid] = req
+        s.meters[req.rid] = 0.0
+        s.registry.counter("requests_submitted").inc()
+        s.schedule(req)
+
+    def step(self) -> List[InferenceResponse]:
+        """One scheduler pass: release due arrivals, run policy admission
+        over every instance (gated re-attempts), then one tick (≤ one
+        prefill chunk burst + one batched decode dispatch) per busy
+        instance.  Returns the requests that completed on this pass."""
+        s = self._session
+        if s is None:
+            return []
+        now = time.perf_counter()
+        now_rel = s.rel(now)
+        s.progressed = False
+        completed: List[InferenceResponse] = []
+        while s.future and s.future[0][0] <= now:
+            t_arr, _, rid = heapq.heappop(s.future)
+            req = s.requests[rid]
+            s.core.submit(rid, t_arr, priority=req.priority,
+                          deadline_s=req.deadline_s, slo=req.slo)
+        # 1. admission: peek the policy's next choice and place it on the
+        #    first instance with capacity (rows and blocks) — mid-flight, so
+        #    rows/blocks freed by the previous tick's completions refill.
+        #    A failed fit is GATED per instance: no re-attempt until the
+        #    queue head or the instance's free capacity actually changes.
+        for inst in self.instances:
+            while True:
+                nxt = s.core.peek_next(now_rel)
+                if nxt is None:
+                    break
+                rid, t_arr = nxt
+                sig = inst.admission_signature()
+                if s.admit_gate.get(id(inst)) == (rid, sig):
+                    break                # nothing changed since last failure
+                req = s.requests[rid]
+                if not inst.can_admit(req.prompt_len, req.max_new_tokens):
+                    s.admit_gate[id(inst)] = (rid, sig)
+                    break
+                s.admit_gate.pop(id(inst), None)
+                s.core.pop_next(now_rel)
+                t1 = time.perf_counter()
+                inst.admit_next(rid, t_arr, req.prompt, req.max_new_tokens,
+                                priority=req.priority, slo=req.slo,
+                                deadline_s=req.deadline_s)
+                s.admit_t[rid] = t1
+                self.last_admit_order.append(rid)
+                s.progressed = True
+        # 2. one tick per busy instance (≤ 1 prefill burst + 1 decode)
+        for inst in self.instances:
+            if not inst.busy:
+                continue
+            s.progressed = True
+            s.admitted_sum += inst.occupied   # holding cache memory now
+            s.tick_samples += 1
+            t_tick = time.perf_counter()
+            # fused multi-step dispatch stays off while timed arrivals are
+            # outstanding: an open-loop session measures admission latency,
+            # and a k-step device window would delay a mid-window arrival's
+            # prefill behind k queued decode steps
+            done, info = inst.tick(s.rel(t_tick), allow_fused=not s.future)
+            s.energy += inst.chips * PM.P_BUSY_W * info["prefill_s"]
+            for rid, dtc in info["prefill_rids"]:
+                s.meters[rid] += inst.chips * PM.P_BUSY_W * dtc
+                inst.profiler.observe("prefill_chunk", dtc)
+            if info["decode_steps"]:
+                # info describes LANDED decode work: ``decode_steps`` model
+                # steps sharing ``decode_s`` wall seconds — aggregates stay
+                # step-weighted so occupancy/inflight means are comparable
+                # across fused and single-step sessions
+                ksteps = info["decode_steps"]
+                occ = info["occupied"]
+                e_dec = PM.instance_power_w(
+                    inst.chips, occ / inst.capacity) * info["decode_s"]
+                s.energy += e_dec
+                share = e_dec / max(len(info["decode_rids"]), 1)
+                for rid in info["decode_rids"]:
+                    s.meters[rid] += share
+                s.decode_steps += ksteps
+                s.occ_frac_sum += (occ / inst.capacity) * ksteps
+                s.inflight_sum += occ * ksteps
+            s.accounted_s[id(inst)] += info["prefill_s"] + info["decode_s"]
+            s.blocks_peak = max(s.blocks_peak, int(info["blocks_in_use"]))
+            s.registry.gauge("occupied_rows").set(info["occupied"])
+            s.registry.gauge("blocks_in_use").set(info["blocks_in_use"])
+            for rid, tok in info["emitted"]:
+                cb = s.requests[rid].on_token
+                if cb is not None:
+                    cb(rid, tok)
+            for state in done:
+                completed.append(self._finish(state, inst))
+        return completed
+
+    def drain(self) -> List[InferenceResponse]:
+        """Run the session to completion; returns every response.  Closes
+        the session: the idle-power floor is spread across the responses,
+        carbon is attributed at ``ci_g_per_kwh``, and ``stats()`` reports
+        the aggregates."""
+        s = self._session
+        if s is None:
+            return []
+        stalled_once = False
+        while s.future or s.core.has_pending() \
+                or any(i.busy for i in self.instances):
+            self.step()
+            if s.progressed:
+                stalled_once = False
+                continue
+            now = time.perf_counter()
+            if s.future and not s.core.has_pending():
+                # open-loop idle gap: nothing in flight, next arrival in
+                # the future — sleep up to it instead of busy-spinning
+                time.sleep(min(max(s.future[0][0] - now, 0.0), 0.01))
+            elif s.core.has_pending():
+                if s.core.peek_next(s.rel(now)) is None:
+                    # policy hold (carbon-aware deferral): wait for the
+                    # clock/CI to move, the queue is intentionally parked
+                    time.sleep(0.001)
+                elif not stalled_once:
+                    # a policy hold may have crossed its release boundary
+                    # in the gap between step()'s select and this peek —
+                    # a releasable head is only a STALL if another full
+                    # step still cannot place it
+                    stalled_once = True
+                else:
+                    raise RuntimeError(
+                        "admission stalled: head request fits no instance")
+        self._finalize(s)
+        return s.responses
+
+    def stats(self) -> Dict[str, float]:
+        """Aggregate metrics of the last drained session."""
+        return dict(self._last_stats)
+
+    # --- internals -----------------------------------------------------------
+    def _finish(self, state: _PagedSeq, inst: PagedInstance
+                ) -> InferenceResponse:
+        s = self._session
+        req = s.requests[state.rid]
+        t_fin = time.perf_counter()
+        s.core.complete(state.rid, state.t_arrival, t_fin,
+                        inst.ev.variant.accuracy)
+        self.last_outputs[state.rid] = np.asarray(state.tokens, np.int64)
+        ttft = (state.t_first - state.t_arrival
+                if state.t_first is not None else 0.0)
+        hold = self.policy.hold_info(state.rid)
+        resp = InferenceResponse(
+            rid=state.rid, tokens=np.asarray(state.tokens, np.int64),
+            slo=req.slo, priority=req.priority, state=DONE,
+            t_arrival=state.t_arrival - s.t0, t_finish=t_fin - s.t0,
+            queue_delay_s=s.admit_t[state.rid] - state.t_arrival,
+            ttft_s=ttft, latency_s=t_fin - state.t_arrival,
+            energy_j=s.meters[state.rid], preemptions=0,
+            accuracy=inst.ev.variant.accuracy,
+            variant=inst.ev.variant.name, deadline_s=req.deadline_s,
+            held_s=hold[1] - hold[0] if hold is not None else 0.0,
+            release_reason=hold[2] if hold is not None else None)
+        s.responses.append(resp)
+        reg = s.registry
+        reg.counter("requests_served").inc()
+        reg.counter("tokens_generated").inc(resp.n_tokens)
+        reg.histogram("latency_s").observe(resp.latency_s)
+        reg.labeled("latency_s", slo_class=req.slo).observe(resp.latency_s)
+        reg.histogram("queue_delay_s").observe(resp.queue_delay_s)
+        if state.t_first is not None:
+            reg.histogram("ttft_s").observe(ttft)
+            reg.labeled("ttft_s", slo_class=req.slo).observe(ttft)
+        reg.histogram("accuracy").observe(resp.accuracy)
+        reg.labeled("accuracy", slo_class=req.slo).observe(resp.accuracy)
+        if not resp.deadline_met:
+            reg.counter("deadline_misses").inc()
+        if hold is not None:
+            reg.counter("holds_released").inc()
+            reg.histogram("held_s").observe(resp.held_s)
+        return resp
+
+    def _finalize(self, s: _Session) -> None:
+        wall = time.perf_counter() - s.t0
+        for inst in self.instances:       # idle floor for unaccounted wall
+            idle_s = max(wall - s.accounted_s[id(inst)], 0.0)
+            s.energy += inst.chips * PM.P_IDLE_W * idle_s
+        # attribute the idle floor + carbon: per-request joules sum to the
+        # engine total, gCO2 = joules × the serving window's intensity
+        attributed = sum(r.energy_j for r in s.responses)
+        idle_share = ((s.energy - attributed) / len(s.responses)
+                      if s.responses else 0.0)
+        for r in s.responses:
+            r.energy_j += idle_share
+            r.carbon_g = r.energy_j / 3.6e6 * self.ci_g_per_kwh
+        self.last_responses = s.responses
+        # session deltas of the instances' lifetime counters (instances
+        # survive warm reconfiguration)
+        delta = {stat: sum(getattr(i, name) for i in self.instances)
+                 - s.counters0[name]
+                 for name, stat in _INSTANCE_COUNTERS.items()}
+        total_g = s.energy / 3.6e6 * self.ci_g_per_kwh
+        # fold the session totals into the registry; ``_last_stats`` below
+        # is a *view* over it
+        reg = s.registry
+        reg.counter("energy_j").inc(s.energy)
+        reg.counter("carbon_g").inc(total_g)
+        reg.counter("decode_steps").inc(s.decode_steps)
+        for stat, value in delta.items():
+            reg.counter(stat).inc(value)
+        reg.gauge("wall_s").set(wall)
+        served = int(reg.value("requests_served"))
+        total_tokens = int(reg.value("tokens_generated"))
+        lat = reg.histogram("latency_s")
+        self._last_stats = {
+            "served": served,
+            "p50_s": lat.percentile(50.0),
+            "p95_s": lat.percentile(95.0),
+            "p99_s": lat.percentile(99.0),
+            "mean_accuracy": reg.histogram("accuracy").mean,
+            "energy_j": reg.value("energy_j"),
+            "carbon_g": reg.value("carbon_g"),
+            "wall_s": wall,
+            "tokens": total_tokens,
+            "tokens_per_s": total_tokens / max(wall, 1e-9),
+            "j_per_token": s.energy / max(total_tokens, 1),
+            "decode_steps": s.decode_steps,
+            "mean_occupancy": (s.occ_frac_sum / s.decode_steps
+                               if s.decode_steps else 0.0),
+            "mean_inflight": (s.inflight_sum / s.decode_steps
+                              if s.decode_steps else 0.0),
+            # sequences holding cache memory per tick (decoding OR mid-
+            # chunked-prefill) — the sustained admitted concurrency
+            "mean_admitted": (s.admitted_sum / s.tick_samples
+                              if s.tick_samples else 0.0),
+            "queue_delay_p95_s":
+                reg.histogram("queue_delay_s").percentile(95.0),
+            "ttft_p50_s": reg.histogram("ttft_s").percentile(50.0),
+            "ttft_p95_s": reg.histogram("ttft_s").percentile(95.0),
+            "blocks_peak": s.blocks_peak,
+            # decode-hot-path traffic: blocking host round-trips, explicit
+            # H2D uploads (event-driven only under pipelining), and decode
+            # dispatches (< decode_steps when fusion engaged)
+            **delta,
+        }
+        self._session = None
+
+    # --- bulk-prompt convenience ---------------------------------------------
+    def _serve_prompts(self, prompts: Sequence[np.ndarray], n_new: int = 8,
+                       arrival_s: Optional[Sequence[float]] = None
+                       ) -> Dict[str, float]:
+        """Method shorthand for :func:`serving.api.serve_prompts`."""
+        return serve_prompts(self, prompts, n_new, arrival_s)
+
+    def serve_poisson(self, rate_rps: float, n_requests: int,
+                      prompt_lens: Sequence[int] = (6,), n_new: int = 8,
+                      seed: int = 0) -> Dict[str, float]:
+        """Open-loop serving under Poisson arrivals at ``rate_rps``: prompts
+        cycle through ``prompt_lens`` (random tokens), inter-arrival gaps
+        are exponential.  Returns the session stats plus the offered
+        rate."""
+        rng = np.random.default_rng(seed)
+        vocab = next(iter(self.family.values())).cfg.vocab_size
+        prompts = [rng.integers(0, vocab,
+                                size=(int(prompt_lens[i % len(prompt_lens)]),)
+                                ).astype(np.int32)
+                   for i in range(n_requests)]
+        arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, n_requests))
+        m = self._serve_prompts(prompts, n_new=n_new,
+                                arrival_s=arrivals.tolist())
+        m["offered_rps"] = rate_rps
+        return m
