@@ -1,2 +1,38 @@
-"""Architecture configs the port serves: ``qwen3_1_7b`` (``FULL``, and
-``SMOKE`` for the CPU tests)."""
+"""Architecture config registry — ``--arch <id>`` resolution for the
+architectures the port serves: ``qwen3-1.7b`` (``FULL``, and ``SMOKE`` for
+the CPU tests).  The reference's other architectures raise
+``NotImplementedError`` until a later slice ports their families."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "qwen3-1.7b": "qwen3_1_7b",
+}
+
+ARCHS: List[str] = list(_MODULES)
+
+# the reference's architectures whose families the port does not serve yet
+_NOT_PORTED = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "glm4-9b",
+               "gemma3-27b", "qwen2-0.5b", "seamless-m4t-large-v2",
+               "zamba2-2.7b", "qwen2-vl-7b", "mamba2-2.7b")
+
+
+def _module(name: str):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"arch {name!r} is not ported yet; "
+                                  f"available: {ARCHS}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).FULL
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).SMOKE

@@ -1,2 +1,4 @@
-"""Framework-free core records the engine needs: the variant record,
-the configuration graph and the power model."""
+"""Framework-free core records and the Clover optimizer: the variant
+record, slice feasibility, the configuration graph and its neighbourhood,
+the power model, carbon-intensity traces, the objective and simulated
+annealing."""

@@ -1,16 +1,22 @@
 """Clover configuration graph (paper Definition 1) — the port's copy of the
 reference package's ``core/config_graph.py``, trimmed to what the engine
-reads: construction from edge weights and the edge list.
+and the annealer read: construction from edge weights, the edge list, the
+graph edit distance and the GED-bounded neighbourhood.
 
 A configuration graph is a weighted directed bipartite graph: variant
 vertices → slice-type vertices, integer edge weight = number of instances
 of that variant hosted on that slice type.  All (x^p, x^v) placements with
 identical edge weights collapse to one graph (canonical sorted edges).
+GED(g1, g2) = Σ |w1(e) − w2(e)| (variant swap = 2, slice move = 2).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import random
+from typing import Dict, List, Sequence, Tuple
+
+from repro_torch.core import slices as SL
+from repro_torch.core.catalog import Variant
 
 Edge = Tuple[str, int]                 # (variant name, slice chips)
 
@@ -35,3 +41,103 @@ class ConfigGraph:
     @property
     def total_chips(self) -> int:
         return sum(e[1] * w for e, w in self.edges)
+
+
+def ged(a: ConfigGraph, b: ConfigGraph) -> int:
+    """Weighted graph edit distance: Σ |w_a(e) − w_b(e)| (paper Fig. 7 step 2:
+    vertex sets are fixed, only edge weights differ)."""
+    wa, wb = a.weights(), b.weights()
+    keys = set(wa) | set(wb)
+    return sum(abs(wa.get(k, 0) - wb.get(k, 0)) for k in keys)
+
+
+# =============================================================================
+# neighborhood (GED ≤ 4 — the paper's threshold)
+# =============================================================================
+def _repaint_moves(g: ConfigGraph, variants: Sequence[Variant]
+                   ) -> List[ConfigGraph]:
+    """Swap one instance's variant (GED 2)."""
+    out = []
+    w = g.weights()
+    for (vname, chips), count in g.edges:
+        for v2 in variants:
+            if v2.name == vname or not SL.fits(v2.mem_gb, chips):
+                continue
+            w2 = dict(w)
+            w2[(vname, chips)] -= 1
+            w2[(v2.name, chips)] = w2.get((v2.name, chips), 0) + 1
+            out.append(ConfigGraph.from_dict(g.family, w2))
+    return out
+
+
+def _split_moves(g: ConfigGraph, variants: Sequence[Variant]
+                 ) -> List[ConfigGraph]:
+    """Split one slice 2k → k + k, keeping the variant (GED 3)."""
+    out = []
+    w = g.weights()
+    by_name = {v.name: v for v in variants}
+    for (vname, chips), count in g.edges:
+        if chips == 1:
+            continue
+        k = chips // 2
+        if not SL.fits(by_name[vname].mem_gb, k):
+            continue
+        w2 = dict(w)
+        w2[(vname, chips)] -= 1
+        w2[(vname, k)] = w2.get((vname, k), 0) + 2
+        out.append(ConfigGraph.from_dict(g.family, w2))
+    return out
+
+
+def _merge_moves(g: ConfigGraph, variants: Sequence[Variant]
+                 ) -> List[ConfigGraph]:
+    """Merge two k-slices into one 2k-slice (GED 3)."""
+    out = []
+    w = g.weights()
+    sizes: Dict[int, int] = {}
+    for (vname, chips), count in g.edges:
+        sizes[chips] = sizes.get(chips, 0) + count
+    for (vname, chips), count in g.edges:
+        if chips == SL.BLOCK_CHIPS:
+            continue
+        if sizes.get(chips, 0) < 2:
+            continue
+        # partner slice of same size: same or different variant
+        for (v2name, c2), count2 in g.edges:
+            if c2 != chips:
+                continue
+            if v2name == vname and count < 2:
+                continue
+            w2 = dict(w)
+            w2[(vname, chips)] -= 1
+            w2[(v2name, chips)] -= 1
+            if min(w2[(vname, chips)], w2[(v2name, chips)]) < 0:
+                continue
+            w2[(vname, 2 * chips)] = w2.get((vname, 2 * chips), 0) + 1
+            out.append(ConfigGraph.from_dict(g.family, w2))
+    return out
+
+
+def neighbors(g: ConfigGraph, variants: Sequence[Variant],
+              max_ged: int = 4) -> List[ConfigGraph]:
+    """All single-move neighbors (every move keeps total chips constant and
+    has GED ≤ 4); deduplicated."""
+    cands = (_repaint_moves(g, variants) + _split_moves(g, variants)
+             + _merge_moves(g, variants))
+    seen, out = set(), []
+    for c in cands:
+        if c.edges in seen or c.edges == g.edges:
+            continue
+        if ged(g, c) > max_ged:
+            continue
+        seen.add(c.edges)
+        out.append(c)
+    return out
+
+
+def sample_neighbor(g: ConfigGraph, variants: Sequence[Variant],
+                    rng: random.Random, max_ged: int = 4) -> ConfigGraph:
+    ns = neighbors(g, variants, max_ged)
+    if not ns:
+        return g
+    return rng.choice(ns)

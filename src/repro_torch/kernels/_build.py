@@ -20,13 +20,17 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_ext"
-SOURCES = ("binding.cpp", "paged_attention.cu", "flash_attention.cu")
+SOURCES = ("binding.cpp", "paged_attention.cu", "flash_attention.cu",
+           "decode_attention.cu")
 
 # limits of csrc/attention_tile.cuh: kMaxRows query rows per CTA, dh <=
 # 32 * kMaxDimsPerLane, positions taken kGroup at a time
 MAX_ROWS = 8
 MAX_HEAD_DIM = 128
 GROUP = 4
+# the contiguous flash kernel (csrc/flash_attention.cu): kFaRows query rows
+# per CTA, dims read four at a time
+FA_ROWS = 64
 
 _EXT = None
 build_seconds: Optional[float] = None     # wall time of this process's build
@@ -53,14 +57,16 @@ def extension(verbose: bool = False):
     return _EXT
 
 
-def check_inputs(name: str, q: torch.Tensor, k_arena: torch.Tensor,
-                 v_arena: torch.Tensor, int_args: Sequence[torch.Tensor]
-                 ) -> None:
+def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, int_args: Sequence[torch.Tensor], *,
+                 max_group: int = MAX_ROWS, page: int = GROUP) -> None:
     """Raise ``ValueError`` unless every tensor is a contiguous CUDA tensor
-    on q's device, q and the arenas share a type the kernels take (f32 or
-    bf16), the arenas are (n_blocks, bs, K, dh) with q's head dim, and the
-    index arguments are int32."""
-    tensors = (q, k_arena, v_arena, *int_args)
+    on q's device, q, k and v share a type the kernels take (f32 or bf16),
+    k and v are (n, positions, K, dh) with q's head dim, the index
+    arguments are int32, the group g = H / K is at most ``max_group`` and
+    dh at most 128; with ``page`` > 0 (a paged arena) the block size must
+    be a multiple of it."""
+    tensors = (q, k, v, *int_args)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name}: every tensor must be on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
@@ -69,22 +75,22 @@ def check_inputs(name: str, q: torch.Tensor, k_arena: torch.Tensor,
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: q must be float32 or bfloat16, "
                          f"got {q.dtype}")
-    if k_arena.dtype != q.dtype or v_arena.dtype != q.dtype:
-        raise ValueError(f"{name}: arenas must have q's dtype {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: k and v must have q's dtype {q.dtype}")
     if any(t.dtype != torch.int32 for t in int_args):
         raise ValueError(f"{name}: tables, lengths and positions must be "
                          f"int32")
-    if (k_arena.dim() != 4 or k_arena.shape != v_arena.shape
-            or k_arena.shape[3] != q.shape[-1]):
-        raise ValueError(f"{name}: arenas must both be (n_blocks, bs, K, "
-                         f"{q.shape[-1]}), got {tuple(k_arena.shape)} and "
-                         f"{tuple(v_arena.shape)}")
-    H, K, bs, dh = q.shape[-2], k_arena.shape[2], k_arena.shape[1], \
-        q.shape[-1]
+    if k.dim() != 4 or k.shape != v.shape or k.shape[3] != q.shape[-1]:
+        raise ValueError(f"{name}: k and v must both be (n, positions, K, "
+                         f"{q.shape[-1]}), got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    H, K, dh = q.shape[-2], k.shape[2], q.shape[-1]
     if H % K:
         raise ValueError(f"{name}: {H} query heads over {K} KV heads")
-    if H // K > MAX_ROWS or dh > MAX_HEAD_DIM or bs % GROUP:
-        raise ValueError(f"{name}: the kernel takes g <= {MAX_ROWS} query "
-                         f"heads per KV head, dh <= {MAX_HEAD_DIM} and a "
-                         f"block size divisible by {GROUP}; got g={H // K}, "
-                         f"dh={dh}, block_size={bs}")
+    if H // K > max_group or dh > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes g <= {max_group} query "
+                         f"heads per KV head and dh <= {MAX_HEAD_DIM}; got "
+                         f"g={H // K}, dh={dh}")
+    if page and k.shape[1] % page:
+        raise ValueError(f"{name}: the kernel takes a block size divisible "
+                         f"by {page}; got {k.shape[1]}")

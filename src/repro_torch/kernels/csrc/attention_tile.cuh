@@ -1,19 +1,26 @@
-// Online-softmax attention of a few query rows against the paged K/V of one
-// KV head — the device routine both paged attention kernels share.
+// Online-softmax attention of a few query rows against the K/V of one KV
+// head — the device routine the paged kernels and the contiguous decode
+// kernel share.
+//
+// K/V are read as a sequence of "pages" of bs positions; a page's address
+// comes from the kernel's addressing policy (`KV`): a block-table lookup
+// for the paged arena (PagedKV), or row_base + page * bs positions for a
+// contiguous per-row cache (ContigKV), whose last page may be ragged.
 //
 // A CTA holds `tq` queries; with GQA each query carries the g = H / K heads
 // of its KV group, so the CTA has rows = tq * g <= kMaxRows query rows (row
-// r is query r / g, group head r % g).  The CTA's warps split the block
-// table's pages between them — warp w takes pages first + w, first + w +
-// kWarps, ... up to the page that holds the tile's largest position, so
-// pages past the valid prefix are never loaded — and run without a barrier:
+// r is query r / g, group head r % g).  The CTA's warps split the pages
+// between them — warp w takes pages first + w, first + w + kWarps, ... up
+// to the page that holds the tile's largest position, so pages past the
+// valid prefix are never loaded — and run without a barrier:
 //   * a lane holds dims lane, lane + 32, ... of each row's q and of its
 //     f32 accumulator, so every K or V row is one coalesced warp load;
-//   * positions go four at a time: the warp loads their K and V rows, each
-//     row's four scores q·k * sm_scale are summed across the warp with
-//     shuffles, masked to -inf unless kv_pos <= qpos[query] (and kv_pos >
-//     qpos - window when window > 0), and folded into that row's online
-//     softmax state (m, l, acc) with one rescale per group;
+//   * positions go four at a time: the warp loads their K and V rows (none
+//     at or past n_pos), each row's four scores q·k * sm_scale are summed
+//     across the warp with shuffles, masked to -inf unless kv_pos <=
+//     qpos[query] (and kv_pos > qpos - window when window > 0), and folded
+//     into that row's online softmax state (m, l, acc) with one rescale per
+//     group;
 // then the warps' states meet in shared memory and are merged as
 // flash-decode partials: O = sum_w acc_w e^(m_w - M) / sum_w l_w e^(m_w - M).
 #pragma once
@@ -57,18 +64,40 @@ __host__ __device__ inline int tile_smem_bytes(int rows, int dh, int tq) {
   return 4 * kWarps * rows * (dh + 2) + 4 * tq;
 }
 
+// Addressing policies: the element offset of (page p, position 0, KV head
+// kvh, dim 0).  Positions inside a page are K * dh elements apart.
+// kRagged: whether a page may run past n_pos (checked per position only
+// then, so the paged kernels carry no per-load bound check).
+struct PagedKV {          // arena (n_blocks, bs, K, dh) through a block table
+  static constexpr bool kRagged = false;
+  const int* __restrict__ table;
+  __device__ __forceinline__ long page(int p, int bs, int K, int kvh,
+                                       int dh) const {
+    return ((long)table[p] * bs * K + kvh) * dh;
+  }
+};
+struct ContigKV {         // one row (S, K, dh) of a contiguous cache
+  static constexpr bool kRagged = true;
+  long row;               // element offset of the row
+  __device__ __forceinline__ long page(int p, int bs, int K, int kvh,
+                                       int dh) const {
+    return row + ((long)p * bs * K + kvh) * dh;
+  }
+};
+
 // q / out: element (query i, group head h, dim d) at [i * q_stride + h * dh + d].
 // qpos: shared int[tq] absolute positions of the tile's queries, visible to
 // every thread (the caller synchronised after writing them).  Queries
-// i >= nq are the tile's ragged edge: masked and never written.
-template <typename T>
+// i >= nq are the tile's ragged edge: masked and never written.  n_pos is
+// the number of positions the K/V hold (pages * bs for an arena, S for a
+// contiguous row): none at or past it is loaded.
+template <typename T, typename KV>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             long q_stride, int tq, int nq, int g, int dh,
                             const int* qpos, const T* __restrict__ k_arena,
                             const T* __restrict__ v_arena, int bs, int K,
-                            int kvh, const int* __restrict__ table,
-                            int n_table, float sm_scale, int window,
-                            float* smem) {
+                            int kvh, KV kv, int n_pos, float sm_scale,
+                            int window, float* smem) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rows = tq * g;
 
@@ -99,21 +128,22 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     hi = max(hi, qpos[i]);
   }
   const int first = window > 0 ? max(lo - window + 1, 0) / bs : 0;
-  const int last = hi < 0 ? -1 : min(hi / bs, n_table - 1);
+  const int last = hi < 0 ? -1 : min(hi, n_pos - 1) / bs;
   const long pos_stride = (long)K * dh;    // between positions of a block
 
   for (int p = first + warp; p <= last; p += kWarps) {
-    const long base = ((long)table[p] * bs * K + kvh) * dh;
+    const long base = kv.page(p, bs, K, kvh, dh);
     for (int t0 = 0; t0 < bs; t0 += kGroup) {
       float kx[kGroup][kMaxDimsPerLane], vx[kGroup][kMaxDimsPerLane];
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
+        const bool held = !KV::kRagged || p * bs + t0 + u < n_pos;
 #pragma unroll
         for (int j = 0; j < kMaxDimsPerLane; ++j) {
           const int d = lane + 32 * j;
           const long off = base + (t0 + u) * pos_stride + d;
-          kx[u][j] = d < dh ? to_float(k_arena[off]) : 0.f;
-          vx[u][j] = d < dh ? to_float(v_arena[off]) : 0.f;
+          kx[u][j] = held && d < dh ? to_float(k_arena[off]) : 0.f;
+          vx[u][j] = held && d < dh ? to_float(v_arena[off]) : 0.f;
         }
       }
 #pragma unroll
@@ -129,6 +159,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
           part = warp_sum(part);
           const int kpos = p * bs + t0 + u;
           const bool ok = kpos <= rpos[r] &&
+                          (!KV::kRagged || kpos < n_pos) &&
                           (window <= 0 || rpos[r] - kpos < window);
           s[u] = ok ? part * sm_scale : -INFINITY;
           mx = fmaxf(mx, s[u]);

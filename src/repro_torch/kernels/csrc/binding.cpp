@@ -1,8 +1,8 @@
-// PyTorch binding of the paged attention kernels — the only source that
-// includes PyTorch's headers.  The Python wrappers (kernels/paged_attention.py,
-// kernels/flash_attention.py) have already checked device, dtype, shape and
-// contiguity; this file launches on PyTorch's current stream and checks the
-// launch.
+// PyTorch binding of the attention kernels — the only source that includes
+// PyTorch's headers.  The Python wrappers (kernels/paged_attention.py,
+// kernels/flash_attention.py, kernels/decode_attention.py) have already
+// checked device, dtype, shape and contiguity; this file launches on
+// PyTorch's current stream and checks the launch.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -41,10 +41,37 @@ void paged_prefill(const torch::Tensor& q, const torch::Tensor& k_arena,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void decode(const torch::Tensor& q, const torch::Tensor& k_cache,
+            const torch::Tensor& v_cache, const torch::Tensor& lengths,
+            torch::Tensor out, double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  repro_torch::launch_decode(
+      q.scalar_type() == at::kBFloat16, q.data_ptr(), k_cache.data_ptr(),
+      v_cache.data_ptr(), lengths.data_ptr<int>(), lengths.dim() == 0 ? 0 : 1,
+      out.data_ptr(), q.size(0), q.size(1), k_cache.size(2), q.size(2),
+      k_cache.size(1), static_cast<float>(sm_scale),
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void flash(const torch::Tensor& q, const torch::Tensor& k,
+           const torch::Tensor& v, torch::Tensor out, int64_t tq, bool causal,
+           int64_t window, double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(repro_torch::launch_flash(
+      q.scalar_type() == at::kBFloat16, q.data_ptr(), k.data_ptr(),
+      v.data_ptr(), out.data_ptr(), q.size(0), q.size(1), k.size(1),
+      q.size(2), k.size(2), q.size(3), tq, causal, window,
+      static_cast<float>(sm_scale), at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_decode", &paged_decode, "paged flash-decode (CUDA)");
   m.def("paged_prefill", &paged_prefill,
         "paged chunked-prefill flash attention (CUDA)");
+  m.def("decode", &decode, "contiguous flash-decode (CUDA)");
+  m.def("flash", &flash, "contiguous flash attention (CUDA)");
 }

@@ -1,4 +1,4 @@
-// Plain C++ launchers of the paged attention kernels.  They take raw
+// Plain C++ launchers of the attention kernels.  They take raw
 // pointers and the stream, so no CUDA source includes PyTorch's headers;
 // binding.cpp alone does, and checks the launch right after each call.
 #pragma once
@@ -22,5 +22,19 @@ void launch_paged_prefill(bool bf16, const void* q, const void* k_arena,
                           const int* positions, void* out, int C, int H, int K,
                           int dh, int bs, int span, int tq, float sm_scale,
                           int window, cudaStream_t stream);
+
+// q (b, H, dh); caches (b, S, K, dh); lengths (b,) i32 (len_stride 1) or
+// one value for every row (len_stride 0); out (b, H, dh).
+void launch_decode(bool bf16, const void* q, const void* k_cache,
+                   const void* v_cache, const int* lengths, int len_stride,
+                   void* out, int b, int H, int K, int dh, int S,
+                   float sm_scale, cudaStream_t stream);
+
+// q (b, sq, H, dh); k, v (b, skv, K, dh); out (b, sq, H, dh); tq queries
+// per CTA.  Returns the error of raising the kernel's shared-memory limit.
+cudaError_t launch_flash(bool bf16, const void* q, const void* k,
+                         const void* v, void* out, int b, int sq, int skv,
+                         int H, int K, int dh, int tq, bool causal, int window,
+                         float sm_scale, cudaStream_t stream);
 
 }  // namespace repro_torch

@@ -40,8 +40,8 @@ __global__ void __launch_bounds__(kThreads)
   const long off = (long)row * H * dh + (long)kvh * g * dh;
   attend_rows<T>(q + off, out + off, (long)H * dh, /*tq=*/1, /*nq=*/1, g, dh,
                  qpos, k_arena, v_arena, bs, K, kvh,
-                 tables + (long)row * n_pages, n_pages, sm_scale,
-                 /*window=*/0, smem);
+                 PagedKV{tables + (long)row * n_pages}, n_pages * bs,
+                 sm_scale, /*window=*/0, smem);
 }
 
 void launch_paged_decode(bool bf16, const void* q, const void* k_arena,

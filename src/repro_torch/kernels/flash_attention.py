@@ -1,29 +1,38 @@
-"""Paged chunked-prefill flash attention — the hand-written CUDA kernel for
-Hopper (``csrc/flash_attention.cu``) that replaces the reference's Pallas
-TPU kernel ``src/repro/kernels/flash_attention.py::flash_attention`` in the
-paged form the serving engine's chunked prefill computes.
+"""Flash attention — the hand-written CUDA kernels for Hopper
+(``csrc/flash_attention.cu``) that replace the reference's Pallas TPU
+kernel ``src/repro/kernels/flash_attention.py::flash_attention``, in the two
+forms the serving engines compute.
 
-The C queries of one prompt chunk, at absolute positions ``n_past..``,
-attend causally over the sequence's K/V read through its block table.  The
-kernel runs one CTA per (q-tile of the chunk, KV head), the tile's ``tq ×
-g`` query rows (at most 8) in f32 online softmax; the CTA's 8 warps split
-the table's pages and merge their states at the end.  It walks the table
-only up to the page that holds the tile's largest position — the Pallas
-kernel runs fully masked blocks; these are skipped — with the causal mask
-``kv_pos <= positions[q]`` and, when ``window > 0``, the sliding window of
-the Pallas kernel.  Queries of a padded chunk tail are computed and never
-read.
+**Contiguous** (:func:`flash_attention`, slotted prefill): q (b, sq, H, dh)
+against k, v (b, skv, K, dh), causal on positions from 0, or full, with the
+Pallas kernel's sliding window when ``window > 0``.  One CTA per (tile of
+``64 // g`` queries, KV head, batch row) holds the tile's 64 query rows
+(queries × group heads), stages K/V blocks of 64 positions in shared
+memory once per tile and reuses them across all its rows, and keeps an f32
+online softmax per row.  Blocks past the tile's last query (causal) or
+before its window are skipped — the Pallas kernel runs fully masked blocks.
+What bounds it on the H100: its f32 operations (``4 dh`` flops per visible
+(query head, key) pair, about 4.3 GFLOP at sq = 1024, 16 heads, dh = 128),
+so it reuses each staged K/V block 64 times and computes on CUDA cores in
+f32; tensor-core tiles are later work.
 
-What bounds it on the H100: a 32-token f32 chunk does about 32 flops per
-K/V byte, above the CUDA cores' 20 (67 TFLOP/s over 3.35 TB/s), so its f32
-operations bound it.  The dot products run on CUDA cores in f32 with warp
-shuffles; tensor-core tiles over the whole chunk, and the contiguous form
-(slotted prefill, training), are later work.
+**Paged chunked prefill** (:func:`paged_prefill_attention`): the C queries
+of one prompt chunk, at absolute positions ``n_past..``, attend causally
+over the sequence's K/V read through its block table.  The kernel runs one
+CTA per (q-tile of the chunk, KV head), the tile's ``tq × g`` query rows
+(at most 8) in f32 online softmax; the CTA's 8 warps split the table's
+pages and merge their states at the end.  It walks the table only up to
+the page that holds the tile's largest position, with the causal mask
+``kv_pos <= positions[q]`` and, when ``window > 0``, the sliding window.
+Queries of a padded chunk tail are computed and never read.  A 32-token f32
+chunk does about 32 flops per K/V byte, above the CUDA cores' 20 (67
+TFLOP/s over 3.35 TB/s), so its f32 operations bound it.
 
-The plain PyTorch version is :func:`~repro_torch.kernels.ref.
+The plain PyTorch versions are :func:`~repro_torch.kernels.ref.
+flash_attention_ref` and :func:`~repro_torch.kernels.ref.
 paged_prefill_attention_ref`; ``kernels/ops.py`` sends CPU tensors there
-and CUDA tensors here.  ``paged_prefill_attention.launches`` counts
-launches.
+and CUDA tensors here.  ``flash_attention.launches`` and
+``paged_prefill_attention.launches`` count launches.
 """
 from __future__ import annotations
 
@@ -32,15 +41,55 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_prefill_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, \
+    paged_prefill_attention_ref
 
-__all__ = ["paged_prefill_attention", "paged_prefill_attention_ref",
-           "queries_per_cta"]
+__all__ = ["flash_attention", "flash_attention_ref",
+           "paged_prefill_attention", "paged_prefill_attention_ref",
+           "queries_per_cta", "flash_queries_per_cta"]
 
 
 def queries_per_cta(g: int) -> int:
-    """Queries a CTA takes: as many as fit its 8 query rows (``tq × g``)."""
+    """Queries a CTA of the paged prefill kernel takes: as many as fit its
+    8 query rows (``tq × g``)."""
     return _build.MAX_ROWS // g
+
+
+def flash_queries_per_cta(g: int) -> int:
+    """Queries a CTA of the contiguous kernel takes: as many as fit its 64
+    query rows (``tq × g``)."""
+    return _build.FA_ROWS // g
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: (b, sq, H, dh); k, v: (b, skv, K, dh), q's type (f32 or bf16),
+    dh a multiple of 4 (at most 128).  Causal on positions from 0 (``q_pos
+    >= kv_pos``) when ``causal``; sliding window ``q_pos - kv_pos <
+    window`` when ``window > 0``.  Scores are q·k * sm_scale (default
+    dh**-0.5).  CUDA tensors only; returns (b, sq, H, dh) in q's type."""
+    _build.check_inputs("flash_attention", q, k, v, (),
+                        max_group=_build.FA_ROWS, page=0)
+    if q.dim() != 4 or k.shape[0] != q.shape[0]:
+        raise ValueError(f"flash_attention: q must be (b, sq, H, dh) and "
+                         f"k, v (b, skv, K, dh), got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    b, sq, H, dh = q.shape
+    align = 4 * q.element_size()         # the kernel reads 4 elements at once
+    if dh % 4 or any(t.data_ptr() % align for t in (q, k, v)):
+        raise ValueError(f"flash_attention: the kernel takes dh divisible by "
+                         f"4 and {align}-byte aligned tensors; got dh={dh}")
+    out = torch.empty_like(q)
+    scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
+    tq = flash_queries_per_cta(H // k.shape[2])
+    _build.extension().flash(q, k, v, out, tq, bool(causal), int(window),
+                             scale)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
 
 
 def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,

@@ -31,22 +31,33 @@ def gather_paged_kv(arena_k: torch.Tensor, arena_v: torch.Tensor,
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor, sm_scale: float) -> torch.Tensor:
+            mask: torch.Tensor, sm_scale: float,
+            p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """q (b, sq, K, g, dh); k, v (b, skv, K, dh); mask broadcastable to
-    (b, K, g, sq, skv).  Returns f32 (b, sq, K, g, dh)."""
+    (b, K, g, sq, skv).  ``p_dtype`` rounds the normalised probabilities to
+    that type before P·V (the reference's model path casts them to v's
+    type); None keeps them f32.  Returns f32 (b, sq, K, g, dh)."""
     s = torch.einsum("bqkgd,bnkd->bkgqn", q.float(), k.float()) * sm_scale
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
     return torch.einsum("bkgqn,bnkd->bqkgd", p, v.float())
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0
+                        *, causal: bool = True, window: int = 0,
+                        sm_scale: Optional[float] = None,
+                        p_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
     """Exact softmax attention.  q: (b, sq, H, dh); k, v: (b, skv, K, dh);
-    GQA by head grouping; window > 0 = sliding window."""
+    GQA by head grouping (query head h reads KV head h // g); causal on
+    positions from 0 (``q_pos >= kv_pos``); window > 0 = sliding window
+    (``q_pos - kv_pos < window``).  Scores are q·k * sm_scale (default
+    dh**-0.5) in f32.  Returns (b, sq, H, dh) in q's type."""
     b, sq, H, dh = q.shape
     skv, K = k.shape[1], k.shape[2]
+    scale = dh ** -0.5 if sm_scale is None else sm_scale
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -54,8 +65,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= qpos >= kpos
     if window > 0:
         mask &= (qpos - kpos) < window
-    o = _attend(q.reshape(b, sq, K, H // K, dh), k, v, mask, dh ** -0.5)
+    o = _attend(q.reshape(b, sq, K, H // K, dh), k, v, mask, scale, p_dtype)
     return o.reshape(b, sq, H, dh).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths, *,
+                         sm_scale: Optional[float] = None,
+                         p_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """One-position attention over a contiguous KV cache.  q: (b, H, dh);
+    caches: (b, S, K, dh); lengths: () shared valid prefix, or (b,) per-row
+    valid prefixes (the slotted continuous-batching decode) — positions
+    ``pos < lengths[i]`` are visible, so a length above S sees the whole
+    cache.  Scores are q·k * sm_scale (default dh**-0.5) in f32.  Returns
+    (b, H, dh) in q's type."""
+    b, H, dh = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    scale = dh ** -0.5 if sm_scale is None else sm_scale
+    ln = torch.as_tensor(lengths, device=q.device).reshape(-1, 1)
+    mask = (torch.arange(S, device=q.device)[None, :] < ln)
+    o = _attend(q.reshape(b, 1, K, H // K, dh), k_cache, v_cache,
+                mask[:, None, None, None, :], scale, p_dtype)
+    return o.reshape(b, H, dh).to(q.dtype)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_arena: torch.Tensor,

@@ -1,14 +1,16 @@
 """Dense decoder building blocks — the port's counterpart of the reference
-package's ``models/layers.py``, for the dense family the paged engine
-serves: RMSNorm, rotary embeddings (partial rotary), GQA attention with
-qk-norm over a paged KV arena, the SwiGLU MLP and the tied embedding.
+package's ``models/layers.py``, for the dense family the serving engines
+serve: RMSNorm, rotary embeddings (partial rotary), GQA attention with
+qk-norm — full-sequence prefill, decode over a slotted (contiguous) cache,
+and prefill and decode over a paged KV arena — the SwiGLU MLP and the tied
+embedding.
 
 Parameters live in ``nn.Module``s; the math is plain functions on tensors
 that follow the reference's rounding order (norms in f32 then cast back,
-rotary tables cast to the activation type, q scaled and cast to the arena
-type before the dot).  The attention over the arena goes through
-``kernels/ops.py``: the Hopper kernels for CUDA tensors, their plain
-versions on the CPU.
+rotary tables cast to the activation type, q scaled and cast to the cache
+type before the dot, probabilities cast to v's type before P·V in the
+plain versions).  Every attention goes through ``kernels/ops.py``: the
+Hopper kernels for CUDA tensors, their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["RMSNorm", "Attention", "MLP", "rmsnorm_apply", "rope_table",
            "apply_rope", "mlp_apply", "embedding_apply", "embedding_logits",
+           "blocked_attention", "decode_attention", "slot_write_index",
+           "attention_prefill_apply", "attention_decode_slots_apply",
            "gather_paged_kv", "attention_decode_paged_apply",
            "attention_prefill_paged_apply", "init_dense", "trunc_normal"]
 
@@ -109,7 +113,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 
 # =============================================================================
-# attention (GQA + qk-norm) over the paged arena
+# attention (GQA + qk-norm): full sequence, slotted cache, paged arena
 # =============================================================================
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
@@ -142,11 +146,82 @@ class Attention(nn.Module):
         return q, k, v
 
 
-def _scaled_q(q: torch.Tensor, arena: torch.Tensor) -> torch.Tensor:
-    """q * dh**-0.5 in q's type, then cast to the arena's — the rounding
+def _scaled_q(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """q * dh**-0.5 in q's type, then cast to the K/V type — the rounding
     order of the reference's model path; the kernels then take
     ``sm_scale=1.0``."""
-    return (q * q.shape[-1] ** -0.5).to(arena.dtype).contiguous()
+    return (q * q.shape[-1] ** -0.5).to(kv.dtype).contiguous()
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool, window: Optional[int] = None
+                      ) -> torch.Tensor:
+    """Full-sequence attention (the reference's ``blocked_attention`` with
+    ``q_offset=0``): q (b, sq, H, dh) against k, v (b, skv, K, dh), GQA by
+    head grouping, causal on positions from 0, and a sliding window when
+    ``window`` is > 0.  The reference scans q blocks to bound its score
+    memory; the kernel's tiles do that here.  Returns (b, sq, H, dh) in
+    q's type."""
+    o = ops.flash_attention(_scaled_q(q, k), k, v, causal=causal,
+                            window=window if window and window > 0 else 0,
+                            sm_scale=1.0, p_dtype=v.dtype)
+    return o.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths) -> torch.Tensor:
+    """Single-position attention against a contiguous KV cache (the model
+    path of the reference's ``layers.decode_attention_ref``).  q: (b, 1, H,
+    dh); caches (b, S, K, dh); lengths () shared or (b,) per row, the new
+    token's position being ``lengths - 1``.  Returns (b, 1, H, dh)."""
+    o = ops.decode_attention(_scaled_q(q[:, 0], k_cache), k_cache, v_cache,
+                             lengths, sm_scale=1.0, p_dtype=v_cache.dtype)
+    return o.to(q.dtype)[:, None]
+
+
+def attention_prefill_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
+                            causal: bool = True, window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Full-sequence attention that also returns the rotated K/V, so one
+    prefill pass populates a decode cache.  x: (b, s, d).  Returns (out
+    (b, s, d), k (b, s, K, dh), v (b, s, K, dh))."""
+    cfg = attn.cfg
+    q, k, v = attn.project_qkv(x, cos, sin)
+    o = blocked_attention(q, k, v, causal=causal, window=window)
+    b, s = x.shape[:2]
+    return attn.wo(o.reshape(b, s, cfg.n_heads * cfg.d_head)), k, v
+
+
+def slot_write_index(lengths: torch.Tensor, S: int):
+    """Where a slotted decode step writes each row's new K/V: (rows,
+    positions, keep).  The reference scatters at ``lengths[i]`` with
+    ``mode="drop"``, so a row whose length is >= S writes nothing; here its
+    index is clamped into the cache and ``keep`` (b, 1, 1) writes the old
+    row back — no host sync and no out-of-range index."""
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    return (rows, lengths.clamp(max=S - 1).long(),
+            (lengths < S)[:, None, None])
+
+
+def attention_decode_slots_apply(attn: Attention, x: torch.Tensor, cos, sin,
+                                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                                 lengths: torch.Tensor, write
+                                 ) -> torch.Tensor:
+    """One continuous-batching decode step over a slotted cache: each row
+    writes its new K/V at its own position ``lengths[i]`` (dropped when
+    that is past the cache, ``write`` from :func:`slot_write_index`) and
+    attends over its own first ``lengths[i] + 1`` positions.  x: (b, 1, d);
+    caches (b, S, K, dh), written IN PLACE (the reference returns new
+    ones); lengths (b,) i32.  Returns out (b, 1, d)."""
+    cfg = attn.cfg
+    q, k, v = attn.project_qkv(x, cos, sin)
+    rows, pos, keep = write
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cache.index_put_((rows, pos), torch.where(
+            keep, new[:, 0].to(cache.dtype), cache[rows, pos]))
+    o = decode_attention(q, cache_k, cache_v, lengths + 1)
+    return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
 
 
 def attention_decode_paged_apply(attn: Attention, x: torch.Tensor,

@@ -1,10 +1,12 @@
-"""Model interface of the paged serving engine — the port's counterpart of
-the paged entry points of the reference package's ``models/registry.py``.
+"""Model interface of the serving engines — the port's counterpart of the
+slotted and paged entry points of the reference package's
+``models/registry.py``.
 
 ``params`` is the :class:`~repro_torch.models.transformer.LM` module (it
 carries its config); batches are ``{"tokens": (b, s) int}``, and a decode
-batch carries one token column.  The arena ``{"k", "v"}`` is written in
-place, where the reference returns a new one.
+batch carries one token column.  The slot cache ``{"k", "v", "lengths"}``
+and the arena ``{"k", "v"}`` are written in place, where the reference
+returns new ones.
 """
 from __future__ import annotations
 
@@ -22,6 +24,33 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device: Optional[torch.device] = None) -> LM:
     """Random weights from ``seed`` on ``device`` (the GPU by default)."""
     return T.init_lm(cfg, seed=seed, device=device)
+
+
+def supports_slots(cfg: ModelConfig) -> bool:
+    """True when the family can serve through the slotted batched KV
+    cache."""
+    return cfg.n_enc_layers == 0 and T.supports_slots(cfg)
+
+
+def make_slot_cache(cfg: ModelConfig, n_slots: int, max_len: int,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[torch.device] = None) -> T.SlotCache:
+    """Fixed-capacity batched KV cache with a per-slot ``lengths`` vector."""
+    return T.init_slot_cache(cfg, n_slots, max_len, dtype, device)
+
+
+def prefill_kv(params: LM, batch: dict
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-pass prefill -> (logits (b, s, V), k (L, b, s, K, dh), v) so the
+    engine fills slot caches without replaying the prompt token by
+    token."""
+    return T.prefill_kv_lm(params, batch["tokens"])
+
+
+def decode_slots(params: LM, cache: T.SlotCache, batch: dict,
+                 active: torch.Tensor) -> Tuple[torch.Tensor, T.SlotCache]:
+    """Batched decode over all slots -> (logits (n_slots, V), cache)."""
+    return T.decode_slots_lm(params, cache, batch["tokens"], active)
 
 
 def make_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,

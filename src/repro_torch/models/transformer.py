@@ -1,18 +1,23 @@
-"""Decoder-only LM over a paged KV arena — the port's counterpart of the
-paged serving functions of the reference package's
+"""Decoder-only LM over a slotted KV cache or a paged KV arena — the
+port's counterpart of the serving functions of the reference package's
 ``models/transformer.py``.
 
 One ``DecoderLayer`` module per layer in an ``nn.ModuleList`` (the
 reference stacks layers on a leading axis for ``lax.scan``).  Entry points:
 
-  * :func:`init_lm` / :func:`init_block_arena` — weights and the arena;
+  * :func:`init_lm`, :func:`init_slot_cache`, :func:`init_block_arena` —
+    weights, the slotted cache and the arena;
+  * :func:`prefill_kv_lm` — one-pass prefill that returns every layer's
+    K/V for a slotted cache;
+  * :func:`decode_slots_lm` — one batched decode step over all slots;
   * :func:`prefill_paged_lm` — one chunk of chunked prefill;
   * :func:`decode_paged_lm` — one batched decode step;
   * :func:`decode_paged_multi_lm` — ``n_steps`` fused greedy steps whose
     token feedback stays on the device (a Python loop, no host sync).
 
-The arena is written in place.  Only the dense family without sliding
-windows or M-RoPE is ported: :func:`check_supported` raises on the others.
+Caches and the arena are written in place.  Only the dense family without
+sliding windows or M-RoPE is ported: :func:`check_supported` raises on the
+others.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 Arena = Dict[str, torch.Tensor]
+SlotCache = Dict[str, torch.Tensor]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -115,6 +121,84 @@ def init_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
 
 def _mlp_residual(layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
     return x + layer.mlp(layer.ln2(x))
+
+
+# =============================================================================
+# slotted continuous-batching cache (serving engine, kv_layout="slotted")
+# =============================================================================
+def supports_slots(cfg: ModelConfig) -> bool:
+    """Families the reference's slotted batched KV cache covers: pure-
+    attention decoders (dense / MoE) — no encoder, no SSM state, no
+    per-stream M-RoPE positions.  (The port serves the dense ones;
+    :func:`check_supported` raises on the rest.)"""
+    return (cfg.family in ("dense", "moe") and cfg.n_enc_layers == 0
+            and not cfg.mrope_sections)
+
+
+def init_slot_cache(cfg: ModelConfig, n_slots: int, max_len: int,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[torch.device] = None) -> SlotCache:
+    """Fixed-capacity batched KV cache: ``n_slots`` independent sequences
+    of up to ``max_len`` positions, each with its own valid prefix
+    ``lengths[i]``.  ``{"k", "v"}`` are (L, n_slots, max_len, K, dh)."""
+    assert supports_slots(cfg), f"slotted cache unsupported for {cfg.family}"
+    check_supported(cfg)
+    shape = (cfg.n_layers, n_slots, max_len, cfg.n_kv_heads, cfg.d_head)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "lengths": torch.zeros((n_slots,), dtype=torch.int32,
+                                   device=dev)}
+
+
+@torch.no_grad()
+def prefill_kv_lm(model: LM, tokens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence forward that also returns every layer's rotated K/V, so
+    a serving engine fills a slot's cache in ONE pass.
+
+    tokens: (b, s) int -> (logits (b, s, V_padded), k (L, b, s, K, dh),
+    v (L, b, s, K, dh))."""
+    cfg = model.cfg
+    assert supports_slots(cfg), f"prefill-kv unsupported for {cfg.family}"
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    cos, sin = _rope_tables(cfg, positions)
+    x = L.embedding_apply(model.embed, tokens)
+    ks, vs = [], []
+    for layer in model.layers:
+        a, k, v = L.attention_prefill_apply(layer.attn, layer.ln1(x), cos,
+                                            sin, causal=True)
+        x = _mlp_residual(layer, x + a)
+        ks.append(k)
+        vs.append(v)
+    return model.logits(x), torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def decode_slots_lm(model: LM, cache: SlotCache, tokens: torch.Tensor,
+                    active: torch.Tensor) -> Tuple[torch.Tensor, SlotCache]:
+    """One batched decode step over ALL slots of a slot cache.
+
+    tokens: (n_slots, 1) int — one column across slots; active: (n_slots,)
+    bool — slots serving a request.  Free slots still compute (the batch
+    shape is static) and write their K/V at their stale ``lengths[i]`` —
+    positions a later admission's prefill overwrites — and their lengths
+    do not advance.  The cache's K/V are written in place and
+    ``cache["lengths"]`` becomes ``lengths + active``.  Returns (logits
+    (n_slots, V_padded), cache)."""
+    cfg = model.cfg
+    lengths = cache["lengths"]
+    cos, sin = _rope_tables(cfg, lengths[:, None])
+    write = L.slot_write_index(lengths, cache["k"].shape[2])
+    x = L.embedding_apply(model.embed, tokens)
+    for li, layer in enumerate(model.layers):
+        x = x + L.attention_decode_slots_apply(
+            layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
+            cache["v"][li], lengths, write)
+        x = _mlp_residual(layer, x)
+    cache["lengths"] = lengths + active.to(torch.int32)
+    return model.logits(x)[:, 0, :], cache
 
 
 # =============================================================================

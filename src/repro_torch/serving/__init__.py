@@ -1,2 +1,2 @@
 """Serving layer: request API, scheduler, policies, paged KV pool and the
-paged real-execution engine."""
+real-execution engine over slotted or paged KV caches."""

@@ -1,29 +1,42 @@
-"""Real-execution serving engine over a PAGED KV arena — the port's
-counterpart of the reference package's ``serving/engine.py`` with
-``kv_layout="paged"``.
+"""Real-execution serving engine: continuous batching over slotted or PAGED
+KV caches — the port's counterpart of the reference package's
+``serving/engine.py``.
 
-Every ``PagedInstance`` owns one block arena (``models.registry.
-make_block_arena``) mapped by the ``serving.kvpool`` allocator: sequences
-hold exactly the fixed-size blocks their tokens need, admission is by block
-availability, a radix prefix cache lets requests share prompt-prefix blocks
-by refcount, prefill is chunked (long prompts advance one chunk per tick,
-interleaved with decode), and attention reads K/V through block tables —
-the Hopper kernels of ``kernels/`` on the GPU, their plain versions on the
-CPU.
+Two KV layouts share the serving loop (``RealEngine(kv_layout=...)``):
+
+  * ``"slotted"`` (the default, as in the reference) — every
+    :class:`Instance` owns a fixed-capacity batched cache
+    (``models.registry.make_slot_cache``): ``n_slots`` sequences, each
+    reserving ``max_len`` positions whatever its prompt, with a per-slot
+    valid prefix ``lengths``.  A prompt is prefilled in one pass at
+    admission (``prefill_kv``, contiguous flash attention), and one batched
+    decode step (``decode_slots``, contiguous flash-decode) advances every
+    slot per tick.  The loop is synchronous by design: each admission and
+    each decode step reads its tokens back at once;
+  * ``"paged"`` — every :class:`PagedInstance` owns one block arena
+    (``models.registry.make_block_arena``) mapped by the ``serving.kvpool``
+    allocator: sequences hold exactly the fixed-size blocks their tokens
+    need, admission is by block availability, a radix prefix cache lets
+    requests share prompt-prefix blocks by refcount, prefill is chunked
+    (long prompts advance one chunk per tick, interleaved with decode), and
+    attention reads K/V through block tables.
+
+The attention runs on the Hopper kernels of ``kernels/`` on the GPU, their
+plain versions on the CPU.
 
 The serving surface is the ``ServingBackend`` protocol (``serving.api``):
 ``submit`` typed :class:`InferenceRequest`s, ``step`` one scheduler tick,
 ``drain`` to completion, ``stats`` for the session aggregates, with
 pluggable admission policies, per-request energy attribution (per-request
-joules sum to the session total), open-loop arrivals, and the
+joules sum to the session total), open-loop arrivals, and — paged — the
 device-resident decode loop: loop state stays on the device, greedy tokens
 feed back on the device, a fused dispatch runs ``fused_steps`` steps, and
 token readbacks land a tick later through pinned host buffers.
 
 How the JAX-specific parts of the reference translate:
 
-  * the donated arena becomes in-place ``index_put_`` writes into the
-    (L, n_blocks, bs, K, dh) arena tensors;
+  * the donated arena and the jitted slot writer become in-place writes
+    into the cache and arena tensors;
   * ``copy_to_host_async`` becomes a ``non_blocking`` copy into a pinned
     host buffer with a CUDA event recorded after it (:class:`_Readback`);
     landing waits on that event only;
@@ -33,9 +46,9 @@ How the JAX-specific parts of the reference translate:
   * ``warmup`` and the shape-key bookkeeping stay, so ``compile_retraces``
     keeps its meaning; eager PyTorch compiles nothing, so it stays 0.
 
-Not ported yet, and refused with ``NotImplementedError``: the slotted
-layout, preemption and swap, ``mesh=``/``roles=`` (sharding and
-disaggregation), ``telemetry=`` and ``quality_selector=``.
+Not ported yet, and refused with ``NotImplementedError``: preemption and
+swap, ``mesh=``/``roles=`` (sharding and disaggregation), ``telemetry=``
+and ``quality_selector=``.
 """
 from __future__ import annotations
 
@@ -61,7 +74,7 @@ from repro_torch.serving.policies import SchedulerPolicy, make_policy
 from repro_torch.serving.scheduler import SchedulerCore, latency_percentile
 
 __all__ = ["latency_percentile", "EngineVariant", "build_engine_family",
-           "PagedInstance", "RealEngine"]
+           "Instance", "PagedInstance", "RealEngine", "serve_buckets"]
 
 
 @dataclasses.dataclass
@@ -92,6 +105,16 @@ def build_engine_family(base_cfg: ModelConfig, fracs=(1.0, 0.5, 0.25),
     return out
 
 
+def _bucket(n: int) -> int:
+    """Prompt padding bucket of the slotted prefill (next power of two,
+    floor 8), so the set of prefill shapes stays bounded as prompt lengths
+    vary."""
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
 def _pow2_bucket(n: int, cap: int) -> int:
     """Smallest power of two ≥ n, clamped to ``cap`` — ALWAYS a member of
     ``_bucket_ladder(cap)``, so a shape chosen at serve time is guaranteed
@@ -111,6 +134,21 @@ def _bucket_ladder(cap: int) -> List[int]:
         out.append(b)
         b *= 2
     out.append(cap)
+    return out
+
+
+def serve_buckets(max_len: int) -> List[int]:
+    """Every prompt bucket the slotted serve loop can reach on a cache of
+    ``max_len``: admitted prompts have ``true_len <= max_len - 1``, so the
+    reachable set is exactly ``{_bucket(n) for n in 1..max_len-1}``.
+    ``Instance.warmup`` runs precisely this set."""
+    out: List[int] = []
+    b = 8
+    while True:
+        out.append(b)
+        if b >= max_len - 1:
+            break
+        b *= 2
     return out
 
 
@@ -208,6 +246,254 @@ def _note_shape(inst, key: Tuple) -> None:
 _NULL_PROFILER = PhaseProfiler()
 
 
+# =============================================================================
+# slotted instance
+# =============================================================================
+@dataclasses.dataclass
+class _SlotState:
+    """Host-side request state of one occupied slot."""
+    rid: int
+    t_arrival: float
+    remaining: int                 # decode steps still to run
+    tokens: List[int]              # generated token ids (prefill token first)
+    t_first: Optional[float] = None   # wall time of the first generated token
+    priority: int = 0
+
+
+def _write_slot(cache: Dict[str, torch.Tensor], k_all: torch.Tensor,
+                v_all: torch.Tensor, slot: int, true_len: int) -> None:
+    """Write one prefill's K/V (L, 1, w, K, dh) into positions 0..w-1 of
+    ``slot`` and set its length — in place, where the reference's jitted
+    writer returns new buffers."""
+    w = k_all.shape[2]
+    cache["k"][:, slot, :w].copy_(k_all[:, 0])
+    cache["v"][:, slot, :w].copy_(v_all[:, 0])
+    cache["lengths"][slot] = true_len
+
+
+class Instance:
+    """One serving instance over a slotted batched KV cache: a one-pass
+    prefill at admission and one batched decode step over all slots per
+    tick.
+
+    The cache is f32, as the reference's; like the reference (whose slot
+    writer cannot mix types), it serves f32 models only and raises
+    ``ValueError`` on another type."""
+
+    profiler: PhaseProfiler = _NULL_PROFILER
+
+    def __init__(self, ev: EngineVariant, chips: int, n_slots: int = 4,
+                 max_len: int = 96):
+        if ev.cfg.dtype != torch.float32:
+            raise ValueError(
+                f"variant {ev.variant.name} is {ev.cfg.dtype}: the slotted "
+                f"layout serves f32 models only (its cache is f32, and the "
+                f"reference's slot writer refuses a prefill of another "
+                f"type); use dtype=torch.float32 or kv_layout='paged'")
+        self.ev = ev
+        self.chips = chips
+        self.params = ev.params
+        self.device = next(ev.params.parameters()).device
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.cache = R.make_slot_cache(ev.cfg, n_slots, max_len,
+                                       dtype=torch.float32,
+                                       device=self.device)
+        self.slots: List[Optional[_SlotState]] = [None] * n_slots
+        self._next = np.zeros((n_slots, 1), np.int32)   # next decode token
+        self._shapes: set = set()        # shape keys seen (see _note_shape)
+        self.retraces = 0                # lifetime post-warmup shape misses
+        # host↔device traffic (lifetime; sessions report deltas): the
+        # slotted loop is synchronous by design — 1 upload + 1 blocking
+        # readback per admission, 2 uploads + 1 blocking readback per
+        # decode step — the baseline the paged pipelined loop is held to
+        self.host_syncs = 0
+        self.h2d_transfers = 0
+        self.decode_dispatches = 0
+
+    # --- lifecycle -----------------------------------------------------------
+    def reset(self) -> None:
+        """Recycle from the warm pool: clear per-slot state.  Cache contents
+        are stale but masked out (lengths = 0) until the next prefill."""
+        self.cache["lengths"].zero_()
+        self.slots = [None] * self.n_slots
+        self._next[:] = 0
+
+    def _put(self, arr: np.ndarray) -> torch.Tensor:
+        return _h2d(arr, self.device)
+
+    def warmup(self) -> None:
+        """Run EXACTLY the shapes the serve loop can reach — every prompt
+        bucket of ``serve_buckets`` plus one decode step — and seed the
+        shape keys ``_note_shape`` checks.  The prefills write into slot 0
+        at length 0 and the decode step has no active slot, so logical
+        state is untouched."""
+        for b in serve_buckets(self.max_len):
+            self._shapes.add(("prefill", b))
+            dummy = torch.zeros((1, b), dtype=torch.int32,
+                                device=self.device)
+            _, k_all, v_all = R.prefill_kv(self.params, {"tokens": dummy})
+            w = min(b, self.max_len)
+            _write_slot(self.cache, k_all[:, :, :w], v_all[:, :, :w], 0, 0)
+        self._shapes.add(("decode",))
+        R.decode_slots(self.params, self.cache,
+                       {"tokens": self._put(self._next)},
+                       torch.zeros((self.n_slots,), dtype=torch.bool,
+                                   device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # --- slot management -----------------------------------------------------
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    @property
+    def occupied(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    @property
+    def capacity(self) -> int:
+        return self.n_slots
+
+    @property
+    def busy(self) -> bool:
+        return self.occupied > 0
+
+    def admission_signature(self) -> Tuple:
+        """Free-capacity fingerprint for admission gating: a failed admission
+        is only re-attempted once this changes (a slot was freed)."""
+        return (len(self.free_slots()),)
+
+    # --- serving -------------------------------------------------------------
+    def can_admit(self, prompt_len: int, n_new: int) -> bool:
+        assert prompt_len + n_new <= self.max_len, \
+            f"prompt {prompt_len} + n_new {n_new} > max_len {self.max_len}"
+        return any(s is None for s in self.slots)
+
+    def admit_next(self, rid: int, t_arrival: float, prompt: np.ndarray,
+                   n_new: int, priority: int = 0, slo: str = "interactive",
+                   deadline_s: Optional[float] = None
+                   ) -> Tuple[_SlotState, float]:
+        """Admit into the first free slot; returns (state, prefill seconds)
+        — the engine charges prefill at full busy power.  ``slo`` /
+        ``deadline_s`` are accepted for the uniform instance surface; the
+        slotted layout prefills at admission, so there is no prefill queue
+        for a policy to order."""
+        slot = self.free_slots()[0]
+        t1 = time.perf_counter()
+        state = self.admit(slot, rid, t_arrival, prompt, n_new,
+                           priority=priority)
+        state.t_first = time.perf_counter()
+        return state, state.t_first - t1
+
+    def admit(self, slot: int, rid: int, t_arrival: float,
+              prompt: np.ndarray, n_new: int, priority: int = 0
+              ) -> _SlotState:
+        """One-pass prefill of ``prompt`` into ``slot``.  The prompt's
+        last-position logits yield the first generated token at once (a
+        blocking readback) — the prefill forward is never discarded."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        true_len = int(prompt.shape[0])
+        assert true_len + n_new <= self.max_len, \
+            f"prompt {true_len} + n_new {n_new} > max_len {self.max_len}"
+        pad = _bucket(true_len)
+        _note_shape(self, ("prefill", pad))
+        padded = np.zeros((1, pad), np.int32)
+        padded[0, :true_len] = prompt
+        self.h2d_transfers += 1
+        logits, k_all, v_all = R.prefill_kv(self.params,
+                                            {"tokens": self._put(padded)})
+        write = min(pad, self.max_len)   # padded tail beyond capacity is junk
+        _write_slot(self.cache, k_all[:, :, :write], v_all[:, :, :write],
+                    slot, true_len)
+        self.host_syncs += 1             # blocking first-token readback
+        first = int(logits[0, true_len - 1].argmax())
+        state = _SlotState(rid, t_arrival, remaining=n_new - 1,
+                           tokens=[first], priority=priority)
+        self._next[slot, 0] = first
+        if state.remaining > 0:
+            self.slots[slot] = state
+        return state
+
+    def step(self) -> Tuple[List[_SlotState], List[Tuple[int, int]]]:
+        """One batched decode step over ALL slots; returns (completed
+        requests — their slots are freed for mid-flight admission — and the
+        (rid, token) emissions of every active row for streaming)."""
+        active = np.array([s is not None for s in self.slots])
+        _note_shape(self, ("decode",))
+        self.h2d_transfers += 2          # next-token + active-mask uploads
+        t_d0 = time.perf_counter()
+        logits, self.cache = R.decode_slots(
+            self.params, self.cache, {"tokens": self._put(self._next)},
+            self._put(active))
+        self.host_syncs += 1             # blocking per-step token readback
+        self.decode_dispatches += 1
+        t_l0 = time.perf_counter()
+        toks = logits.argmax(dim=-1).cpu().numpy()
+        self.profiler.observe("decode_dispatch", t_l0 - t_d0)
+        self.profiler.observe("decode_land", time.perf_counter() - t_l0)
+        finished: List[_SlotState] = []
+        emitted: List[Tuple[int, int]] = []
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            s.tokens.append(int(toks[i]))
+            emitted.append((s.rid, int(toks[i])))
+            s.remaining -= 1
+            self._next[i, 0] = int(toks[i])
+            if s.remaining <= 0:
+                finished.append(s)
+                self.slots[i] = None
+        return finished, emitted
+
+    def tick(self, now: Optional[float] = None, allow_fused: bool = True
+             ) -> Tuple[List[_SlotState], Dict[str, object]]:
+        """One scheduler tick = one batched decode step (slotted prefill
+        runs at admission; ``now`` / ``allow_fused`` are unused here —
+        uniform tick surface with :class:`PagedInstance`)."""
+        occ = self.occupied
+        if occ == 0:
+            return [], _tick_info()
+        rids = [s.rid for s in self.slots if s is not None]
+        t1 = time.perf_counter()
+        finished, emitted = self.step()
+        dt = time.perf_counter() - t1
+        return finished, _tick_info(decode_s=dt, decode_steps=1, occupied=occ,
+                                    decode_rids=rids, emitted=emitted)
+
+    @torch.no_grad()
+    def generate(self, prompt: np.ndarray, n_new: int = 8
+                 ) -> Tuple[np.ndarray, float]:
+        """Greedy generation for a (possibly batched) prompt, outside the
+        slots: prompt (b, s) int32 -> (tokens (b, n_new), wall seconds).
+        One-pass prefill into a cache of its own, then batched decode; each
+        row takes its own argmax."""
+        t0 = time.perf_counter()
+        prompt = np.asarray(prompt, np.int32)
+        b, s = prompt.shape
+        logits, k_all, v_all = R.prefill_kv(self.params,
+                                            {"tokens": self._put(prompt)})
+        cache = R.make_slot_cache(self.ev.cfg, b, s + n_new,
+                                  dtype=torch.float32, device=self.device)
+        cache["k"][:, :, :s] = k_all
+        cache["v"][:, :, :s] = v_all
+        cache["lengths"].fill_(s)
+        active = torch.ones((b,), dtype=torch.bool, device=self.device)
+        tok = logits[:, s - 1].argmax(dim=-1)             # (b,) per-row
+        out = [tok]
+        for _ in range(n_new - 1):
+            lg, cache = R.decode_slots(
+                self.params, cache,
+                {"tokens": tok[:, None].to(torch.int32)}, active)
+            tok = lg.argmax(dim=-1)
+            out.append(tok)
+        toks = torch.stack(out, dim=1).cpu().numpy()
+        return toks, time.perf_counter() - t0
+
+
+# =============================================================================
+# paged instance (kvpool)
+# =============================================================================
 @dataclasses.dataclass
 class _PagedSeq:
     """Host-side state of one sequence in a paged instance.
@@ -786,7 +1072,7 @@ class _Session:
         self.accounted_s = {id(i): 0.0 for i in instances}
         # instance counters are lifetime (they survive reset/warm reuse);
         # stats report THIS session's delta
-        self.counters0 = {name: sum(getattr(i, name) for i in instances)
+        self.counters0 = {name: sum(getattr(i, name, 0) for i in instances)
                           for name in _INSTANCE_COUNTERS}
 
     def schedule(self, req: InferenceRequest) -> None:
@@ -804,7 +1090,8 @@ class _Session:
         return now - self.t0
 
 
-# lifetime instance counters a session reports as deltas, by stats name
+# lifetime instance counters a session reports as deltas, by stats name (a
+# slotted instance has no prefill chunks or prefix hits: it counts 0)
 _INSTANCE_COUNTERS = {"prefill_chunks": "prefill_chunks",
                       "prefix_hit_tokens": "prefix_hit_tokens",
                       "retraces": "compile_retraces",
@@ -814,19 +1101,19 @@ _INSTANCE_COUNTERS = {"prefill_chunks": "prefill_chunks",
 
 
 class RealEngine:
-    """Maps a ConfigGraph onto paged instances and serves
+    """Maps a ConfigGraph onto slotted or paged instances and serves
     :class:`InferenceRequest`s with continuous batching through the
     ``ServingBackend`` protocol, measuring wall latencies and attributing
     occupancy-scaled energy (the reference's power model,
     ``core.perf_model``) and carbon (``ci_g_per_kwh``) per request.
 
     ``device`` is where the family's weights live (the GPU by default; the
-    CPU on request).  The reference's ``kv_layout="slotted"``,
-    ``preemption``, ``telemetry``, ``quality_selector``, ``mesh`` and
-    ``roles`` are not ported yet and raise ``NotImplementedError``."""
+    CPU on request).  The reference's ``preemption``, ``telemetry``,
+    ``quality_selector``, ``mesh`` and ``roles`` are not ported yet and
+    raise ``NotImplementedError``."""
 
     def __init__(self, family: Sequence[EngineVariant], n_slots: int = 4,
-                 max_len: int = 96, *, kv_layout: str = "paged",
+                 max_len: int = 96, *, kv_layout: str = "slotted",
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  max_seqs: Optional[int] = None, chunk_blocks: int = 2,
                  prefix_caching: bool = True,
@@ -836,8 +1123,7 @@ class RealEngine:
                  fused_steps: int = 8, quality_selector=None, mesh=None,
                  roles=None,
                  device: Optional[Union[str, torch.device]] = None):
-        unported = {"kv_layout='slotted'": kv_layout == "slotted",
-                    "preemption": preemption,
+        unported = {"preemption": preemption,
                     "telemetry": telemetry is not None,
                     "quality_selector": quality_selector is not None,
                     "mesh": mesh is not None, "roles": bool(roles)}
@@ -845,7 +1131,7 @@ class RealEngine:
         if missing:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(missing)}")
-        if kv_layout != "paged":
+        if kv_layout not in ("slotted", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.device = resolve_device(device)
         for ev in family:
@@ -855,7 +1141,8 @@ class RealEngine:
                                  f"{sorted(map(str, where))}, engine on "
                                  f"{self.device}")
         self.family = {ev.variant.name: ev for ev in family}
-        self.instances: List[PagedInstance] = []
+        self.instances: List[Union[Instance, PagedInstance]] = []
+        self.n_slots = n_slots
         self.max_len = max_len
         self.kv_layout = kv_layout
         self.block_size = block_size
@@ -877,30 +1164,37 @@ class RealEngine:
         # one engine-owned phase profiler shared by every instance; it stays
         # disabled (registry None) until telemetry is ported
         self.profiler = PhaseProfiler()
-        self._pool: Dict[Tuple[str, int], List[PagedInstance]] = {}
+        self._pool: Dict[Tuple[str, int],
+                         List[Union[Instance, PagedInstance]]] = {}
         self._session: Optional[_Session] = None
         self._last_stats: Dict[str, float] = {}
+        self.last_reconfig_s = 0.0
         self.last_admit_order: List[int] = []
         self.last_outputs: Dict[int, np.ndarray] = {}
+        self.last_latencies: List[float] = []
         self.last_responses: List[InferenceResponse] = []
 
-    def _new_instance(self, ev: EngineVariant, chips: int) -> PagedInstance:
-        return PagedInstance(ev, chips, n_blocks=self.n_blocks,
-                             block_size=self.block_size,
-                             max_seqs=self.max_seqs, max_len=self.max_len,
-                             chunk_blocks=self.chunk_blocks,
-                             prefix_caching=self.prefix_caching,
-                             policy=self.policy,
-                             pipeline=self.decode_pipeline,
-                             fused_steps=self.fused_steps)
+    def _new_instance(self, ev: EngineVariant, chips: int
+                      ) -> Union[Instance, PagedInstance]:
+        if self.kv_layout == "paged":
+            return PagedInstance(ev, chips, n_blocks=self.n_blocks,
+                                 block_size=self.block_size,
+                                 max_seqs=self.max_seqs,
+                                 max_len=self.max_len,
+                                 chunk_blocks=self.chunk_blocks,
+                                 prefix_caching=self.prefix_caching,
+                                 policy=self.policy,
+                                 pipeline=self.decode_pipeline,
+                                 fused_steps=self.fused_steps)
+        return Instance(ev, chips, self.n_slots, self.max_len)
 
     def configure(self, graph) -> float:
         """Apply a configuration graph; returns reconfig seconds (measured).
 
         Warm path: instances are returned to a (variant, chips) pool and
-        reused — weights and KV arenas survive controller re-invocations;
+        reused — weights and KV caches survive controller re-invocations;
         only genuinely new (variant, chips) pairs pay allocation and
-        warmup."""
+        warmup.  The seconds are also kept as ``last_reconfig_s``."""
         assert self._session is None, "configure during an open serve session"
         t0 = time.perf_counter()
         for inst in self.instances:
@@ -918,7 +1212,8 @@ class RealEngine:
                     inst.warmup()
                 inst.profiler = self.profiler
                 self.instances.append(inst)
-        return time.perf_counter() - t0
+        self.last_reconfig_s = time.perf_counter() - t0
+        return self.last_reconfig_s
 
     # --- ServingBackend protocol ---------------------------------------------
     def submit(self, req: InferenceRequest) -> None:
@@ -980,12 +1275,24 @@ class RealEngine:
                 s.admit_gate.pop(id(inst), None)
                 s.core.pop_next(now_rel)
                 t1 = time.perf_counter()
-                inst.admit_next(rid, t_arr, req.prompt, req.max_new_tokens,
-                                priority=req.priority, slo=req.slo,
-                                deadline_s=req.deadline_s)
+                state, dt = inst.admit_next(rid, t_arr, req.prompt,
+                                            req.max_new_tokens,
+                                            priority=req.priority,
+                                            slo=req.slo,
+                                            deadline_s=req.deadline_s)
                 s.admit_t[rid] = t1
                 self.last_admit_order.append(rid)
+                if state.tokens and req.on_token is not None:
+                    req.on_token(rid, state.tokens[0])   # slotted first
+                if dt > 0:               # the slotted layout prefills here
+                    self.profiler.observe("prefill_chunk", dt)
+                e_pf = inst.chips * PM.P_BUSY_W * dt   # prefill: busy power
+                s.energy += e_pf
+                s.meters[rid] += e_pf
+                s.accounted_s[id(inst)] += dt
                 s.progressed = True
+                if state.remaining <= 0 and state.tokens:    # n_new == 1
+                    completed.append(self._finish(state, inst))
         # 2. one tick per busy instance (≤ 1 prefill burst + 1 decode)
         for inst in self.instances:
             if not inst.busy:
@@ -1073,8 +1380,8 @@ class RealEngine:
         return dict(self._last_stats)
 
     # --- internals -----------------------------------------------------------
-    def _finish(self, state: _PagedSeq, inst: PagedInstance
-                ) -> InferenceResponse:
+    def _finish(self, state: Union[_SlotState, _PagedSeq],
+                inst: Union[Instance, PagedInstance]) -> InferenceResponse:
         s = self._session
         req = s.requests[state.rid]
         t_fin = time.perf_counter()
@@ -1127,10 +1434,11 @@ class RealEngine:
         for r in s.responses:
             r.energy_j += idle_share
             r.carbon_g = r.energy_j / 3.6e6 * self.ci_g_per_kwh
+        self.last_latencies = s.core.latencies
         self.last_responses = s.responses
         # session deltas of the instances' lifetime counters (instances
         # survive warm reconfiguration)
-        delta = {stat: sum(getattr(i, name) for i in self.instances)
+        delta = {stat: sum(getattr(i, name, 0) for i in self.instances)
                  - s.counters0[name]
                  for name, stat in _INSTANCE_COUNTERS.items()}
         total_g = s.energy / 3.6e6 * self.ci_g_per_kwh

@@ -207,8 +207,7 @@ def test_token_stream_callbacks_and_single_token_requests(family):
     assert eng.stats()["host_syncs"] >= 1
 
 
-@pytest.mark.parametrize("kw", [{"kv_layout": "slotted"},
-                                {"preemption": True},
+@pytest.mark.parametrize("kw", [{"preemption": True},
                                 {"telemetry": object()},
                                 {"quality_selector": "greedy"},
                                 {"mesh": object()},
@@ -216,6 +215,18 @@ def test_token_stream_callbacks_and_single_token_requests(family):
 def test_unported_engine_options_raise(family, kw):
     with pytest.raises(NotImplementedError):
         ENG.RealEngine(family, device="cpu", **kw)
+
+
+def test_default_layout_builds_slotted_instances(family):
+    """With no ``kv_layout`` the engine serves the slotted layout, as the
+    reference's ``RealEngine`` does."""
+    eng = ENG.RealEngine(family, device="cpu")
+    assert eng.kv_layout == "slotted"
+    eng.configure(_graph())
+    assert eng.instances and all(type(i) is ENG.Instance
+                                 for i in eng.instances)
+    m = eng._serve_prompts(_prompts((5, 9), seed=6), n_new=3)
+    assert m["served"] == 2 and m["prefill_chunks"] == 0
 
 
 def test_engine_refuses_weights_on_another_device(family):

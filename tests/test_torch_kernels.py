@@ -12,11 +12,13 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config
+from repro.kernels import decode_attention as DAJ
 from repro.kernels import flash_attention as FAJ
 from repro.kernels import paged_attention as PAJ
 from repro.kernels import ref as REFJ
 from repro.models import layers as LJ
 from repro_torch.configs import qwen3_1_7b
+from repro_torch.kernels import decode_attention as DAT
 from repro_torch.kernels import flash_attention as FAT
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PAT
@@ -69,6 +71,83 @@ def test_paged_decode_plain_matches_pallas(b, nb, bs, H, K, dh, n_pages,
                                           torch.tensor(tables),
                                           torch.tensor(lengths))
     assert got.dtype == q_t.dtype and got.shape == (b, H, dh)
+    _close(got, want, DTYPES[dtype][2])
+
+
+# =============================================================================
+# contiguous decode: plain version vs the Pallas kernel
+# =============================================================================
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,S,H,K,dh,lengths", [
+    (3, 96, 4, 2, 64, (1, 40, 96)),        # per-row, S not a multiple of 256
+    (2, 80, 8, 8, 32, (80, 17)),
+    (1, 128, 6, 1, 128, (100,)),
+    (2, 72, 4, 2, 16, 33),                 # one length shared by every row
+])
+def test_decode_plain_matches_pallas(b, S, H, K, dh, lengths, dtype):
+    """The port takes any S; the Pallas kernel needs S % block_k == 0, so
+    it is given block_k = S."""
+    rng = np.random.default_rng(S + b)
+    q_j, q_t = _both(rng.standard_normal((b, H, dh), np.float32), dtype)
+    k_j, k_t = _both(rng.standard_normal((b, S, K, dh), np.float32), dtype)
+    v_j, v_t = _both(rng.standard_normal((b, S, K, dh), np.float32), dtype)
+    ln = np.asarray(lengths, np.int32)
+    want = DAJ.decode_attention(q_j, k_j, v_j, jnp.asarray(ln), block_k=S,
+                                interpret=True)
+    got = REFT.decode_attention_ref(q_t, k_t, v_t, torch.tensor(ln))
+    assert got.dtype == q_t.dtype and got.shape == (b, H, dh)
+    _close(got, want, DTYPES[dtype][2])
+    want_ref = REFJ.decode_attention_ref(q_j, k_j, v_j, jnp.asarray(ln))
+    _close(got, want_ref, DTYPES[dtype][2])
+
+
+def test_decode_plain_length_past_the_cache_sees_the_whole_row():
+    """A row whose length exceeds S (a full slot's ``lengths + 1``) attends
+    over every position, as the reference's mask does."""
+    rng = np.random.default_rng(1)
+    q = torch.tensor(rng.standard_normal((2, 4, 16), np.float32))
+    kc = torch.tensor(rng.standard_normal((2, 24, 2, 16), np.float32))
+    vc = torch.tensor(rng.standard_normal((2, 24, 2, 16), np.float32))
+    got = REFT.decode_attention_ref(q, kc, vc, torch.tensor([25, 24]))
+    want = REFT.decode_attention_ref(q, kc, vc, torch.tensor([24, 24]))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# =============================================================================
+# contiguous flash attention: plain version vs the Pallas kernel
+# =============================================================================
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,H,K,dh,window", [
+    (2, 128, 4, 2, 64, 0),
+    (1, 256, 8, 8, 32, 0),
+    (2, 128, 4, 1, 128, 48),
+    (1, 256, 6, 2, 16, 100),
+])
+def test_flash_plain_matches_pallas(b, s, H, K, dh, window, dtype):
+    rng = np.random.default_rng(s + window)
+    q_j, q_t = _both(rng.standard_normal((b, s, H, dh), np.float32), dtype)
+    k_j, k_t = _both(rng.standard_normal((b, s, K, dh), np.float32), dtype)
+    v_j, v_t = _both(rng.standard_normal((b, s, K, dh), np.float32), dtype)
+    want = FAJ.flash_attention(q_j, k_j, v_j, causal=True, window=window,
+                               interpret=True)
+    got = REFT.flash_attention_ref(q_t, k_t, v_t, causal=True, window=window)
+    assert got.dtype == q_t.dtype and got.shape == (b, s, H, dh)
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_blocked_attention_matches_reference_model_path(dtype):
+    """The model's full-sequence attention (q scaled in its type and cast to
+    k's, probabilities cast to v's type before P·V) against the
+    reference's ``blocked_attention``."""
+    b, s, H, K, dh = 2, 64, 4, 2, 16
+    rng = np.random.default_rng(9)
+    q_j, q_t = _both(rng.standard_normal((b, s, H, dh), np.float32), dtype)
+    k_j, k_t = _both(rng.standard_normal((b, s, K, dh), np.float32), dtype)
+    v_j, v_t = _both(rng.standard_normal((b, s, K, dh), np.float32), dtype)
+    want = LJ.blocked_attention(q_j, k_j, v_j, causal=True, block_q=16)
+    got = LT.blocked_attention(q_t, k_t, v_t, causal=True)
+    assert got.dtype == q_t.dtype
     _close(got, want, DTYPES[dtype][2])
 
 
@@ -195,8 +274,9 @@ def _decode_inputs(device="cpu"):
 
 
 def test_ops_on_cpu_take_the_plain_versions_and_launch_nothing():
-    n_dec = PAT.paged_decode_attention.launches
-    n_pre = FAT.paged_prefill_attention.launches
+    counters = (PAT.paged_decode_attention, FAT.paged_prefill_attention,
+                DAT.decode_attention, FAT.flash_attention)
+    before = [f.launches for f in counters]
     args = _decode_inputs()
     torch.testing.assert_close(ops.paged_decode_attention(*args),
                                REFT.paged_decode_attention_ref(*args),
@@ -208,8 +288,37 @@ def test_ops_on_cpu_take_the_plain_versions_and_launch_nothing():
         ops.paged_prefill_attention(q, ka, va, table, pos),
         REFT.paged_prefill_attention_ref(q, ka, va, table, pos),
         rtol=0, atol=0)
-    assert PAT.paged_decode_attention.launches == n_dec
-    assert FAT.paged_prefill_attention.launches == n_pre
+    qd, kc = torch.randn(2, 4, 16), torch.randn(2, 12, 2, 16)
+    ln = torch.tensor([5, 12], dtype=torch.int32)
+    torch.testing.assert_close(ops.decode_attention(qd, kc, kc, ln),
+                               REFT.decode_attention_ref(qd, kc, kc, ln),
+                               rtol=0, atol=0)
+    qf, kf = torch.randn(1, 12, 4, 16), torch.randn(1, 12, 2, 16)
+    torch.testing.assert_close(ops.flash_attention(qf, kf, kf, window=4),
+                               REFT.flash_attention_ref(qf, kf, kf, window=4),
+                               rtol=0, atol=0)
+    assert [f.launches for f in counters] == before
+
+
+def test_contiguous_kernel_wrappers_refuse_what_they_do_not_take():
+    """The contiguous kernels' wrappers check before they build: CPU
+    tensors, a type the kernels do not take, a head dim the flash kernel
+    cannot read four at a time, and shapes that do not match, raise."""
+    counters = (DAT.decode_attention, FAT.flash_attention)
+    before = [f.launches for f in counters]
+    qd, kc = torch.randn(2, 4, 16), torch.randn(2, 12, 2, 16)
+    ln = torch.tensor([5, 12], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        DAT.decode_attention(qd, kc, kc, ln)
+    qf, kf = torch.randn(1, 12, 4, 16), torch.randn(1, 12, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        FAT.flash_attention(qf, kf, kf)
+    meta = [t.to("meta") for t in (qf, kf, kf)]
+    with pytest.raises(ValueError, match="meta"):
+        ops.flash_attention(*meta)
+    with pytest.raises(ValueError, match="meta"):
+        ops.decode_attention(*[t.to("meta") for t in (qd, kc, kc, ln)])
+    assert [f.launches for f in counters] == before
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take():
@@ -236,3 +345,10 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
 def test_prefill_tile_holds_eight_query_rows(g, want):
     """Queries per CTA: as many as fit the kernel's 8 query rows."""
     assert FAT.queries_per_cta(g) == want
+
+
+@pytest.mark.parametrize("g,want", [(1, 64), (2, 32), (3, 21), (8, 8)])
+def test_contiguous_prefill_tile_holds_64_query_rows(g, want):
+    """Queries per CTA of the contiguous kernel: as many as fit its 64
+    query rows, so a CTA reuses each staged K/V block across 64 rows."""
+    assert FAT.flash_queries_per_cta(g) == want
