@@ -50,7 +50,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # rate of each input type — f32 on the CUDA cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # sum order / bf16 rounding
+# (atol, rtol) of a kernel against its plain version: f32 differs in the
+# order of its sums; both accumulate bf16 inputs in f32, so a bf16 output
+# differs by about one bf16 rounding of the output (relative 2**-8)
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (4e-3, 1e-2)}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -310,14 +313,15 @@ def phase_kernels() -> dict:
         torch.cuda.synchronize()
         ref = plain()
         err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL[dname]
-        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        atol, rtol = TOL[dname]
+        ok = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
         _check(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite")
-        _check(ok, f"{name} {label} {dname}: max |err| {err:.3g} > {tol}")
+        _check(ok, f"{name} {label} {dname}: max |err| {err:.3g} beyond "
+                   f"atol {atol} rtol {rtol}")
         ms, plain_ms, lib_ms = _time_ms(kern), _time_ms(plain), _time_ms(lib)
         bound_ms, bound_by = _bound_ms(n_bytes, n_ops, dname)
         print(f"kernel {name} {label} {dname}: max_abs_err {err:.3g} "
-              f"(tol {tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"(atol {atol} rtol {rtol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
         if dname == "float32" and (kind, arg) in headlines:
             records[name] = {"max_abs_err": err, "ms": ms,

@@ -4,11 +4,6 @@ A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor goes to the hand-written Hopper kernel, whose wrapper raises on
 anything it does not take.  There is no fallback from the kernel to the
 plain version.
-
-``p_dtype`` is a rounding of the plain versions only: the reference's model
-path casts the normalised probabilities to v's type before P·V, which an
-online softmax cannot do; the kernels keep them in f32.  For f32 caches the
-two are the same.
 """
 from __future__ import annotations
 
@@ -33,28 +28,26 @@ def _on_cuda(name: str, q: torch.Tensor) -> bool:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    sm_scale: Optional[float] = None,
-                    p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
     """Contiguous prefill attention: q (b, sq, H, dh) against k, v (b, skv,
     K, dh), causal on positions from 0, sliding window when window > 0."""
     if _on_cuda("flash_attention", q):
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    sm_scale=sm_scale)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    sm_scale=sm_scale, p_dtype=p_dtype)
+                                    sm_scale=sm_scale)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                     sm_scale: Optional[float] = None,
-                     p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Contiguous flash-decode: q (b, H, dh) over caches (b, S, K, dh) for
     the first lengths[i] >= 1 positions of each row (lengths () or (b,))."""
     if _on_cuda("decode_attention", q):
         return _dec.decode_attention(q, k_cache, v_cache, lengths,
                                      sm_scale=sm_scale)
     return _ref.decode_attention_ref(q, k_cache, v_cache, lengths,
-                                     sm_scale=sm_scale, p_dtype=p_dtype)
+                                     sm_scale=sm_scale)
 
 
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,

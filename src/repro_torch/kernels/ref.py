@@ -31,24 +31,18 @@ def gather_paged_kv(arena_k: torch.Tensor, arena_v: torch.Tensor,
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor, sm_scale: float,
-            p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            mask: torch.Tensor, sm_scale: float) -> torch.Tensor:
     """q (b, sq, K, g, dh); k, v (b, skv, K, dh); mask broadcastable to
-    (b, K, g, sq, skv).  ``p_dtype`` rounds the normalised probabilities to
-    that type before P·V (the reference's model path casts them to v's
-    type); None keeps them f32.  Returns f32 (b, sq, K, g, dh)."""
+    (b, K, g, sq, skv).  Returns f32 (b, sq, K, g, dh)."""
     s = torch.einsum("bqkgd,bnkd->bkgqn", q.float(), k.float()) * sm_scale
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    if p_dtype is not None:
-        p = p.to(p_dtype).float()
     return torch.einsum("bkgqn,bnkd->bqkgd", p, v.float())
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        sm_scale: Optional[float] = None,
-                        p_dtype: Optional[torch.dtype] = None
+                        sm_scale: Optional[float] = None
                         ) -> torch.Tensor:
     """Exact softmax attention.  q: (b, sq, H, dh); k, v: (b, skv, K, dh);
     GQA by head grouping (query head h reads KV head h // g); causal on
@@ -65,14 +59,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= qpos >= kpos
     if window > 0:
         mask &= (qpos - kpos) < window
-    o = _attend(q.reshape(b, sq, K, H // K, dh), k, v, mask, scale, p_dtype)
+    o = _attend(q.reshape(b, sq, K, H // K, dh), k, v, mask, scale)
     return o.reshape(b, sq, H, dh).to(q.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lengths, *,
-                         sm_scale: Optional[float] = None,
-                         p_dtype: Optional[torch.dtype] = None
+                         sm_scale: Optional[float] = None
                          ) -> torch.Tensor:
     """One-position attention over a contiguous KV cache.  q: (b, H, dh);
     caches: (b, S, K, dh); lengths: () shared valid prefix, or (b,) per-row
@@ -86,7 +79,7 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     ln = torch.as_tensor(lengths, device=q.device).reshape(-1, 1)
     mask = (torch.arange(S, device=q.device)[None, :] < ln)
     o = _attend(q.reshape(b, 1, K, H // K, dh), k_cache, v_cache,
-                mask[:, None, None, None, :], scale, p_dtype)
+                mask[:, None, None, None, :], scale)
     return o.reshape(b, H, dh).to(q.dtype)
 
 

@@ -88,12 +88,8 @@ def run_real(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("sim", "real"), default="sim")
-    ap.add_argument("--family", default="efficientnet")
     ap.add_argument("--arch", default="qwen3-1.7b")
-    ap.add_argument("--scheme", default="CLOVER")
     ap.add_argument("--region", default="CISO-March")
-    ap.add_argument("--hours", type=float, default=48.0)
-    ap.add_argument("--blocks", type=int, default=4)
     ap.add_argument("--lam", type=float, default=0.1)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--device", default=None,

@@ -8,8 +8,8 @@ embedding.
 Parameters live in ``nn.Module``s; the math is plain functions on tensors
 that follow the reference's rounding order (norms in f32 then cast back,
 rotary tables cast to the activation type, q scaled and cast to the cache
-type before the dot, probabilities cast to v's type before P·V in the
-plain versions).  Every attention goes through ``kernels/ops.py``: the
+type before the dot; the probabilities stay f32 through P·V, as in the
+kernels).  Every attention goes through ``kernels/ops.py``: the
 Hopper kernels for CUDA tensors, their plain versions on the CPU.
 """
 from __future__ import annotations
@@ -164,7 +164,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's type."""
     o = ops.flash_attention(_scaled_q(q, k), k, v, causal=causal,
                             window=window if window and window > 0 else 0,
-                            sm_scale=1.0, p_dtype=v.dtype)
+                            sm_scale=1.0)
     return o.to(q.dtype)
 
 
@@ -175,7 +175,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     dh); caches (b, S, K, dh); lengths () shared or (b,) per row, the new
     token's position being ``lengths - 1``.  Returns (b, 1, H, dh)."""
     o = ops.decode_attention(_scaled_q(q[:, 0], k_cache), k_cache, v_cache,
-                             lengths, sm_scale=1.0, p_dtype=v_cache.dtype)
+                             lengths, sm_scale=1.0)
     return o.to(q.dtype)[:, None]
 
 
