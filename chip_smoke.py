@@ -176,31 +176,34 @@ def _sdpa_prefill(q, ka, va, table, pos):
 
 
 def _contig_decode_case(b: int, dtype, seed: int, S: int = 2048, K: int = 8,
-                        g: int = 2, dh: int = 128):
+                        g: int = 2, dh: int = 128, shared: bool = False):
     """Random slotted-decode inputs: one layer's (b, S, K, dh) caches with
-    per-row lengths drawn up to S, one row at S."""
+    per-row lengths drawn up to S, one row at S; with ``shared``, the one
+    length S for every row (the generic decode step's scalar position)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     torch.manual_seed(seed)
-    lengths = rng.integers(1, S + 1, size=b)
-    lengths[0] = S
+    lengths = np.int32(S) if shared else rng.integers(1, S + 1, size=b)
+    if not shared:
+        lengths[0] = S
     dev = "cuda"
     q = torch.randn(b, K * g, dh, device=dev).to(dtype)
     kc = torch.randn(b, S, K, dh, device=dev).to(dtype)
     vc = torch.randn(b, S, K, dh, device=dev).to(dtype)
-    return q, kc, vc, torch.as_tensor(lengths.astype(np.int32), device=dev)
+    return q, kc, vc, torch.as_tensor(np.asarray(lengths, np.int32),
+                                      device=dev)
 
 
 def _flash_case(sq: int, dtype, seed: int, K: int = 8, g: int = 2,
-                dh: int = 128):
-    """Random contiguous-prefill inputs: one prompt of sq tokens."""
+                dh: int = 128, b: int = 1):
+    """Random contiguous-prefill inputs: b prompts of sq tokens."""
     import torch
     torch.manual_seed(seed)
     dev = "cuda"
-    q = torch.randn(1, sq, K * g, dh, device=dev).to(dtype)
-    k = torch.randn(1, sq, K, dh, device=dev).to(dtype)
-    v = torch.randn(1, sq, K, dh, device=dev).to(dtype)
+    q = torch.randn(b, sq, K * g, dh, device=dev).to(dtype)
+    k = torch.randn(b, sq, K, dh, device=dev).to(dtype)
+    v = torch.randn(b, sq, K, dh, device=dev).to(dtype)
     return q, k, v
 
 
@@ -211,7 +214,7 @@ def _sdpa_contig_decode(q, kc, vc, lengths):
     vq = vc.transpose(1, 2).contiguous()
     qq = q[:, :, None, :]                              # (b, H, 1, dh)
     mask = (torch.arange(kc.shape[1], device=q.device)[None, :]
-            < lengths[:, None])[:, None, None, :]
+            < lengths.reshape(-1, 1))[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=mask,
                                                   enable_gqa=True)
 
@@ -230,11 +233,19 @@ def _sdpa_flash(q, k, v, window: int):
                                                   enable_gqa=True)
 
 
+# zamba2's shared attention: 32 heads of 80 over 32 KV heads (g = 1); its
+# decode step reads a cache of 128 prompt + 32 new positions at one shared
+# length
+ZAMBA2_ATTN = dict(K=32, g=1, dh=80)
+
+
 def phase_kernels() -> dict:
-    """Hold every kernel against its plain version; returns per-kernel
-    records measured at the headline shape of its main path (paged decode
-    b=8, paged prefill n_past=992, contiguous decode b=8, contiguous
-    prefill 1024 tokens; f32)."""
+    """Hold every attention kernel against its plain version; returns
+    per-kernel records measured at the headline shape of its main path
+    (paged decode b=8, paged prefill n_past=992, contiguous decode b=8,
+    contiguous prefill 1024 tokens; f32).  The contiguous kernels also run
+    at zamba2's shapes (``ZAMBA2_ATTN``): prefill of a 4096-token prompt,
+    decode at batch 4 over 160 positions."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
@@ -248,10 +259,14 @@ def phase_kernels() -> dict:
              + [("contig_decode", b, f32) for b in (1, 8)]
              + [("contig_decode", 8, bf16)]
              + [("flash", (sq, 0), f32) for sq in (128, 1024)]
-             + [("flash", (1024, 256), f32), ("flash", (1024, 0), bf16)])
+             + [("flash", (1024, 256), f32), ("flash", (1024, 0), bf16)]
+             + [("flash", (4096, 0), d, ZAMBA2_ATTN) for d in (bf16, f32)]
+             + [("contig_decode", 4, d, dict(ZAMBA2_ATTN, S=160, shared=True))
+                for d in (bf16, f32)])
     headlines = {("decode", 8), ("prefill", 992), ("contig_decode", 8),
                  ("flash", (1024, 0))}
-    for i, (kind, arg, dtype) in enumerate(cases):
+    for i, (kind, arg, dtype, *shape) in enumerate(cases):
+        shape = shape[0] if shape else {}
         dname = str(dtype).replace("torch.", "")
         elt = torch.tensor([], dtype=dtype).element_size()
         if kind == "decode":
@@ -269,20 +284,22 @@ def phase_kernels() -> dict:
             n_ops = 4 * int(ln.sum()) * H * dh
             name, label = "paged_decode_attention", f"b={arg}"
         elif kind == "contig_decode":
-            args = _contig_decode_case(arg, dtype, seed=i)
+            args = _contig_decode_case(arg, dtype, seed=i, **shape)
             kern = lambda a=args: DA.decode_attention(*a)
             plain = lambda a=args: REF.decode_attention_ref(*a)
             lib = _sdpa_contig_decode(*args)
             q, kc, vc, lengths = args
             H, dh, K = q.shape[1], q.shape[2], kc.shape[2]
-            ln = lengths.long().cpu().clamp(max=kc.shape[1])
+            ln = lengths.long().cpu().clamp(max=kc.shape[1]).expand(arg)
             n_bytes = (2 * q.numel() * elt + 2 * int(ln.sum()) * K * dh * elt
-                       + 4 * len(ln))
+                       + lengths.numel() * 4)
             n_ops = 4 * int(ln.sum()) * H * dh
             name, label = "decode_attention", f"b={arg}"
+            if shape:
+                label += f" S={kc.shape[1]} H={H} dh={dh} shared length"
         elif kind == "flash":
             sq, window = arg
-            args = _flash_case(sq, dtype, seed=i)
+            args = _flash_case(sq, dtype, seed=i, **shape)
             kern = lambda a=args, w=window: FA.flash_attention(*a, window=w)
             plain = lambda a=args, w=window: REF.flash_attention_ref(
                 *a, window=w)
@@ -293,8 +310,10 @@ def phase_kernels() -> dict:
             visible = qpos + 1 if window <= 0 else (qpos + 1).clamp(
                 max=window)
             n_bytes = 2 * q.numel() * elt + 2 * k.numel() * elt
-            n_ops = 4 * dh * H * int(visible.sum())
+            n_ops = 4 * dh * H * int(visible.sum()) * q.shape[0]
             name, label = "flash_attention", f"sq={sq} window={window}"
+            if shape:
+                label += f" H={H} K={K} dh={dh}"
         else:
             args = _prefill_case(arg, dtype, seed=i)
             kern = lambda a=args: FA.paged_prefill_attention(*a)
@@ -323,20 +342,125 @@ def phase_kernels() -> dict:
         print(f"kernel {name} {label} {dname}: max_abs_err {err:.3g} "
               f"(atol {atol} rtol {rtol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
-        if dname == "float32" and (kind, arg) in headlines:
+        if dname == "float32" and (kind, arg) in headlines and not shape:
             records[name] = {"max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "library_ms": lib_ms}
     return records
 
 
-def _device_profile(fn, steps: int, t_wall: float, is_attention) -> str:
-    """Device time per step of ``fn`` (which runs ``steps`` decode steps)
-    from torch.profiler: the sum over device events (kernels, copies,
-    fills), each counted once — the CPU op that launched a kernel carries
-    its time too, so CPU events are left out — with the attention kernel's
-    share, the number of device events, the idle share against the wall
-    time ``t_wall`` of ``fn``, and the five largest events by name."""
+# the SSD scan at the full widths of the two SSM families the port serves
+SSD_SHAPES = {"mamba2": dict(H=80, P=64, G=1, N=128, chunk=128),
+              "zamba2": dict(H=80, P=64, G=1, N=64, chunk=128),
+              "grouped": dict(H=80, P=64, G=8, N=64, chunk=128),
+              "smoke": dict(H=16, P=8, G=1, N=8, chunk=8)}
+# (model, b, s, dtype name); the mamba2 bf16 case at 4 x 4096 is the shape
+# of the SSM phase's forward, the headline of the kernels line
+SSD_CASES = ([("mamba2", b, 2048, d) for d in ("float32", "bfloat16")
+              for b in (1, 4)]
+             + [("zamba2", 1, 2048, "bfloat16"), ("zamba2", 4, 2048,
+                                                   "float32"),
+                ("grouped", 2, 2048, "float32"),
+                ("grouped", 2, 2048, "bfloat16"), ("smoke", 2, 64,
+                                                   "float32"),
+                ("zamba2", 4, 4096, "bfloat16"),
+                ("mamba2", 4, 4096, "bfloat16")])
+SSD_HEADLINE = ("mamba2", 4, 4096, "bfloat16")
+# (atol, rtol) of the scan against its plain version, atol times max|ref|:
+# both compute in f32, but cum = cumsum(dt A) is summed in another order;
+# at |cum| up to ~2000 at a chunk's end an f32 ulp is 2.4e-4, so after 128
+# additions cum differs by up to ~1e-3, which exp(cum_i - cum_j) turns into
+# a relative error of the same size (the JAX suite holds its Pallas kernel
+# to ssd_ref at 2e-3 for the same reason)
+SSD_TOL = (2e-3, 2e-3)
+
+
+def _ssd_case(model: str, b: int, s: int, dtype, seed: int):
+    """Random scan inputs at a model's widths: x, B, C ~ N(0, 1) in
+    ``dtype``; dt = softplus(N(0, 1)) and A = -exp(log(linspace(1, 16)))
+    (the models' init of A_log) in f32."""
+    import torch
+    import torch.nn.functional as F
+    sh = SSD_SHAPES[model]
+    H, P, G, N = sh["H"], sh["P"], sh["G"], sh["N"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+    x = rnd(b, s, H, P).to(dtype)
+    dt = F.softplus(rnd(b, s, H))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device=dev)))
+    B = rnd(b, s, G, N).to(dtype)
+    C = rnd(b, s, G, N).to(dtype)
+    return x, dt, A, B, C
+
+
+def phase_ssd_kernels() -> dict:
+    """Hold the SSD scan against its plain version at mamba2's and
+    zamba2's full widths (H = 80 heads of P = 64, chunk 128, N = 128 and
+    64), a grouped case (G = 8, 10 heads per group) and a SMOKE-width one,
+    in f32 and bf16, at batch 1, 2 and 4 over 2048 positions, and at the
+    SSM phase's 4 x 4096; returns the record of the headline case."""
+    import torch
+    from repro_torch.kernels import ref as REF
+    from repro_torch.kernels import ssd_scan as SSD
+    records = {}
+    atol_rel, rtol = SSD_TOL
+    for i, (model, b, s, dname) in enumerate(SSD_CASES):
+        dtype = getattr(torch, dname)
+        chunk = SSD_SHAPES[model]["chunk"]
+        args = _ssd_case(model, b, s, dtype, seed=100 + i)
+        kern = lambda a=args, c=chunk: SSD.ssd_chunked(*a, chunk=c)
+        plain = lambda a=args, c=chunk: REF.ssd_chunked_ref(*a, c)
+        y, st = kern()
+        torch.cuda.synchronize()
+        y_ref, st_ref = plain()
+        label = f"{model} b={b} s={s} {dname}"
+        errs = []
+        for what, got, want in (("y", y, y_ref), ("state", st, st_ref)):
+            _check(bool(torch.isfinite(got).all()),
+                   f"ssd_chunked {label}: non-finite {what}")
+            atol = atol_rel * want.abs().max().item()
+            err = (got - want).abs().max().item()
+            _check(torch.allclose(got, want, atol=atol, rtol=rtol),
+                   f"ssd_chunked {label}: {what} max |err| {err:.3g} beyond "
+                   f"atol {atol:.3g} rtol {rtol}")
+            errs.append((err, atol))
+        x, dt, A, B, C = args
+        H, P, N = x.shape[2], x.shape[3], B.shape[3]
+        nc = s // chunk
+        n_ops = b * H * nc * (2 * chunk ** 2 * N + 2 * chunk ** 2 * P
+                              + 4 * chunk * N * P)
+        n_bytes = ((x.numel() + B.numel() + C.numel()) * x.element_size()
+                   + 4 * (dt.numel() + A.numel() + y.numel() + st.numel()))
+        reps = 20 if b * s <= 4096 else 5
+        ms, plain_ms = _time_ms(kern, reps=reps), _time_ms(plain, reps=reps)
+        bound_ms, bound_by = _bound_ms(n_bytes, n_ops, dname)
+        print(f"kernel ssd_chunked {label}: max_abs_err y {errs[0][0]:.3g} "
+              f"(atol {errs[0][1]:.3g}) state {errs[1][0]:.3g} (atol "
+              f"{errs[1][1]:.3g}, rtol {rtol}) ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+        if (model, b, s, dname) == SSD_HEADLINE:
+            records["ssd_chunked"] = {
+                "max_abs_err": max(e for e, _ in errs), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+        del args, y, st, y_ref, st_ref
+        torch.cuda.empty_cache()
+    return records
+
+
+def _device_profile(fn, steps: int, t_wall: float, is_attention,
+                    label: str = "attention kernel") -> str:
+    """Device time per step of ``fn`` (which runs ``steps`` decode steps,
+    or one forward) from torch.profiler: the sum over device events
+    (kernels, copies, fills), each counted once — the CPU op that launched
+    a kernel carries its time too, so CPU events are left out — with the
+    share of the kernel ``is_attention`` picks (named ``label``), the
+    number of device events, the idle share against the wall time
+    ``t_wall`` of ``fn``, and the five largest events by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -354,8 +478,8 @@ def _device_profile(fn, steps: int, t_wall: float, is_attention) -> str:
     top_s = "; ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f}"
                       f" ms in {e.count / steps:g}" for e in top)
     return (f"device busy {busy_us / steps / 1e3:.3f} ms in "
-            f"{sum(e.count for e in dev) / steps:g} device events (attention "
-            f"kernel {attn_us / steps / 1e3:.3f} ms), device idle share "
+            f"{sum(e.count for e in dev) / steps:g} device events ({label} "
+            f"{attn_us / steps / 1e3:.3f} ms), device idle share "
             f"{1 - busy_us / 1e6 / t_wall:.3f}; largest per step: {top_s}")
 
 
@@ -735,6 +859,283 @@ def phase_parity() -> None:
 
 
 # =============================================================================
+# phases 7-8: the SSM and hybrid families at full width
+# =============================================================================
+# largest |difference| allowed between a decode replay's logits at the last
+# prompt position and the forward's, as a fraction of max|forward logits|:
+# both run bf16 weights and activations, but the forward's conv sums its
+# four products in bf16 where the decode's sums them in f32, so each Mamba2
+# layer's output differs by a few bf16 roundings (~0.5%); over the residual
+# stream of 54-64 layers these add up to ~1-2% of the logit scale
+REPLAY_TOL = 5e-2
+
+
+def _counters() -> dict:
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    return {"ssd_chunked": SSD.ssd_chunked,
+            "flash_attention": FA.flash_attention,
+            "decode_attention": DA.decode_attention}
+
+
+def _zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _forward_run(tag: str, model, b: int, s: int, per_forward: dict,
+                 seed: int) -> dict:
+    """``registry.forward`` over b random prompts of s tokens: one warm-up
+    call, then one timed call whose kernel launches are counted (each
+    kernel of ``per_forward`` exactly that often), then one profiled call;
+    returns the timed call's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as R
+    cfg = model.cfg
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32), device="cuda")
+
+    def fwd():
+        return R.forward(model, {"tokens": tokens}, cfg)[0]
+
+    fwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t = time.perf_counter()
+    lg = fwd()
+    t_enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check(tuple(lg.shape) == (b, s, cfg.padded_vocab),
+           f"{tag}: logits shape {tuple(lg.shape)}")
+    _check(bool(torch.isfinite(lg).all()), f"{tag}: non-finite logits")
+    for name, n in per_forward.items():
+        _check(counts[name] == n, f"{tag}: {counts[name]} {name} launches "
+                                  f"in one forward, expected {n}")
+    del lg
+    device = _device_profile(fwd, 1, t_wall, lambda key: "ssd_kernel" in key,
+                             label="ssd kernel")
+    print(f"{tag} forward {b} x {s}: {b * s / t_wall:.1f} tokens/s, wall "
+          f"{t_wall * 1e3:.1f} ms, host enqueue {t_enqueue * 1e3:.1f} ms, "
+          f"peak device memory {peak:.2f} GiB; launches {counts}; {device}")
+    return counts
+
+
+def _greedy_run(tag: str, model, n_prompt: int, n_new: int, per_step: dict,
+                seed: int, b: int = 4) -> None:
+    """Greedy generation through ``make_cache`` and ``decode_step`` (bf16
+    cache, the default): b random prompts of n_prompt tokens replayed
+    token by token (the forward returns no SSM state), then n_new tokens.
+    The replay's logits at the last prompt position are held against
+    ``registry.forward``'s over the same prompts (``REPLAY_TOL``); every
+    decode step launches each kernel of ``per_step`` exactly that often."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as R
+    cfg = model.cfg
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, n_prompt)).astype(np.int32),
+        device="cuda")
+    cache = R.make_cache(model, cfg, b, n_prompt + n_new + 1)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    for i in range(n_prompt):
+        lg, cache = R.decode_step(model, cache,
+                                  {"tokens": prompts[:, i:i + 1]}, cfg)
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t
+    counts = _counts()
+    for name, n in per_step.items():
+        _check(counts[name] == n * n_prompt,
+               f"{tag}: {counts[name]} {name} launches in {n_prompt} decode "
+               f"steps, expected {n} per step")
+    ref = R.forward(model, {"tokens": prompts}, cfg)[0][:, -1].float()
+    got = lg.float()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+    _check(bool(torch.isfinite(got).all()), f"{tag}: non-finite decode")
+    _check(err <= REPLAY_TOL * scale,
+           f"{tag}: replayed logits differ from the forward's by {err:.4g}, "
+           f"beyond {REPLAY_TOL} x {scale:.4g}")
+    tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+    out = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_new):
+        out.append(tok)
+        lg, cache = R.decode_step(model, cache, {"tokens": tok}, cfg)
+        tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+    t_enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t
+    gen = torch.cat(out, dim=1)
+    _check(tuple(gen.shape) == (b, n_new), f"{tag}: generated shape")
+    _check(bool(((gen >= 0) & (gen < cfg.padded_vocab)).all()),
+           f"{tag}: token ids out of range")
+    _check(int(cache["pos"]) == n_prompt + n_new, f"{tag}: cache position")
+    device = _device_profile(
+        lambda: R.decode_step(model, cache, {"tokens": tok}, cfg), 1,
+        t_wall / n_new,
+        lambda key: "decode_kernel" in key and "paged" not in key)
+    print(f"{tag} decode (batch {b}): replay of {n_prompt} prompt tokens "
+          f"{t_replay / n_prompt * 1e3:.2f} ms/step; last prompt position "
+          f"against the forward: max |diff| {err:.4g} of max |logit| "
+          f"{scale:.4g} (tol {REPLAY_TOL * scale:.4g}), argmax agrees on "
+          f"{agree}/{b}; {n_new} new tokens: wall {t_wall / n_new * 1e3:.2f} "
+          f"ms/step, host enqueue {t_enqueue / n_new * 1e3:.2f} ms/step, "
+          f"{device}")
+
+
+def phase_ssm() -> dict:
+    """mamba2-2.7b at full width (64 Mamba2 layers, d_model 2560, d_inner
+    5120 = 80 heads of 64, N 128, vocab 50280 padded to 50688, tied), bf16
+    weights from the port's seeded init: ``registry.forward`` over 4 x
+    4096 and 1 x 32768 tokens (64 ``ssd_chunked`` launches each), and
+    greedy generation for 4 prompts of 128 tokens (replayed) plus 32 new
+    through ``make_cache`` and ``decode_step``; returns the scan's
+    launches over the two timed forwards."""
+    import torch
+    from repro_torch.configs import mamba2_2_7b
+    from repro_torch.models import registry as R
+    cfg = mamba2_2_7b.FULL
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"ssm: {cfg.name} init {time.perf_counter() - t0:.1f} s, "
+          f"{n_params / 1e6:.1f} M params ({cfg.dtype})")
+    L = cfg.n_layers
+    total = 0
+    for b, s in ((4, 4096), (1, 32768)):
+        total += _forward_run("ssm", model, b, s, {
+            "ssd_chunked": L, "flash_attention": 0}, seed=b)["ssd_chunked"]
+    _greedy_run("ssm", model, 128, 32, {"ssd_chunked": 0,
+                                        "decode_attention": 0}, seed=7)
+    del model
+    torch.cuda.empty_cache()
+    return {"ssd_chunked": total}
+
+
+def phase_hybrid() -> dict:
+    """zamba2-2.7b at full width (54 Mamba2 layers, N 64, and one shared
+    attention + MLP block of 32 heads of 80, d_ff 10240, after every 6;
+    vocab 32000, untied), bf16 weights from the port's seeded init:
+    ``registry.forward`` over 4 x 4096 tokens (54 ``ssd_chunked`` and 9
+    ``flash_attention`` launches) and greedy generation for 4 prompts of
+    128 tokens plus 32 new (9 ``decode_attention`` launches a step);
+    returns the timed forward's launches."""
+    import torch
+    from repro_torch.configs import zamba2_2_7b
+    from repro_torch.models import registry as R
+    cfg = zamba2_2_7b.FULL
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"hybrid: {cfg.name} init {time.perf_counter() - t0:.1f} s, "
+          f"{n_params / 1e6:.1f} M params ({cfg.dtype})")
+    G = cfg.n_layers // cfg.attn_every
+    counts = _forward_run("hybrid", model, 4, 4096, {
+        "ssd_chunked": cfg.n_layers, "flash_attention": G}, seed=11)
+    _greedy_run("hybrid", model, 128, 32, {"ssd_chunked": 0,
+                                           "decode_attention": G}, seed=13)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# =============================================================================
+# phase 9: the SSM and hybrid families on the card against the CPU
+# =============================================================================
+# f32 logits of a SMOKE model on the card against the CPU: sums in another
+# order (cuBLAS, the SSD kernel), so the port's tolerance against the
+# reference
+SMOKE_TOL = 2e-4
+
+
+def _replay_greedy(model, prompt, n_new: int):
+    """Greedy tokens and every step's logits (on the host) of ``prompt``
+    (b, n) replayed through ``decode_step`` and continued n_new tokens, on
+    the model's device with an f32 cache."""
+    import torch
+    from repro_torch.models import registry as R
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    b, n = prompt.shape
+    cache = R.make_cache(model, cfg, b, n + n_new, dtype=torch.float32,
+                         device=dev)
+    toks = torch.as_tensor(prompt, device=dev)
+    for i in range(n):
+        lg, cache = R.decode_step(model, cache, {"tokens": toks[:, i:i + 1]},
+                                  cfg)
+    out, logits = [], []
+    for _ in range(n_new):
+        logits.append(lg.float().cpu())
+        tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+        out.append(tok.cpu())
+        lg, cache = R.decode_step(model, cache, {"tokens": tok}, cfg)
+    return torch.cat(out, dim=1), logits
+
+
+def phase_ssm_parity() -> None:
+    """mamba2 and zamba2 at SMOKE size (f32), the same weights on the card
+    (the SSD and attention kernels) and on the CPU (plain versions): the
+    forward logits agree within ``SMOKE_TOL`` and the greedy tokens of a
+    replayed 8-token prompt plus 12 new ones are equal (a differing token
+    must be a near-tie of the CPU's logits)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry as R
+    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+        cfg = get_smoke_config(arch)
+        m_cpu = R.init_params(cfg, seed=5, device="cpu")
+        m_gpu = R.init_params(cfg, seed=5)
+        m_gpu.load_state_dict(m_cpu.state_dict())
+        toks = np.random.default_rng(9).integers(
+            0, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+        _zero_counts()
+        lg_g = R.forward(m_gpu, {"tokens": torch.as_tensor(
+            toks, device="cuda")}, cfg)[0].float().cpu()
+        n_scan = _counts()["ssd_chunked"]
+        _check(n_scan == cfg.n_layers,
+               f"parity {arch}: {n_scan} scan launches for {cfg.n_layers} "
+               f"layers")
+        lg_c = R.forward(m_cpu, {"tokens": torch.as_tensor(toks)}, cfg)[0]
+        err = (lg_g - lg_c).abs().max().item()
+        _check(torch.allclose(lg_g, lg_c, atol=SMOKE_TOL, rtol=SMOKE_TOL),
+               f"parity {arch}: forward logits differ by {err:.3g}")
+        gen_g, _ = _replay_greedy(m_gpu, toks[:, :8], 12)
+        gen_c, lg_steps = _replay_greedy(m_cpu, toks[:, :8], 12)
+        ties = 0
+        for row in range(gen_c.shape[0]):
+            diff = (gen_g[row] != gen_c[row]).nonzero()
+            if len(diff) == 0:
+                continue
+            step = int(diff[0])
+            top = torch.topk(lg_steps[step][row], 2).values
+            gap = float(top[0] - top[1])
+            _check(gap <= 1e-4 * max(1.0, float(top[0].abs())),
+                   f"parity {arch}: row {row} differs at step {step} with "
+                   f"a top-2 logit gap of {gap:.3g} — not a near-tie")
+            ties += 1
+        print(f"parity {arch}: SMOKE forward on the card against the CPU "
+              f"max |diff| {err:.3g} (tol {SMOKE_TOL}); greedy tokens of 2 "
+              f"rows x 12 equal ({ties} near-tie divergences)")
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -750,6 +1151,9 @@ KERNELS = (
     ("flash_attention",
      "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:80"),
+    ("ssd_chunked",
+     "src/repro_torch/kernels/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:72"),
 )
 
 
@@ -765,6 +1169,7 @@ def main() -> int:
     smi = phase_device_build()
     t1 = time.perf_counter()
     records = phase_kernels()
+    records.update(phase_ssd_kernels())
     t2 = time.perf_counter()
     launches = phase_serve()
     t3 = time.perf_counter()
@@ -774,10 +1179,18 @@ def main() -> int:
     t5 = time.perf_counter()
     phase_parity()
     t6 = time.perf_counter()
+    launches.update(phase_ssm())
+    t7 = time.perf_counter()
+    hybrid = phase_hybrid()
+    t8 = time.perf_counter()
+    phase_ssm_parity()
+    t9 = time.perf_counter()
+    print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "
-          f"clover {t5 - t4:.1f} s, parity {t6 - t5:.1f} s, total "
-          f"{t6 - t0:.1f} s")
+          f"clover {t5 - t4:.1f} s, parity {t6 - t5:.1f} s, ssm "
+          f"{t7 - t6:.1f} s, hybrid {t8 - t7:.1f} s, ssm parity "
+          f"{t9 - t8:.1f} s, total {t9 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

@@ -21,7 +21,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_ext"
 SOURCES = ("binding.cpp", "paged_attention.cu", "flash_attention.cu",
-           "decode_attention.cu")
+           "decode_attention.cu", "ssd_scan.cu")
 
 # limits of csrc/attention_tile.cuh: kMaxRows query rows per CTA, dh <=
 # 32 * kMaxDimsPerLane, positions taken kGroup at a time
@@ -31,6 +31,11 @@ GROUP = 4
 # the contiguous flash kernel (csrc/flash_attention.cu): kFaRows query rows
 # per CTA, dims read four at a time
 FA_ROWS = 64
+# limits of csrc/ssd_scan.cu: chunk and state width at most 128 (a thread
+# holds 8 of 16-wide slices), P columns per CTA at most SSD_SLICE
+SSD_MAX_CHUNK = 128
+SSD_MAX_STATE = 128
+SSD_SLICE = 64
 
 _EXT = None
 build_seconds: Optional[float] = None     # wall time of this process's build

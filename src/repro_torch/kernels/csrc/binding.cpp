@@ -1,6 +1,7 @@
-// PyTorch binding of the attention kernels — the only source that includes
-// PyTorch's headers.  The Python wrappers (kernels/paged_attention.py,
-// kernels/flash_attention.py, kernels/decode_attention.py) have already
+// PyTorch binding of the attention kernels and the SSD scan — the only
+// source that includes PyTorch's headers.  The Python wrappers
+// (kernels/paged_attention.py, kernels/flash_attention.py,
+// kernels/decode_attention.py, kernels/ssd_scan.py) have already
 // checked device, dtype, shape and contiguity; this file launches on
 // PyTorch's current stream and checks the launch.
 #include <torch/extension.h>
@@ -66,6 +67,18 @@ void flash(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void ssd(const torch::Tensor& x, const torch::Tensor& dt,
+         const torch::Tensor& A, const torch::Tensor& B, const torch::Tensor& C,
+         torch::Tensor y, torch::Tensor state, int64_t chunk, int64_t ps) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(repro_torch::launch_ssd(
+      x.scalar_type() == at::kBFloat16, x.data_ptr(), dt.data_ptr<float>(),
+      A.data_ptr<float>(), B.data_ptr(), C.data_ptr(), y.data_ptr<float>(),
+      state.data_ptr<float>(), x.size(0), x.size(1), x.size(2), x.size(3),
+      B.size(2), B.size(3), chunk, ps, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -74,4 +87,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "paged chunked-prefill flash attention (CUDA)");
   m.def("decode", &decode, "contiguous flash-decode (CUDA)");
   m.def("flash", &flash, "contiguous flash attention (CUDA)");
+  m.def("ssd", &ssd, "Mamba2 SSD chunked scan (CUDA)");
 }

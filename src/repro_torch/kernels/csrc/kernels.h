@@ -1,4 +1,4 @@
-// Plain C++ launchers of the attention kernels.  They take raw
+// Plain C++ launchers of the attention kernels and the SSD scan.  They take raw
 // pointers and the stream, so no CUDA source includes PyTorch's headers;
 // binding.cpp alone does, and checks the launch right after each call.
 #pragma once
@@ -36,5 +36,14 @@ cudaError_t launch_flash(bool bf16, const void* q, const void* k,
                          const void* v, void* out, int b, int sq, int skv,
                          int H, int K, int dh, int tq, bool causal, int window,
                          float sm_scale, cudaStream_t stream);
+
+// x (b, s, H, P), B and C (b, s, G, N), all of one type (f32 or bf16);
+// dt (b, s, H) and A (H,) f32; y (b, s, H, P) and state (b, H, P, N) f32.
+// s a multiple of chunk; ps the P columns per CTA.  Returns the error of
+// raising the kernel's shared-memory limit.
+cudaError_t launch_ssd(bool bf16, const void* x, const float* dt,
+                       const float* A, const void* B, const void* C, float* y,
+                       float* state, int b, int s, int H, int P, int G, int N,
+                       int chunk, int ps, cudaStream_t stream);
 
 }  // namespace repro_torch

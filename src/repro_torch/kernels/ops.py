@@ -1,4 +1,5 @@
-"""Dispatch of the attention kernels by where the tensors lie.
+"""Dispatch of the kernels (attention and the SSD scan) by where the
+tensors lie.
 
 A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor goes to the hand-written Hopper kernel, whose wrapper raises on
@@ -7,7 +8,7 @@ plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,6 +16,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _on_cuda(name: str, q: torch.Tensor) -> bool:
@@ -79,3 +81,14 @@ def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,
     return _ref.paged_prefill_attention_ref(q, k_arena, v_arena, table,
                                             positions, sm_scale=sm_scale,
                                             window=window)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan: x (b, s, H, P), dt (b, s, H) f32, A (H,)
+    f32, B, C (b, s, G, N), s a multiple of chunk -> (y (b, s, H, P) f32,
+    final state (b, H, P, N) f32)."""
+    if _on_cuda("ssd_chunked", x):
+        return _ssd.ssd_chunked(x, dt, A, B, C, chunk=chunk)
+    return _ref.ssd_chunked_ref(x, dt, A, B, C, chunk)

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the attention kernels — the port's
-counterpart of the reference package's ``kernels/ref.py``.
+"""Plain PyTorch versions of the kernels — the port's counterpart of the
+reference package's ``kernels/ref.py`` (attention) and of the SSD oracles
+of its ``models/ssm.py`` (``ssd_ref``, ``ssd_sequential_ref``).
 
 They are what the kernel wrappers' dispatch (``kernels/ops.py``) runs for
 tensors on the CPU, and the oracle every CUDA kernel is held against on the
 card.  The softmax is taken in f32 whatever the input type; masked scores
-are -1e30 before it, as in the reference.
+are -1e30 before it, as in the reference.  The SSD scan computes in f32
+whatever the input type.
 """
 from __future__ import annotations
 
@@ -127,3 +129,98 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_arena: torch.Tensor,
         mask &= (pos - kv_pos[None, :]) < window
     o = _attend(q.reshape(1, C, K, H // K, dh), kc, vc, mask, scale)
     return o.reshape(C, H, dh).to(q.dtype)
+
+
+# =============================================================================
+# Mamba2 SSD scan
+# =============================================================================
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., T) -> (..., T, T) with out[i, j] = sum(x[j+1..i]); -inf for
+    j > i."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return d.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, chunk: int,
+                    init_state: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked state-space-duality scan (arXiv:2405.21060 §6).
+
+    x: (b, s, H, P) head inputs; dt: (b, s, H) positive step sizes (already
+    softplus'd and biased); A: (H,) negative decay rates; B, C: (b, s, G, N),
+    group ``h // (H / G)`` serving head h.  ``s`` must be a multiple of
+    ``chunk``.  Within a chunk the quadratic dual form, across chunks the
+    linear recurrence over chunk states.  Returns (y (b, s, H, P) f32,
+    final_state (b, H, P, N) f32)."""
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"ssd: sequence length {s} is not a multiple of "
+                         f"the chunk {chunk}")
+    nc, hpg = s // chunk, H // G
+
+    dtf = dt.float()
+    xf = x.float() * dtf[..., None]
+    dA = dtf * A.float()[None, None, :]                              # (b, s, H)
+    xc = xf.reshape(b, nc, chunk, H, P)
+    Bc = B.float().reshape(b, nc, chunk, G, N)
+    Cc = C.float().reshape(b, nc, chunk, G, N)
+    dAc = dA.reshape(b, nc, chunk, H).permute(0, 3, 1, 2)            # (b, H, nc, l)
+    dA_cs = torch.cumsum(dAc, dim=-1)
+
+    # 1. within-chunk (quadratic dual form)
+    Lmat = torch.exp(_segsum(dAc))                                   # (b, H, nc, l, l)
+    scores = torch.einsum("bclgn,bcsgn->bgcls", Cc, Bc)
+    scores = scores.repeat_interleave(hpg, dim=1)                    # (b, H, nc, l, l)
+    Y_diag = torch.einsum("bhcls,bcshp->bclhp", scores * Lmat, xc)
+
+    # 2. per-chunk states
+    decay_states = torch.exp(dA_cs[..., -1:] - dA_cs)                # (b, H, nc, l)
+    Bh = Bc.repeat_interleave(hpg, dim=3)                            # (b, nc, l, H, N)
+    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bh, decay_states, xc)
+
+    # 3. inter-chunk recurrence
+    chunk_decay = torch.exp(dA_cs[..., -1])                          # (b, H, nc)
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    prev = []
+    for c in range(nc):
+        prev.append(h)
+        h = h * chunk_decay[:, :, c, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                           # (b, nc, H, P, N)
+
+    # 4. off-diagonal (state -> output)
+    state_decay_out = torch.exp(dA_cs)                               # (b, H, nc, l)
+    Ch = Cc.repeat_interleave(hpg, dim=3)                            # (b, nc, l, H, N)
+    Y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Ch, prev_states,
+                         state_decay_out)
+    return (Y_diag + Y_off).reshape(b, s, H, P), h
+
+
+def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor,
+                       init_state: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token oracle of :func:`ssd_chunked_ref` (slow, exact): the
+    recurrence h <- h * exp(dt A) + dt x Bᵀ, y = h C, in f32.  Shapes as
+    there; no chunk."""
+    b, s, H, P = x.shape
+    hpg = H // B.shape[2]
+    state = (torch.zeros((b, H, P, B.shape[3]), dtype=torch.float32,
+                         device=x.device)
+             if init_state is None else init_state.float())
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf = B.float().repeat_interleave(hpg, dim=2)                     # (b, s, H, N)
+    Cf = C.float().repeat_interleave(hpg, dim=2)
+    ys = []
+    for t in range(s):
+        dA = torch.exp(dtf[:, t] * Af[None, :])                      # (b, H)
+        xt = xf[:, t] * dtf[:, t][..., None]                         # (b, H, P)
+        state = state * dA[..., None, None] + xt[..., None] * \
+            Bf[:, t][:, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Cf[:, t]))
+    return torch.stack(ys, dim=1), state

@@ -1,13 +1,17 @@
 """Weights across the two packages.
 
-The reference keeps parameters as a pytree with every decoder layer's
-leaves stacked on a leading L axis; its checkpoints flatten that tree into
-a numpy dict keyed by "/"-joined paths (``train/checkpoint.py``'s
+The reference keeps parameters as a pytree with every layer's leaves
+stacked on a leading L axis; its checkpoints flatten that tree into a
+numpy dict keyed by "/"-joined paths (``train/checkpoint.py``'s
 ``_flatten``: ``embed/table``, ``final_norm/scale``,
-``layers/attn/wq/w`` of shape (L, d, H·dh), ...).  :func:`load_reference`
-splits the stacked ``layers/...`` leaves along axis 0 into the port's
-per-layer modules (dense weights transposed to PyTorch's (out, in)), and
-:func:`export_reference` is its exact inverse, so weights round-trip.
+``layers/attn/wq/w`` of shape (L, d, H·dh), ...; for the SSM families
+``layers/ln/scale``, ``layers/mamba/wz/w``, ``layers/mamba/conv_x`` (L, k,
+d_inner), ``layers/mamba/A_log`` (L, H), ..., and for the hybrid the
+unstacked ``shared/...`` block).  :func:`load_reference` splits the
+stacked ``layers/...`` leaves along axis 0 into the port's per-layer
+modules (dense weights transposed to PyTorch's (out, in); conv kernels
+stay (k, channels)), and :func:`export_reference` is its exact inverse, so
+weights round-trip.
 """
 from __future__ import annotations
 
@@ -20,28 +24,43 @@ from repro_torch.models.transformer import LM
 
 Arrays = Dict[str, np.ndarray]
 
-_NORMS = ("ln1", "ln2", "attn/q_norm", "attn/k_norm")
-_DENSES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wi_gate",
-           "mlp/wi_up", "mlp/wo")
+# (norms, dense weights, plain arrays) of a decoder layer or the hybrid's
+# shared block, and of a Mamba2 layer
+_ATTN_MLP = (("ln1", "ln2", "attn/q_norm", "attn/k_norm"),
+             ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wi_gate",
+              "mlp/wi_up", "mlp/wo"), ())
+_MAMBA = (("ln", "mamba/gate_norm"),
+          ("mamba/wz", "mamba/wx", "mamba/wB", "mamba/wC", "mamba/wdt",
+           "mamba/out_proj"),
+          ("mamba/conv_x", "mamba/conv_B", "mamba/conv_C", "mamba/conv_bx",
+           "mamba/conv_bB", "mamba/conv_bC", "mamba/A_log", "mamba/D",
+           "mamba/dt_bias"))
+
+
+def _leaves(mod, spec) -> Iterator[Tuple[str, str, bool]]:
+    """(reference path, port attribute path, is a dense weight) for every
+    leaf of ``mod`` named in ``spec``."""
+    norms, denses, arrays = spec
+    for name in norms:
+        attr = name.replace("/", ".")
+        if _get(mod, attr) is not None:
+            yield f"{name}/scale", f"{attr}.scale", False
+    for name in denses:
+        attr = name.replace("/", ".")
+        lin = _get(mod, attr)
+        if lin is None:
+            continue
+        yield f"{name}/w", f"{attr}.weight", True
+        if lin.bias is not None:
+            yield f"{name}/b", f"{attr}.bias", False
+    for name in arrays:
+        yield name, name.replace("/", "."), False
 
 
 def _layer_leaves(model: LM) -> Iterator[Tuple[str, str, bool]]:
-    """(reference path under ``layers/``, port attribute path under a
-    decoder layer, is a dense weight) for every per-layer leaf the model
-    has."""
-    layer = model.layers[0]
-    for name in _NORMS:
-        mod = _get(layer, name.replace("/", "."))
-        if mod is not None:
-            yield f"{name}/scale", f"{name.replace('/', '.')}.scale", False
-    for name in _DENSES:
-        mod = _get(layer, name.replace("/", "."))
-        if mod is None:
-            continue
-        attr = name.replace("/", ".")
-        yield f"{name}/w", f"{attr}.weight", True
-        if mod.bias is not None:
-            yield f"{name}/b", f"{attr}.bias", False
+    """The leaves of one layer, under ``layers/`` in the reference."""
+    ssm = model.cfg.family in ("ssm", "hybrid")
+    return _leaves(model.layers[0], _MAMBA if ssm else _ATTN_MLP)
 
 
 def _get(obj, dotted: str):
@@ -57,6 +76,9 @@ def _top_leaves(model: LM) -> Iterator[Tuple[str, str, bool]]:
     yield "final_norm/scale", "final_norm.scale", False
     if model.lm_head is not None:
         yield "lm_head/w", "lm_head.weight", True
+    if model.shared is not None:
+        for key, attr, dense in _leaves(model.shared, _ATTN_MLP):
+            yield f"shared/{key}", f"shared.{attr}", dense
 
 
 @torch.no_grad()

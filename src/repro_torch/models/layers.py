@@ -1,9 +1,9 @@
-"""Dense decoder building blocks — the port's counterpart of the reference
-package's ``models/layers.py``, for the dense family the serving engines
-serve: RMSNorm, rotary embeddings (partial rotary), GQA attention with
-qk-norm — full-sequence prefill, decode over a slotted (contiguous) cache,
-and prefill and decode over a paged KV arena — the SwiGLU MLP and the tied
-embedding.
+"""Decoder building blocks — the port's counterpart of the reference
+package's ``models/layers.py``: RMSNorm, rotary embeddings (partial
+rotary), GQA attention with qk-norm — full-sequence attention and prefill,
+decode at one shared position over a contiguous cache (the generic decode
+of ``registry.decode_step``), decode over a slotted cache, and prefill and
+decode over a paged KV arena — the SwiGLU MLP and the tied embedding.
 
 Parameters live in ``nn.Module``s; the math is plain functions on tensors
 that follow the reference's rounding order (norms in f32 then cast back,
@@ -27,7 +27,8 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["RMSNorm", "Attention", "MLP", "rmsnorm_apply", "rope_table",
            "apply_rope", "mlp_apply", "embedding_apply", "embedding_logits",
            "blocked_attention", "decode_attention", "slot_write_index",
-           "attention_prefill_apply", "attention_decode_slots_apply",
+           "attention_apply", "attention_prefill_apply",
+           "attention_decode_apply", "attention_decode_slots_apply",
            "gather_paged_kv", "attention_decode_paged_apply",
            "attention_prefill_paged_apply", "init_dense", "trunc_normal"]
 
@@ -191,6 +192,33 @@ def attention_prefill_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
     o = blocked_attention(q, k, v, causal=causal, window=window)
     b, s = x.shape[:2]
     return attn.wo(o.reshape(b, s, cfg.n_heads * cfg.d_head)), k, v
+
+
+def attention_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Full-sequence self-attention (prefill; the reference's training
+    path too).  x: (b, s, d) -> (b, s, d)."""
+    return attention_prefill_apply(attn, x, cos, sin, causal=causal,
+                                   window=window)[0]
+
+
+def attention_decode_apply(attn: Attention, x: torch.Tensor, cos, sin,
+                           cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """One-token decode at the position ``pos`` (() int32) shared by every
+    row: the new K/V land at ``pos`` — clamped into the cache, as the
+    reference's ``dynamic_update_slice`` clamps — and the token attends
+    over the first ``pos + 1`` positions.  x: (b, 1, d); caches (b, S, K,
+    dh), written IN PLACE (the reference returns new ones).  Returns out
+    (b, 1, d)."""
+    cfg = attn.cfg
+    q, k, v = attn.project_qkv(x, cos, sin)
+    at = pos.clamp(max=cache_k.shape[1] - 1).long().reshape(1)
+    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    o = decode_attention(q, cache_k, cache_v, pos + 1)
+    return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
 
 
 def slot_write_index(lengths: torch.Tensor, S: int):

@@ -1,12 +1,14 @@
-"""Model interface of the serving engines — the port's counterpart of the
-slotted and paged entry points of the reference package's
-``models/registry.py``.
+"""Model interface — the port's counterpart of the reference package's
+``models/registry.py``: the generic entry points (:func:`forward`,
+:func:`make_cache`, :func:`decode_step`; the SSM and hybrid families so
+far) and the slotted and paged entry points of the serving engines
+(dense).
 
 ``params`` is the :class:`~repro_torch.models.transformer.LM` module (it
 carries its config); batches are ``{"tokens": (b, s) int}``, and a decode
-batch carries one token column.  The slot cache ``{"k", "v", "lengths"}``
-and the arena ``{"k", "v"}`` are written in place, where the reference
-returns new ones.
+batch carries one token column.  The decode cache, the slot cache
+``{"k", "v", "lengths"}`` and the arena ``{"k", "v"}`` are written in
+place, where the reference returns new ones.
 """
 from __future__ import annotations
 
@@ -24,6 +26,48 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device: Optional[torch.device] = None) -> LM:
     """Random weights from ``seed`` on ``device`` (the GPU by default)."""
     return T.init_lm(cfg, seed=seed, device=device)
+
+
+def _check_cfg(params: LM, cfg: ModelConfig) -> None:
+    if cfg != params.cfg:
+        raise ValueError(f"cfg {cfg.name!r} is not the config of the "
+                         f"params ({params.cfg.name!r})")
+
+
+def forward(params: LM, batch: dict, cfg: ModelConfig, train: bool = False,
+            return_hidden: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (b, s, V), aux_loss ()); with
+    ``return_hidden`` the final hidden states (b, s, d) in place of the
+    logits.  The SSM and hybrid families need ``s`` to be a multiple of
+    ``cfg.ssm_chunk``.  ``train=True`` (the training step) is not ported."""
+    _check_cfg(params, cfg)
+    if train:
+        raise NotImplementedError("the training forward is not ported yet")
+    out = T.forward_lm(params, batch["tokens"], return_hidden=return_hidden)
+    return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+
+def make_cache(params: LM, cfg: ModelConfig, batch_size: int, max_len: int,
+               src_embeds: Optional[torch.Tensor] = None,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device] = None) -> T.KVCache:
+    """Decode state for :func:`decode_step` on ``device`` (the GPU by
+    default): KV caches of ``max_len`` positions, SSM conv histories (in
+    ``dtype``) and f32 states, and ``pos``.  Enc-dec (``src_embeds``) is not
+    ported."""
+    _check_cfg(params, cfg)
+    if src_embeds is not None or cfg.n_enc_layers:
+        raise NotImplementedError("enc-dec decode is not ported yet")
+    return T.init_kv_cache(cfg, batch_size, max_len, dtype, device)
+
+
+def decode_step(params: LM, cache: T.KVCache, batch: dict,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, T.KVCache]:
+    """One-token decode at ``cache["pos"]`` -> (logits (b, V), cache),
+    the cache advanced in place."""
+    _check_cfg(params, cfg)
+    return T.decode_step_lm(params, cache, batch["tokens"])
 
 
 def supports_slots(cfg: ModelConfig) -> bool:

@@ -1,12 +1,18 @@
-"""Decoder-only LM over a slotted KV cache or a paged KV arena — the
-port's counterpart of the serving functions of the reference package's
-``models/transformer.py``.
+"""Decoder-only LM stack (dense / SSM / hybrid) — the port's counterpart
+of the reference package's ``models/transformer.py``.
 
-One ``DecoderLayer`` module per layer in an ``nn.ModuleList`` (the
-reference stacks layers on a leading axis for ``lax.scan``).  Entry points:
+One module per layer in an ``nn.ModuleList`` (the reference stacks layers
+on a leading axis for ``lax.scan``): ``DecoderLayer`` (dense), ``SSMLayer``
+(a Mamba2 block; the ``ssm`` family, mamba2), and for the ``hybrid`` family
+(zamba2) one ``SharedBlock`` of attention and MLP whose weights every group
+of ``attn_every`` Mamba2 layers reuses.  Entry points:
 
   * :func:`init_lm`, :func:`init_slot_cache`, :func:`init_block_arena` —
     weights, the slotted cache and the arena;
+  * :func:`forward_lm` — the full-sequence forward (SSM, hybrid);
+  * :func:`init_kv_cache` and :func:`decode_step_lm` — the generic decode
+    state (SSM conv histories and states, the hybrid's KV caches) and one
+    decode step at a position shared by every row;
   * :func:`prefill_kv_lm` — one-pass prefill that returns every layer's
     K/V for a slotted cache;
   * :func:`decode_slots_lm` — one batched decode step over all slots;
@@ -15,9 +21,10 @@ reference stacks layers on a leading axis for ``lax.scan``).  Entry points:
   * :func:`decode_paged_multi_lm` — ``n_steps`` fused greedy steps whose
     token feedback stays on the device (a Python loop, no host sync).
 
-Caches and the arena are written in place.  Only the dense family without
-sliding windows or M-RoPE is ported: :func:`check_supported` raises on the
-others.
+Caches and the arena are written in place.  Sliding windows, M-RoPE, MoE
+and enc-dec are not ported (:func:`check_supported` raises); the SSM and
+hybrid families run through the generic entry points only — the slot
+cache, the arena and the engines refuse them, as the reference's do.
 """
 from __future__ import annotations
 
@@ -28,16 +35,24 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Arena = Dict[str, torch.Tensor]
 SlotCache = Dict[str, torch.Tensor]
+KVCache = Dict[str, object]
+
+# the families of the generic entry points (forward_lm, init_kv_cache,
+# decode_step_lm) so far; the dense family runs through the engines' slotted
+# and paged entry points
+GENERIC_FAMILIES = ("ssm", "hybrid")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the families later slices port."""
+def check_supported(cfg: ModelConfig, families=("dense",)) -> None:
+    """Raise ``NotImplementedError`` for what a later slice ports: a family
+    outside ``families``, MoE, enc-dec, sliding windows, M-RoPE."""
     reasons = []
-    if cfg.family != "dense" or cfg.is_moe or cfg.n_enc_layers:
+    if cfg.family not in families or cfg.is_moe or cfg.n_enc_layers:
         reasons.append(f"family {cfg.family!r}")
     if cfg.sliding_window or cfg.local_global_ratio:
         reasons.append("sliding-window attention")
@@ -48,6 +63,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if reasons:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(reasons)} not ported yet")
+    if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
+                         f"into groups of attn_every={cfg.attn_every}")
 
 
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
@@ -69,17 +87,40 @@ class DecoderLayer(nn.Module):
         self.mlp = L.MLP(cfg, device, gen)
 
 
+class SSMLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
+        super().__init__()
+        self.ln = L.RMSNorm(cfg.d_model, cfg, device)
+        self.mamba = S.Mamba2(cfg, device, gen)
+
+
+class SharedBlock(nn.Module):
+    """The hybrid's one attention + MLP block, applied after every group of
+    ``attn_every`` Mamba2 layers with the same weights."""
+
+    def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
+        super().__init__()
+        self.ln1 = L.RMSNorm(cfg.d_model, cfg, device)
+        self.attn = L.Attention(cfg, device, gen)
+        self.ln2 = L.RMSNorm(cfg.d_model, cfg, device)
+        self.mlp = L.MLP(cfg, device, gen)
+
+
 class LM(nn.Module):
-    """Embedding, decoder layers, final norm, and the tied (or separate)
-    LM head over the padded vocab."""
+    """Embedding, the layers (decoder layers, or Mamba2 layers and, for the
+    hybrid, the shared block), final norm, and the tied (or separate) LM
+    head over the padded vocab."""
 
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(L.trunc_normal(
             (cfg.padded_vocab, cfg.d_model), 1.0, cfg.dtype, device, gen))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device, gen)
+        layer = SSMLayer if cfg.family in ("ssm", "hybrid") else DecoderLayer
+        self.layers = nn.ModuleList(layer(cfg, device, gen)
                                     for _ in range(cfg.n_layers))
+        self.shared = (SharedBlock(cfg, device, gen)
+                       if cfg.family == "hybrid" else None)
         self.final_norm = L.RMSNorm(cfg.d_model, cfg, device)
         self.lm_head = (None if cfg.tie_embeddings else
                         L.init_dense(cfg.d_model, cfg.padded_vocab, cfg,
@@ -96,7 +137,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: Optional[torch.device] = None) -> LM:
     """Random weights from ``seed`` (a ``torch.Generator`` on the device),
     with the reference's init distributions."""
-    check_supported(cfg)
+    check_supported(cfg, ("dense",) + GENERIC_FAMILIES)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -121,6 +162,87 @@ def init_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
 
 def _mlp_residual(layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
     return x + layer.mlp(layer.ln2(x))
+
+
+# =============================================================================
+# full-sequence forward and the generic decode
+# =============================================================================
+@torch.no_grad()
+def forward_lm(model: LM, tokens: torch.Tensor, *,
+               return_hidden: bool = False) -> torch.Tensor:
+    """tokens: (b, s) int -> logits (b, s, V_padded); ``return_hidden``
+    returns the final-normed hidden states (b, s, d) instead.  ``s`` must
+    be a multiple of ``ssm_chunk``.  The hybrid runs each group of
+    ``attn_every`` Mamba2 layers, then the shared attention (causal) and
+    MLP.  No decode state is returned, as in the reference: a generation
+    replays the prompt through :func:`decode_step_lm`."""
+    cfg = model.cfg
+    check_supported(cfg, GENERIC_FAMILIES)
+    x = L.embedding_apply(model.embed, tokens)
+    sh = model.shared
+    if sh is not None:
+        cos, sin = _rope_tables(cfg, torch.arange(
+            tokens.shape[1], dtype=torch.int32, device=tokens.device))
+    per = cfg.attn_every if sh is not None else cfg.n_layers
+    for g0 in range(0, cfg.n_layers, per):
+        for layer in model.layers[g0:g0 + per]:
+            x = x + S.mamba2_apply(layer.mamba, layer.ln(x))
+        if sh is not None:
+            x = x + L.attention_apply(sh.attn, sh.ln1(x), cos, sin)
+            x = x + sh.mlp(sh.ln2(x))
+    if return_hidden:
+        return model.final_norm(x)
+    return model.logits(x)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Optional[torch.device] = None) -> KVCache:
+    """Decode state, in the reference's layout: ``{"ssm": {conv_x, conv_B,
+    conv_C, state}}``, one layer's ``models/ssm.py`` ``init_ssm_cache``
+    stacked on L; for the hybrid also ``"k"``, ``"v"`` (G, b, max_len, K,
+    dh), one per application of the shared block (G = L / attn_every);
+    and ``"pos"`` () int32, the next position."""
+    check_supported(cfg, GENERIC_FAMILIES)
+    dev = resolve_device(device)
+    layer = S.init_ssm_cache(cfg, batch, dtype, dev)
+    cache: KVCache = {"ssm": {key: buf.new_zeros((cfg.n_layers, *buf.shape))
+                              for key, buf in layer.items()}}
+    if cfg.family == "hybrid":
+        shape = (cfg.n_layers // cfg.attn_every, batch, max_len,
+                 cfg.n_kv_heads, cfg.d_head)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return cache
+
+
+@torch.no_grad()
+def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor
+                   ) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step at ``cache["pos"]`` for every row.  tokens: (b, 1)
+    int.  The cache's buffers are advanced IN PLACE (the reference returns
+    new ones) and ``cache["pos"]`` becomes a new tensor ``pos + 1``.
+    Returns (logits (b, V_padded), cache)."""
+    cfg = model.cfg
+    check_supported(cfg, GENERIC_FAMILIES)
+    pos = cache["pos"]
+    x = L.embedding_apply(model.embed, tokens)
+    sh = model.shared
+    if sh is not None:
+        cos, sin = _rope_tables(cfg, pos[None])
+    for li, layer in enumerate(model.layers):
+        x = x + S.mamba2_decode_step(
+            layer.mamba, layer.ln(x),
+            {key: buf[li] for key, buf in cache["ssm"].items()})
+        if sh is not None and (li + 1) % cfg.attn_every == 0:
+            g = li // cfg.attn_every
+            x = x + L.attention_decode_apply(
+                sh.attn, sh.ln1(x), cos, sin, cache["k"][g], cache["v"][g],
+                pos)
+            x = x + sh.mlp(sh.ln2(x))
+    cache["pos"] = pos + 1
+    return model.logits(x)[:, 0, :], cache
 
 
 # =============================================================================

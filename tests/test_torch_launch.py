@@ -14,7 +14,8 @@ from repro.core import carbon as CBJ
 from repro.core import catalog as CATJ
 from repro.core import config_graph as CGJ
 from repro.core import objective as OBJJ
-from repro_torch.configs import get_config, get_smoke_config, qwen3_1_7b
+from repro_torch.configs import get_config, get_smoke_config, \
+    mamba2_2_7b, qwen3_1_7b
 from repro_torch.core import annealing as SAT
 from repro_torch.core import carbon as CBT
 from repro_torch.core import catalog as CATT
@@ -121,8 +122,9 @@ def test_config_registry():
     assert get_config("qwen3-1.7b") == qwen3_1_7b.FULL
     with pytest.raises(NotImplementedError):
         get_config("glm4-9b")
+    assert get_smoke_config("mamba2-2.7b") == mamba2_2_7b.SMOKE
     with pytest.raises(NotImplementedError):
-        get_smoke_config("mamba2-2.7b")
+        get_smoke_config("qwen2-vl-7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

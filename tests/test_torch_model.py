@@ -167,11 +167,15 @@ def test_decode_paged_multi_matches_single_steps(params):
 
 
 def test_unported_configs_raise():
-    for kw in ({"family": "moe", "n_experts": 4, "top_k": 2},
-               {"sliding_window": 8},
-               {"sliding_window": 8, "local_global_ratio": 5},
-               {"family": "ssm"}):
+    """Families and options no slice has ported raise at init; the arena
+    also refuses the SSM family, which the reference's ``supports_paged``
+    excludes."""
+    for kw, init_kw in (
+            ({"family": "moe", "n_experts": 4, "top_k": 2}, None),
+            ({"sliding_window": 8}, None),
+            ({"sliding_window": 8, "local_global_ratio": 5}, None),
+            ({"family": "ssm"}, {"n_enc_layers": 2})):
         with pytest.raises(NotImplementedError):
-            RT.init_params(CFG_T.with_(**kw), device="cpu")
+            RT.init_params(CFG_T.with_(**(init_kw or kw)), device="cpu")
         with pytest.raises(NotImplementedError):
             RT.make_block_arena(CFG_T.with_(**kw), 4, 8, device="cpu")
