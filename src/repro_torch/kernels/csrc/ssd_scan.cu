@@ -32,13 +32,14 @@
 // B_j^T.  The final state is written after the last chunk.
 //
 // Bound on the H100: f32 operations.  Per (row, head, chunk) the work is
-// 2 c^2 N + 2 c^2 P + 4 c N P flops against reading x, dt, B, C and writing
-// y (f32): at mamba2's shapes (c = 128, N = 128, P = 64, 80 heads) about
-// 10.5 MFLOP against 50-65 KB of x, dt and y per (head, chunk) (B and C are
-// shared by the heads of a group) — some 160-200 flops per byte, far above
-// the CUDA cores' 20 (67 TFLOP/s over 3.35 TB/s).  At the SSM forward's
-// 4 x 4096 tokens: 107.4 GFLOP, 1.60 ms at the f32 peak, against 527 MB
-// (bf16 x, B, C; f32 y), 0.157 ms at the HBM rate.  So the
+// c (c + 1) (N + P) + 4 c N P flops (the two within-chunk products need
+// only the c (c + 1) / 2 pairs j <= i) against reading x, dt, B, C and
+// writing y (f32): at mamba2's shapes (c = 128, N = 128, P = 64, 80 heads)
+// about 7.4 MFLOP against 48-65 KB of x, dt and y per (head, chunk) (B and
+// C are shared by the heads of a group) — some 110-150 flops per byte, far
+// above the CUDA cores' 20 (67 TFLOP/s over 3.35 TB/s).  At the SSM
+// forward's 4 x 4096 tokens: 75.4 GFLOP, 1.13 ms at the f32 peak, against
+// 527 MB (bf16 x, B, C; f32 y), 0.157 ms at the HBM rate.  So the
 // design keeps every operand of the four products in shared memory (the
 // state never leaves the CTA) and computes in f32 on CUDA cores with 4 x 8
 // and 4 x 4 register tiles.  The c^2 terms run only up to the diagonal

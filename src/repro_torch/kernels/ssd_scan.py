@@ -14,8 +14,9 @@ group ``h // (H / G)`` of B and C — so the wrapper copies nothing (the
 Pallas wrapper's transpose and repeat are TPU layout moves).
 ``exp(cum_i - cum_j)`` is computed only where ``j <= i``.
 
-What bounds it on the H100: its f32 operations — ``2c²N + 2c²P + 4cNP``
-flops per (row, head, chunk) against some 50-65 KB of x, dt and y, so it
+What bounds it on the H100: its f32 operations — ``c(c+1)(N+P) + 4cNP``
+flops per (row, head, chunk) (the within-chunk products need only the
+pairs ``j <= i``) against some 48-65 KB of x, dt and y, so it
 keeps every operand in shared memory and computes in f32 on CUDA cores.
 Tensor cores, asynchronous staging and one C·Bᵀ per group are later work.
 

@@ -194,13 +194,11 @@ def attention_prefill_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
     return attn.wo(o.reshape(b, s, cfg.n_heads * cfg.d_head)), k, v
 
 
-def attention_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
-                    causal: bool = True, window: Optional[int] = None
+def attention_apply(attn: Attention, x: torch.Tensor, cos, sin
                     ) -> torch.Tensor:
-    """Full-sequence self-attention (prefill; the reference's training
-    path too).  x: (b, s, d) -> (b, s, d)."""
-    return attention_prefill_apply(attn, x, cos, sin, causal=causal,
-                                   window=window)[0]
+    """Full-sequence causal self-attention (the hybrid's forward).  x: (b,
+    s, d) -> (b, s, d)."""
+    return attention_prefill_apply(attn, x, cos, sin)[0]
 
 
 def attention_decode_apply(attn: Attention, x: torch.Tensor, cos, sin,
