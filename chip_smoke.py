@@ -14,11 +14,14 @@ Phases, each printing its result lines:
    batch 1 and 8 over a 2048-position cache; contiguous causal prefill at
    128 and 1024 tokens, and one with a sliding window; bf16 cases of each;
    the two contiguous kernels at zamba2's shapes (32 heads of 80, g = 1:
-   prefill of 4 x 4096 tokens, decode at batch 4 over 160 positions); and
-   the SSD scan at mamba2's and zamba2's full widths, f32 and bf16, batch
-   1-4, 2048 and 4096 positions.  Each case prints its time, the plain
-   version's, one ``scaled_dot_product_attention`` call as a yardstick
-   (none computes the scan), and the least time the card could take;
+   prefill of 4 x 4096 tokens, decode at batch 4 over 160 positions); the
+   bf16 contiguous prefill also at a ragged 1000 tokens, with a 256-token
+   window, and at zamba2 SMOKE's widths (4 heads of 16); and the SSD scan
+   at mamba2's and zamba2's full widths, f32 and bf16, batch 1-4, 2048 and
+   4096 positions, and mamba2 at 1 x 32768 (32-column P slices).  Each
+   case prints its time, the plain version's, one
+   ``scaled_dot_product_attention`` call as a yardstick (none computes the
+   scan), and the least time the card could take;
 3. the paged engine serving 8 requests at the full width of qwen3-1.7b
    (28 layers, bf16 random weights from a seed), with both paged kernels
    counted;
@@ -42,7 +45,8 @@ Phases, each printing its result lines:
    logits and greedy tokens;
 10. the ``kernels`` line: every ported kernel with its launches on the main
    path that runs it (phase 3 for the paged kernels, phase 4 for the
-   contiguous ones, phase 7 for the scan; phase 8 prints its own).
+   contiguous decode, phase 7 for the scan, phase 8's forward for the
+   contiguous prefill, whose record is that forward's bf16 shape).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is ``{"ok": true, "device": {...}}``.
@@ -64,7 +68,10 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
 # (atol, rtol) of a kernel against its plain version: f32 differs in the
 # order of its sums; both accumulate bf16 inputs in f32, so a bf16 output
-# differs by about one bf16 rounding of the output (relative 2**-8)
+# differs by about one bf16 rounding of the output (relative 2**-8); the
+# tensor-core flash body also rounds P to bf16 before P.V, as the
+# reference model path does, which stays inside the same limit
+# (tests/test_torch_kernels.py emulates it against the Pallas kernel)
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (4e-3, 1e-2)}
 
 
@@ -249,16 +256,20 @@ def _sdpa_flash(q, k, v, window: int):
 # decode step reads a cache of 128 prompt + 32 new positions at one shared
 # length
 ZAMBA2_ATTN = dict(K=32, g=1, dh=80)
+# zamba2 SMOKE's: 4 heads of 16 over 4 KV heads
+ZAMBA2_SMOKE_ATTN = dict(K=4, g=1, dh=16)
 
 
 def phase_kernels() -> dict:
     """Hold every attention kernel against its plain version; returns
     per-kernel records measured at the headline shape of its main path
-    (paged decode b=8, paged prefill n_past=992, contiguous decode b=8,
-    contiguous prefill 1024 tokens; f32).  The contiguous kernels also run
-    at zamba2's shapes (``ZAMBA2_ATTN``) as the hybrid phase gives them:
-    prefill of 4 prompts of 4096 tokens, decode at batch 4 over 160
-    positions."""
+    (f32: paged decode b=8, paged prefill n_past=992, contiguous decode
+    b=8; bf16: contiguous prefill of 4 x 4096 tokens at zamba2's widths,
+    the hybrid forward's).  The contiguous kernels run at zamba2's shapes
+    (``ZAMBA2_ATTN``) as the hybrid phase gives them: prefill of 4 prompts
+    of 4096 tokens, decode at batch 4 over 160 positions; the bf16
+    tensor-core prefill also at a ragged 1000 tokens, with a window, and
+    at zamba2 SMOKE's head dim 16."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
@@ -275,10 +286,13 @@ def phase_kernels() -> dict:
              + [("flash", (1024, 256), f32), ("flash", (1024, 0), bf16)]
              + [("flash", (4096, 0), d, dict(ZAMBA2_ATTN, b=4))
                 for d in (bf16, f32)]
+             + [("flash", (1000, 0), bf16), ("flash", (1024, 256), bf16),
+                ("flash", (200, 0), bf16, dict(ZAMBA2_SMOKE_ATTN, b=2))]
              + [("contig_decode", 4, d, dict(ZAMBA2_ATTN, S=160, shared=True))
                 for d in (bf16, f32)])
-    headlines = {("decode", 8), ("prefill", 992), ("contig_decode", 8),
-                 ("flash", (1024, 0))}
+    headlines = {("decode", 8, "float32"), ("prefill", 992, "float32"),
+                 ("contig_decode", 8, "float32"),
+                 ("flash", (4096, 0), "bfloat16")}
     for i, (kind, arg, dtype, *shape) in enumerate(cases):
         shape = shape[0] if shape else {}
         dname = str(dtype).replace("torch.", "")
@@ -356,7 +370,7 @@ def phase_kernels() -> dict:
         print(f"kernel {name} {label} {dname}: max_abs_err {err:.3g} "
               f"(atol {atol} rtol {rtol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
-        if dname == "float32" and (kind, arg) in headlines and not shape:
+        if (kind, arg, dname) in headlines:
             records[name] = {"max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "library_ms": lib_ms}
@@ -378,14 +392,17 @@ SSD_CASES = ([("mamba2", b, 2048, d) for d in ("float32", "bfloat16")
                 ("grouped", 2, 2048, "bfloat16"), ("smoke", 2, 64,
                                                    "float32"),
                 ("zamba2", 4, 4096, "bfloat16"),
-                ("mamba2", 4, 4096, "bfloat16")])
+                ("mamba2", 4, 4096, "bfloat16"),
+                ("mamba2", 1, 32768, "bfloat16")])
 SSD_HEADLINE = ("mamba2", 4, 4096, "bfloat16")
 # largest |error| of the scan's y and state against its plain version, as
-# a fraction of max|plain|: both compute in f32 and differ only in the
-# order of their sums; on the H100 the largest sound reading over every
-# case is 3.1e-5 (y, mamba2 f32 b=4), so the limit sits ~6x above it, and
-# 6-15x below the reading of y rounded to bf16 (up to 2^-9 of an element,
-# 1.3e-3 to 3.0e-3 of max|y|), which every case computes and must reject
+# a fraction of max|plain|: the kernel multiplies f32 operands as split
+# bf16 pairs (~16 bits kept) with f32 sums, the plain version in f32, and
+# their sums run in other orders; on the H100 the largest sound reading
+# over every case is 6.8e-5 (state, zamba2 bf16 4 x 4096; y at most
+# 3.2e-5), so the limit sits ~3x above it, and 6-15x below the reading of
+# y rounded to bf16 (up to 2^-9 of an element, 1.3e-3 to 3.0e-3 of
+# max|y|), which every case computes and must reject
 SSD_TOL = 2e-4
 
 
@@ -416,7 +433,8 @@ def phase_ssd_kernels() -> dict:
     zamba2's full widths (H = 80 heads of P = 64, chunk 128, N = 128 and
     64), a grouped case (G = 8, 10 heads per group) and a SMOKE-width one,
     in f32 and bf16, at batch 1, 2 and 4 over 2048 positions, and at the
-    SSM phase's 4 x 4096; returns the record of the headline case."""
+    SSM phase's 4 x 4096 and 1 x 32768 (where the wrapper cuts P into
+    32-column slices); returns the record of the headline case."""
     import torch
     from repro_torch.kernels import ref as REF
     from repro_torch.kernels import ssd_scan as SSD
@@ -469,13 +487,12 @@ def phase_ssd_kernels() -> dict:
     return records
 
 
-def _device_profile(fn, steps: int, t_wall: float, is_attention,
-                    label: str = "attention kernel") -> str:
+def _device_profile(fn, steps: int, t_wall: float, parts: dict) -> str:
     """Device time per step of ``fn`` (which runs ``steps`` decode steps,
     or one forward) from torch.profiler: the sum over device events
     (kernels, copies, fills), each counted once — the CPU op that launched
     a kernel carries its time too, so CPU events are left out — with the
-    share of the kernel ``is_attention`` picks (named ``label``), the
+    time of the kernels each predicate of ``parts`` picks (by label), the
     number of device events, the idle share against the wall time
     ``t_wall`` of ``fn``, and the five largest events by name."""
     import torch
@@ -490,13 +507,18 @@ def _device_profile(fn, steps: int, t_wall: float, is_attention,
     busy_us = sum(e.self_device_time_total for e in dev)
     if busy_us <= 0:
         return "device busy not measured (the profiler saw no device time)"
-    attn_us = sum(e.self_device_time_total for e in dev if is_attention(e.key))
+    def part_ms(pick) -> float:
+        return sum(e.self_device_time_total for e in dev
+                   if pick(e.key)) / steps / 1e3
+
+    part_s = ", ".join(f"{label} {part_ms(pick):.3f} ms"
+                       for label, pick in parts.items())
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     top_s = "; ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f}"
                       f" ms in {e.count / steps:g}" for e in top)
     return (f"device busy {busy_us / steps / 1e3:.3f} ms in "
-            f"{sum(e.count for e in dev) / steps:g} device events ({label} "
-            f"{attn_us / steps / 1e3:.3f} ms), device idle share "
+            f"{sum(e.count for e in dev) / steps:g} device events "
+            f"({part_s}), device idle share "
             f"{1 - busy_us / 1e6 / t_wall:.3f}; largest per step: {top_s}")
 
 
@@ -609,8 +631,8 @@ def phase_serve() -> dict:
     t_enqueue = time.perf_counter() - t
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t
-    device = _device_profile(dispatch, 8, t_wall,
-                             lambda key: "paged_decode_kernel" in key)
+    device = _device_profile(dispatch, 8, t_wall, {
+        "attention kernel": lambda key: "paged_decode_kernel" in key})
     print(f"decode step (batch {B}, {ctx} tokens of context): wall "
           f"{t_wall / 8 * 1e3:.2f} ms, host enqueue "
           f"{t_enqueue / 8 * 1e3:.2f} ms, {device}")
@@ -717,9 +739,9 @@ def phase_slotted_serve() -> dict:
     t_enqueue = time.perf_counter() - t
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t
-    device = _device_profile(
-        step, 1, t_wall,
-        lambda key: "decode_kernel" in key and "paged" not in key)
+    device = _device_profile(step, 1, t_wall, {
+        "attention kernel":
+            lambda key: "decode_kernel" in key and "paged" not in key})
     ctx = int(inst.cache["lengths"].max())
     print(f"slotted decode step (8 slots, up to {ctx} positions): wall "
           f"{t_wall * 1e3:.2f} ms, host enqueue {t_enqueue * 1e3:.2f} ms, "
@@ -950,8 +972,9 @@ def _forward_run(tag: str, model, b: int, s: int, per_forward: dict,
         _check(counts[name] == n, f"{tag}: {counts[name]} {name} launches "
                                   f"in one forward, expected {n}")
     del lg
-    device = _device_profile(fwd, 1, t_wall, lambda key: "ssd_kernel" in key,
-                             label="ssd kernel")
+    device = _device_profile(fwd, 1, t_wall, {
+        "ssd kernel": lambda key: "ssd_kernel" in key,
+        "flash kernel": lambda key: "flash_" in key and "_kernel" in key})
     print(f"{tag} forward {b} x {s}: {b * s / t_wall:.1f} tokens/s, wall "
           f"{t_wall * 1e3:.1f} ms, host enqueue {t_enqueue * 1e3:.1f} ms, "
           f"peak device memory {peak:.2f} GiB; launches {counts}; {device}")
@@ -1043,8 +1066,9 @@ def _greedy_run(tag: str, model, n_prompt: int, n_new: int, per_step: dict,
     _check(int(cache["pos"]) == n_prompt + n_new, f"{tag}: cache position")
     device = _device_profile(
         lambda: R.decode_step(model, cache, {"tokens": tok}, cfg), 1,
-        t_wall / n_new,
-        lambda key: "decode_kernel" in key and "paged" not in key)
+        t_wall / n_new, {
+            "attention kernel":
+                lambda key: "decode_kernel" in key and "paged" not in key})
     print(f"{tag} decode (batch {b}): replay of {n_prompt} prompt tokens "
           f"{t_replay / n_prompt * 1e3:.2f} ms/step; {reading}; {n_new} new "
           f"tokens: wall {t_wall / n_new * 1e3:.2f} ms/step, host enqueue "
@@ -1268,6 +1292,10 @@ def main() -> int:
     t8 = time.perf_counter()
     phase_ssm_parity()
     t9 = time.perf_counter()
+    # the flash record is the hybrid forward's shape (bf16, 4 x 4096, 32
+    # heads of 80), so its launches are that forward's; the slotted serve's
+    # f32 prefill launches are printed in its phase
+    launches["flash_attention"] = hybrid["flash_attention"]
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "

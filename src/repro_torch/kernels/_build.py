@@ -29,10 +29,11 @@ MAX_ROWS = 8
 MAX_HEAD_DIM = 128
 GROUP = 4
 # the contiguous flash kernel (csrc/flash_attention.cu): kFaRows query rows
-# per CTA, dims read four at a time
+# per CTA (4 warps of 16 in bf16), dims copied four at a time or more
 FA_ROWS = 64
-# limits of csrc/ssd_scan.cu: chunk and state width at most 128 (a thread
-# holds 8 of 16-wide slices), P columns per CTA at most SSD_SLICE
+# limits of csrc/ssd_scan.cu: chunk and state width at most 128 (8 warps
+# of 16-row tiles; 8 16-deep slices of N), P columns per CTA at most
+# SSD_SLICE
 SSD_MAX_CHUNK = 128
 SSD_MAX_STATE = 128
 SSD_SLICE = 64

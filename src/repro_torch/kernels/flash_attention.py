@@ -7,14 +7,17 @@ forms the serving engines compute.
 against k, v (b, skv, K, dh), causal on positions from 0, or full, with the
 Pallas kernel's sliding window when ``window > 0``.  One CTA per (tile of
 ``64 // g`` queries, KV head, batch row) holds the tile's 64 query rows
-(queries × group heads), stages K/V blocks of 64 positions in shared
-memory once per tile and reuses them across all its rows, and keeps an f32
+(queries × group heads), walks K/V blocks of 64 positions and keeps an f32
 online softmax per row.  Blocks past the tile's last query (causal) or
-before its window are skipped — the Pallas kernel runs fully masked blocks.
-What bounds it on the H100: its f32 operations (``4 dh`` flops per visible
-(query head, key) pair, about 4.3 GFLOP at sq = 1024, 16 heads, dh = 128),
-so it reuses each staged K/V block 64 times and computes on CUDA cores in
-f32; tensor-core tiles are later work.
+before its window are skipped — the Pallas kernel runs fully masked blocks
+— and only blocks on the diagonal or the window's edge are masked.  What
+bounds it on the H100: its operations (``4 dh`` flops per visible (query
+head, key) pair; 344 GFLOP at the hybrid forward's 4 × 4096 tokens, 32
+heads of 80).  bf16 inputs run on the tensor cores (``mma.sync`` m16n8k16,
+f32 accumulators; K/V staged by ``cp.async`` in a two-stage ring; P
+rounded to bf16 for P·V, as the reference model path rounds it; the head
+dim padded to a multiple of 16 in shared memory); f32 inputs, the slotted
+engine's, run in f32 on CUDA cores.
 
 **Paged chunked prefill** (:func:`paged_prefill_attention`): the C queries
 of one prompt chunk, at absolute positions ``n_past..``, attend causally

@@ -5,20 +5,27 @@
 Per chunk of ``chunk`` positions it computes the within-chunk quadratic
 dual form ``(C·Bᵀ ⊙ exp(segsum(dt·A))) · (dt·x)``, the off-diagonal term
 ``(C·stateᵀ) ⊙ exp(cumsum(dt·A))`` and the state update, carrying the
-P × N state across chunks.  One CTA per (slice of at most 64 columns of P,
-head, batch row) loops over the chunks itself (CTAs run in no order, so the
-loop replaces the Pallas kernel's sequential grid axis) and keeps B, x·dt,
-the block's C rows or scores and the state in shared memory.  x, dt, B and
-C are read in place in their (b, s, ...) layouts and types — head h reads
-group ``h // (H / G)`` of B and C — so the wrapper copies nothing (the
-Pallas wrapper's transpose and repeat are TPU layout moves).
-``exp(cum_i - cum_j)`` is computed only where ``j <= i``.
+P × N state across chunks.  One CTA per (slice of P, head, batch row)
+loops over the chunks itself (CTAs run in no order, so the loop replaces
+the Pallas kernel's sequential grid axis) and keeps B, x·dt and the state
+in shared memory, the state never leaving the CTA.  x, dt, B and C are
+read in place in their (b, s, ...) layouts and types — head h reads group
+``h // (H / G)`` of B and C — so the wrapper copies nothing (the Pallas
+wrapper's transpose and repeat are TPU layout moves).  The slice is 64
+columns, or 32 when the b × H CTAs of 64 would leave SMs idle
+(:func:`p_slice`).
 
-What bounds it on the H100: its f32 operations — ``c(c+1)(N+P) + 4cNP``
-flops per (row, head, chunk) (the within-chunk products need only the
-pairs ``j <= i``) against some 48-65 KB of x, dt and y, so it
-keeps every operand in shared memory and computes in f32 on CUDA cores.
-Tensor cores, asynchronous staging and one C·Bᵀ per group are later work.
+The four products of a chunk run on the tensor cores (``mma.sync``
+m16n8k16, bf16 operands, f32 accumulators; the within-chunk ones only on
+the 16 × 16 tiles on or below the diagonal).  An f32 operand (x·dt, the
+scores after the decay, the state; B and C when they arrive in f32) is
+split into two bf16 parts, hi + lo, and multiplied as hi·b + lo·b or
+hi·hi + hi·lo + lo·hi, so no f32 operand is rounded to bf16 once: y and
+the state stay within 2e-4 of max |f32 scan| (``chip_smoke.SSD_TOL``).
+What bounds it on the H100: bytes for bf16 inputs (x, B, C read once, the
+f32 y written: 0.157 ms at mamba2's 4 × 4096 tokens, against ~146 GFLOP
+of split bf16 MMAs, 0.148 ms at the tensor cores' peak).  One C·Bᵀ per
+group rather than per head is later work.
 
 The plain PyTorch version is :func:`~repro_torch.kernels.ref.
 ssd_chunked_ref`; ``kernels/ops.py`` sends CPU tensors there and CUDA
@@ -37,9 +44,15 @@ __all__ = ["ssd_chunked", "ssd_chunked_ref", "check_ssd_inputs",
            "p_slice"]
 
 
-def p_slice(P: int) -> int:
-    """Columns of P one CTA takes: all of them up to 64, else 64."""
-    return min(P, _build.SSD_SLICE)
+def p_slice(P: int, bh: int = 0, n_sm: int = 0) -> int:
+    """Columns of P one CTA takes: all of them up to 64, else 64; 32 where
+    the ``bh`` (batch rows x heads) CTAs of each 64-column slice would
+    leave some of the card's ``n_sm`` SMs without a CTA — at mamba2's
+    batch 1, 80 CTAs of 64 columns become 160 of 32."""
+    ps = min(P, _build.SSD_SLICE)
+    if ps == _build.SSD_SLICE and bh * (P // ps) < n_sm:
+        return ps // 2
+    return ps
 
 
 def check_ssd_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -106,7 +119,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty((b, s, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((b, H, P, B.shape[3]), dtype=torch.float32,
                         device=x.device)
-    _build.extension().ssd(x, dt, A, B, C, y, state, int(chunk), p_slice(P))
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _build.extension().ssd(x, dt, A, B, C, y, state, int(chunk),
+                           p_slice(P, b * H, n_sm))
     ssd_chunked.launches += 1
     return y, state
 

@@ -353,3 +353,78 @@ def test_contiguous_prefill_tile_holds_64_query_rows(g, want):
     """Queries per CTA of the contiguous kernel: as many as fit its 64
     query rows, so a CTA reuses each staged K/V block across 64 rows."""
     assert FAT.flash_queries_per_cta(g) == want
+
+
+# =============================================================================
+# the bf16 tensor-core flash body (csrc/flash_attention.cu), emulated in
+# torch: f32 scores of bf16 operands, f32 online softmax over 64-key
+# blocks, P rounded to bf16 for P.V
+# =============================================================================
+# chip_smoke.TOL["bfloat16"]: the kernel against its plain version
+FLASH_BF16_TOL = (4e-3, 1e-2)
+
+
+def flash_bf16_emulation(q, k, v, *, causal=True, window=0, block=64):
+    """The kernel's arithmetic: q.k^T in f32 from bf16 operands, scaled to
+    log2 units; per 64-key block the running max, the rescale of l and
+    the accumulator, and P = exp2(s - m) rounded to bf16 before P.V with
+    f32 sums; out = acc / l in q's type."""
+    b, sq, H, dh = q.shape
+    skv, K = k.shape[1], k.shape[2]
+    g = H // K
+    qf = q.float().reshape(b, sq, K, g, dh).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # (b, K, 1, skv, dh)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    m = torch.full((b, K, g, sq), float("-inf"))
+    l = torch.zeros(b, K, g, sq)
+    acc = torch.zeros(b, K, g, sq, dh)
+    qpos = torch.arange(sq)[:, None]
+    for kb in range(0, skv, block):
+        kpos = torch.arange(kb, min(kb + block, skv))[None, :]
+        s = qf @ kf[..., kb:kb + block, :].transpose(-1, -2)
+        s = s * (dh ** -0.5 * 1.4426950408889634)
+        ok = torch.ones_like(kpos - qpos, dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= qpos - kpos < window
+        s = torch.where(ok, s, torch.tensor(float("-inf")))
+        m_new = torch.maximum(m, s.amax(-1))
+        base = torch.where(m_new == float("-inf"), torch.zeros_like(m_new),
+                           m_new)
+        p = torch.exp2(s - base[..., None])
+        alpha = torch.exp2(m - base)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + \
+            p.to(torch.bfloat16).float() @ vf[..., kb:kb + block, :]
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, H, dh).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,s,H,K,dh,window", [
+    (2, 128, 4, 2, 64, 0),
+    (1, 256, 4, 4, 80, 0),
+    (2, 128, 4, 1, 128, 48),
+    (1, 256, 6, 2, 16, 100),
+])
+def test_flash_bf16_p_rounding_stays_within_the_kernel_tolerance(
+        b, s, H, K, dh, window):
+    """P rounded to bf16 before P.V, in f32 online-softmax order, stays
+    within chip_smoke's bf16 TOL of the Pallas kernel (interpret) and of
+    the port's plain version, which keep P in f32."""
+    rng = np.random.default_rng(dh + window)
+    q_j, q_t = _both(rng.standard_normal((b, s, H, dh), np.float32),
+                     "bfloat16")
+    k_j, k_t = _both(rng.standard_normal((b, s, K, dh), np.float32),
+                     "bfloat16")
+    v_j, v_t = _both(rng.standard_normal((b, s, K, dh), np.float32),
+                     "bfloat16")
+    got = flash_bf16_emulation(q_t, k_t, v_t, window=window).float()
+    atol, rtol = FLASH_BF16_TOL
+    want = torch.tensor(np.asarray(FAJ.flash_attention(
+        q_j, k_j, v_j, causal=True, window=window, interpret=True),
+        np.float32))
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    plain = REFT.flash_attention_ref(q_t, k_t, v_t, window=window).float()
+    torch.testing.assert_close(got, plain, atol=atol, rtol=rtol)
