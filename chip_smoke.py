@@ -9,8 +9,11 @@ Phases, each printing its result lines:
    the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. kernels against their plain PyTorch versions on the card, at the shapes
    of the serving paths (8 KV heads, g = 2, dh = 128): paged decode at
-   batch 1 and 8 with lengths up to 2048 and chunked prefill of 32 tokens
-   at n_past 0, 224 and 992 (block 16, f32 arena); contiguous decode at
+   batch 1 and 8 with lengths up to 2048, at the serve's step (8 rows of
+   300 positions over 128-page tables) and with rows of 1-40 positions
+   (trailing splits empty), and chunked prefill of 32 tokens at n_past 0,
+   224 and 992, ragged last chunks and a 256-token window (block 16), in
+   f32 (the engine's arena) and bf16; contiguous decode at
    batch 1 and 8 over a 2048-position cache; contiguous causal prefill at
    128 and 1024 tokens, and one with a sliding window; bf16 cases of each;
    the two contiguous kernels at zamba2's shapes (32 heads of 80, g = 1:
@@ -24,7 +27,8 @@ Phases, each printing its result lines:
    scan), and the least time the card could take;
 3. the paged engine serving 8 requests at the full width of qwen3-1.7b
    (28 layers, bf16 random weights from a seed), with both paged kernels
-   counted;
+   counted; then the profiles of one fused 8-step decode dispatch and of
+   one prefill chunk at n_past 992;
 4. the slotted engine (the default layout) serving the same 8 requests at
    full width with f32 weights (the layout serves f32 models only), with
    both contiguous kernels counted;
@@ -81,12 +85,24 @@ def _check(cond: bool, what: str) -> None:
 
 
 def _time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    """Mean device time of one call, by CUDA events around ``reps`` calls."""
+    """Mean device time of one call, by CUDA events around ``reps`` calls.
+    The device first spins (``torch.cuda._sleep``) for longer than the host
+    takes to enqueue the calls, so that they run back to back: a kernel
+    shorter than its wrapper's host time is timed on the device, not at the
+    host's enqueue rate."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # 2e9 cycles a second: above the H100's SM clock, so the spin outlasts
+    # the enqueue
+    torch.cuda._sleep(int(min(1.5 * reps * host_s + 1e-3, 1.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -125,16 +141,21 @@ def phase_device_build() -> str:
 # phase 2: kernels vs plain versions on the card
 # =============================================================================
 def _decode_case(b: int, dtype, seed: int, max_len: int = 2048,
-                 bs: int = 16, K: int = 8, g: int = 2, dh: int = 128):
-    """Random paged-decode inputs: every row's pages are distinct arena
-    blocks, one row runs to ``max_len``."""
+                 bs: int = 16, K: int = 8, g: int = 2, dh: int = 128,
+                 lengths=None):
+    """Random paged-decode inputs over tables of ``max_len // bs`` pages:
+    every row's pages are distinct arena blocks; lengths drawn up to
+    max_len with one row at max_len, or the given ``lengths`` (one value
+    for every row, or one per row)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     torch.manual_seed(seed)
     n_pages = max_len // bs
-    lengths = rng.integers(1, max_len + 1, size=b)
-    lengths[0] = max_len
+    if lengths is None:
+        lengths = rng.integers(1, max_len + 1, size=b)
+        lengths[0] = max_len
+    lengths = np.broadcast_to(np.asarray(lengths), (b,)).astype(np.int32)
     nb = b * n_pages + 1
     perm = rng.permutation(np.arange(1, nb)).reshape(b, n_pages)
     tables = np.zeros((b, n_pages), np.int32)
@@ -146,18 +167,21 @@ def _decode_case(b: int, dtype, seed: int, max_len: int = 2048,
     ka = torch.randn(nb, bs, K, dh, device=dev).to(dtype)
     va = torch.randn(nb, bs, K, dh, device=dev).to(dtype)
     return (q, ka, va, torch.as_tensor(tables, device=dev),
-            torch.as_tensor(lengths.astype(np.int32), device=dev))
+            torch.as_tensor(lengths, device=dev))
 
 
-def _prefill_case(n_past: int, dtype, seed: int, C: int = 32, bs: int = 16,
-                  K: int = 8, g: int = 2, dh: int = 128, nb: int = 257):
+def _prefill_case(n_past: int, dtype, seed: int, C: int = 32,
+                  true_c: int = 0, bs: int = 16, K: int = 8, g: int = 2,
+                  dh: int = 128, nb: int = 257):
     """Random chunked-prefill inputs: a chunk of C queries at n_past.., the
-    table sliced to the power-of-two page bucket the engine uses."""
+    first ``true_c`` of them real (all with 0), the table sliced to the
+    power-of-two page bucket the engine uses for them — so the padded
+    queries of a ragged last chunk may lie past the table's span."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     torch.manual_seed(seed)
-    need = -(-(n_past + C) // bs)
+    need = -(-(n_past + (true_c or C)) // bs)
     span = 1
     while span < need:
         span *= 2
@@ -179,7 +203,7 @@ def _sdpa_decode(q, ka, va, tables, lengths):
     return _sdpa_contig_decode(q, kc, vc, lengths)
 
 
-def _sdpa_prefill(q, ka, va, table, pos):
+def _sdpa_prefill(q, ka, va, table, pos, window: int = 0):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ref import gather_paged_kv
@@ -187,11 +211,13 @@ def _sdpa_prefill(q, ka, va, table, pos):
     kq = kc.transpose(1, 2).contiguous()              # (1, K, S, dh)
     vq = vc.transpose(1, 2).contiguous()
     qq = q.transpose(0, 1)[None]                       # (1, H, C, dh)
-    S = kc.shape[1]
-    mask = (torch.arange(S, device=q.device)[None, :]
-            <= pos.long()[:, None])[None, None]
-    return lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=mask,
-                                                  enable_gqa=True)
+    diff = pos.long()[:, None] - torch.arange(kc.shape[1],
+                                              device=q.device)[None, :]
+    mask = diff >= 0
+    if window > 0:
+        mask &= diff < window
+    return lambda: F.scaled_dot_product_attention(
+        qq, kq, vq, attn_mask=mask[None, None], enable_gqa=True)
 
 
 def _contig_decode_case(b: int, dtype, seed: int, S: int = 2048, K: int = 8,
@@ -265,7 +291,9 @@ def phase_kernels() -> dict:
     per-kernel records measured at the headline shape of its main path
     (f32: paged decode b=8, paged prefill n_past=992, contiguous decode
     b=8; bf16: contiguous prefill of 4 x 4096 tokens at zamba2's widths,
-    the hybrid forward's).  The contiguous kernels run at zamba2's shapes
+    the hybrid forward's).  The split-KV paged kernels also run at the
+    serve's decode step, with empty splits and length 1, on ragged chunks
+    and with a window, in both types.  The contiguous kernels run at zamba2's shapes
     (``ZAMBA2_ATTN``) as the hybrid phase gives them: prefill of 4 prompts
     of 4096 tokens, decode at batch 4 over 160 positions; the bf16
     tensor-core prefill also at a ragged 1000 tokens, with a window, and
@@ -289,16 +317,31 @@ def phase_kernels() -> dict:
              + [("flash", (1000, 0), bf16), ("flash", (1024, 256), bf16),
                 ("flash", (200, 0), bf16, dict(ZAMBA2_SMOKE_ATTN, b=2))]
              + [("contig_decode", 4, d, dict(ZAMBA2_ATTN, S=160, shared=True))
-                for d in (bf16, f32)])
-    headlines = {("decode", 8, "float32"), ("prefill", 992, "float32"),
-                 ("contig_decode", 8, "float32"),
-                 ("flash", (4096, 0), "bfloat16")}
+                for d in (bf16, f32)]
+             # the split-KV paged kernels: the serve's decode step (300
+             # positions a row over 128-page tables), rows whose trailing
+             # splits are empty (lengths 1-40), bf16 at batch 1; prefill
+             # in bf16 at n_past 0 and 224, ragged last chunks (the padded
+             # queries of the first past the table's span), a window
+             + [("decode", 8, d, dict(lengths=300)) for d in (f32, bf16)]
+             + [("decode", 8, d, dict(lengths=(1, 40, 17, 2, 33, 16, 5, 24)))
+                for d in (f32, bf16)]
+             + [("decode", 1, bf16)]
+             + [("prefill", n, bf16) for n in (0, 224)]
+             + [("prefill", n, d, dict(true_c=c)) for d in (f32, bf16)
+                for n, c in ((0, 5), (992, 7))]
+             + [("prefill", 992, d, dict(window=256)) for d in (f32, bf16)])
+    headlines = {("decode", 8, "float32", ()), ("prefill", 992, "float32", ()),
+                 ("contig_decode", 8, "float32", ()),
+                 ("flash", (4096, 0), "bfloat16",
+                  tuple(sorted(dict(ZAMBA2_ATTN, b=4).items())))}
     for i, (kind, arg, dtype, *shape) in enumerate(cases):
-        shape = shape[0] if shape else {}
+        shape = dict(shape[0]) if shape else {}
         dname = str(dtype).replace("torch.", "")
+        key = (kind, arg, dname, tuple(sorted(shape.items())))
         elt = torch.tensor([], dtype=dtype).element_size()
         if kind == "decode":
-            args = _decode_case(arg, dtype, seed=i)
+            args = _decode_case(arg, dtype, seed=i, **shape)
             kern = lambda a=args: PA.paged_decode_attention(*a)
             plain = lambda a=args: REF.paged_decode_attention_ref(*a)
             lib = _sdpa_decode(*args)
@@ -311,6 +354,8 @@ def phase_kernels() -> dict:
                        + 4 * (pages + len(ln)))
             n_ops = 4 * int(ln.sum()) * H * dh
             name, label = "paged_decode_attention", f"b={arg}"
+            if shape:
+                label += f" lengths {tuple(int(x) for x in ln)}"
         elif kind == "contig_decode":
             args = _contig_decode_case(arg, dtype, seed=i, **shape)
             kern = lambda a=args: DA.decode_attention(*a)
@@ -343,19 +388,33 @@ def phase_kernels() -> dict:
             if shape:
                 label += f" b={q.shape[0]} H={H} K={K} dh={dh}"
         else:
-            args = _prefill_case(arg, dtype, seed=i)
-            kern = lambda a=args: FA.paged_prefill_attention(*a)
-            plain = lambda a=args: REF.paged_prefill_attention_ref(*a)
-            lib = _sdpa_prefill(*args)
+            window = shape.pop("window", 0)
+            args = _prefill_case(arg, dtype, seed=i, **shape)
+            kern = lambda a=args, w=window: FA.paged_prefill_attention(
+                *a, window=w)
+            plain = lambda a=args, w=window: REF.paged_prefill_attention_ref(
+                *a, window=w)
+            lib = _sdpa_prefill(*args, window)
             q, ka, va, table, pos = args
             C, H, dh = q.shape
-            K = ka.shape[2]
-            visible = int(pos.max()) + 1
-            pages = -(-visible // ka.shape[1])
-            n_bytes = (2 * q.numel() * elt + 2 * visible * K * dh * elt
+            K, bs = ka.shape[2], ka.shape[1]
+            # keys each query sees: causal, inside the table's span and
+            # the window; K/V read once from the first to the last seen
+            kpos = torch.arange(table.shape[0] * bs, device=pos.device)
+            diff = pos.long()[:, None] - kpos[None, :]
+            seen = diff >= 0
+            if window > 0:
+                seen &= diff < window
+            cols = seen.any(0).nonzero()
+            first, last = int(cols.min()), int(cols.max())
+            n_keys = last - first + 1
+            pages = last // bs - first // bs + 1
+            n_bytes = (2 * q.numel() * elt + 2 * n_keys * K * dh * elt
                        + 4 * (pages + C))
-            n_ops = 4 * H * dh * int((pos.long() + 1).sum())
+            n_ops = 4 * H * dh * int(seen.sum())
             name, label = "paged_prefill_attention", f"n_past={arg}"
+            if shape or window:
+                label += f" true_c={shape.get('true_c', C)} window={window}"
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -370,7 +429,7 @@ def phase_kernels() -> dict:
         print(f"kernel {name} {label} {dname}: max_abs_err {err:.3g} "
               f"(atol {atol} rtol {rtol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
-        if (kind, arg, dname) in headlines:
+        if key in headlines:
             records[name] = {"max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "library_ms": lib_ms}
@@ -632,7 +691,8 @@ def phase_serve() -> dict:
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t
     device = _device_profile(dispatch, 8, t_wall, {
-        "attention kernel": lambda key: "paged_decode_kernel" in key})
+        "attention kernel (split and merge)":
+            lambda key: "paged_decode" in key})
     print(f"decode step (batch {B}, {ctx} tokens of context): wall "
           f"{t_wall / 8 * 1e3:.2f} ms, host enqueue "
           f"{t_enqueue / 8 * 1e3:.2f} ms, {device}")
@@ -645,6 +705,36 @@ def phase_serve() -> dict:
                                       device=inst.device), 0, 32)
     _check(tuple(lg.shape) == (1, 32, cfg.padded_vocab), "logits shape")
     _check(bool(torch.isfinite(lg).all()), "non-finite logits")
+    # one prefill chunk of 32 tokens at n_past 992 (a 64-page table over
+    # random K/V): wall, host enqueue, device busy and the share of the
+    # prefill attention kernels (the split kernel and its merge)
+    n_past, span = 992, 64
+    arena = R.make_block_arena(cfg, span + 1, 16, dtype=torch.float32,
+                               device=inst.device)
+    for t in arena.values():
+        t.normal_()
+    table = torch.arange(1, span + 1, dtype=torch.int32, device=inst.device)
+    chunk = torch.as_tensor(prompts[1][None, n_past:n_past + 32],
+                            device=inst.device)
+
+    def prefill_chunk():
+        return R.prefill_paged(inst.params, {"tokens": chunk}, arena, table,
+                               n_past, 32)
+
+    prefill_chunk()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg = prefill_chunk()
+    t_enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t
+    _check(bool(torch.isfinite(lg).all()), "non-finite prefill logits")
+    device = _device_profile(prefill_chunk, 1, t_wall, {
+        "prefill attention kernels (split and merge)":
+            lambda key: "paged_prefill" in key})
+    print(f"prefill chunk (32 tokens at n_past {n_past}): wall "
+          f"{t_wall * 1e3:.2f} ms, host enqueue {t_enqueue * 1e3:.2f} ms, "
+          f"{device}")
     del eng, family, inst, arena
     torch.cuda.empty_cache()
     return launches
@@ -1250,7 +1340,7 @@ KERNELS = (
      "src/repro_torch/kernels/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:90"),
     ("paged_prefill_attention",
-     "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro_torch/kernels/csrc/paged_prefill.cu",
      "src/repro/kernels/flash_attention.py:80"),
     ("decode_attention",
      "src/repro_torch/kernels/csrc/decode_attention.cu",

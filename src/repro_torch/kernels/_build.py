@@ -10,26 +10,27 @@ reach a build.
 """
 from __future__ import annotations
 
+import functools
 import os
 import pathlib
 import time
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_ext"
-SOURCES = ("binding.cpp", "paged_attention.cu", "flash_attention.cu",
-           "decode_attention.cu", "ssd_scan.cu")
+SOURCES = ("binding.cpp", "paged_attention.cu", "paged_prefill.cu",
+           "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
 
-# limits of csrc/attention_tile.cuh: kMaxRows query rows per CTA, dh <=
-# 32 * kMaxDimsPerLane, positions taken kGroup at a time
+# limits of csrc/attention_tile.cuh and of the paged decode kernel:
+# kMaxRows query rows (the g heads of a group) per CTA, dh <= 128
 MAX_ROWS = 8
 MAX_HEAD_DIM = 128
-GROUP = 4
-# the contiguous flash kernel (csrc/flash_attention.cu): kFaRows query rows
-# per CTA (4 warps of 16 in bf16), dims copied four at a time or more
+# the contiguous flash kernel (csrc/flash_attention.cu) and the paged
+# prefill kernel (csrc/paged_prefill.cu): kFaRows / kPfRows query rows per
+# CTA (4 warps of 16 on the tensor cores)
 FA_ROWS = 64
 # limits of csrc/ssd_scan.cu: chunk and state width at most 128 (8 warps
 # of 16-row tiles; 8 16-deep slices of N), P columns per CTA at most
@@ -39,6 +40,7 @@ SSD_MAX_STATE = 128
 SSD_SLICE = 64
 
 _EXT = None
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 build_seconds: Optional[float] = None     # wall time of this process's build
 
 
@@ -63,15 +65,37 @@ def extension(verbose: bool = False):
     return _EXT
 
 
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card (the split-KV kernels' plan)."""
+    return _sm_count(torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """The split-KV kernels' arrival counters on ``device``: at least ``n``
+    int32 zeros.  Allocated once (grown when a launch needs more); every
+    launch leaves them at zero again, and launches on one stream run in
+    order, so the kernels share them."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, int_args: Sequence[torch.Tensor], *,
-                 max_group: int = MAX_ROWS, page: int = GROUP) -> None:
+                 max_group: int = MAX_ROWS, vec16: bool = False) -> None:
     """Raise ``ValueError`` unless every tensor is a contiguous CUDA tensor
     on q's device, q, k and v share a type the kernels take (f32 or bf16),
     k and v are (n, positions, K, dh) with q's head dim, the index
     arguments are int32, the group g = H / K is at most ``max_group`` and
-    dh at most 128; with ``page`` > 0 (a paged arena) the block size must
-    be a multiple of it."""
+    dh at most 128; with ``vec16`` (kernels that copy 16 bytes at a time)
+    dh must be a multiple of 8 and q, k and v 16-byte aligned."""
     tensors = (q, k, v, *int_args)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name}: every tensor must be on one CUDA device, "
@@ -97,6 +121,6 @@ def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: the kernel takes g <= {max_group} query "
                          f"heads per KV head and dh <= {MAX_HEAD_DIM}; got "
                          f"g={H // K}, dh={dh}")
-    if page and k.shape[1] % page:
-        raise ValueError(f"{name}: the kernel takes a block size divisible "
-                         f"by {page}; got {k.shape[1]}")
+    if vec16 and (dh % 8 or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError(f"{name}: the kernel takes dh divisible by 8 and "
+                         f"16-byte aligned tensors; got dh={dh}")

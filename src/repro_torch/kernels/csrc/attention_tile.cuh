@@ -1,11 +1,12 @@
 // Online-softmax attention of a few query rows against the K/V of one KV
-// head — the device routine the paged kernels and the contiguous decode
-// kernel share.
+// head — the device routine of the contiguous decode kernel
+// (decode_attention.cu), with the small helpers the split-KV kernels share
+// (split_kv.cuh).
 //
 // K/V are read as a sequence of "pages" of bs positions; a page's address
-// comes from the kernel's addressing policy (`KV`): a block-table lookup
-// for the paged arena (PagedKV), or row_base + page * bs positions for a
-// contiguous per-row cache (ContigKV), whose last page may be ragged.
+// comes from the kernel's addressing policy (`KV`): row_base + page * bs
+// positions for a contiguous per-row cache (ContigKV), whose last page may
+// be ragged.
 //
 // A CTA holds `tq` queries; with GQA each query carries the g = H / K heads
 // of its KV group, so the CTA has rows = tq * g <= kMaxRows query rows (row
@@ -67,15 +68,7 @@ __host__ __device__ inline int tile_smem_bytes(int rows, int dh, int tq) {
 // Addressing policies: the element offset of (page p, position 0, KV head
 // kvh, dim 0).  Positions inside a page are K * dh elements apart.
 // kRagged: whether a page may run past n_pos (checked per position only
-// then, so the paged kernels carry no per-load bound check).
-struct PagedKV {          // arena (n_blocks, bs, K, dh) through a block table
-  static constexpr bool kRagged = false;
-  const int* __restrict__ table;
-  __device__ __forceinline__ long page(int p, int bs, int K, int kvh,
-                                       int dh) const {
-    return ((long)table[p] * bs * K + kvh) * dh;
-  }
-};
+// then).
 struct ContigKV {         // one row (S, K, dh) of a contiguous cache
   static constexpr bool kRagged = true;
   long row;               // element offset of the row

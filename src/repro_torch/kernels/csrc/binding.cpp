@@ -14,31 +14,40 @@
 
 namespace {
 
+float* scratch(const torch::Tensor& part) {
+  return part.numel() ? part.data_ptr<float>() : nullptr;
+}
+
 void paged_decode(const torch::Tensor& q, const torch::Tensor& k_arena,
                   const torch::Tensor& v_arena, const torch::Tensor& tables,
                   const torch::Tensor& lengths, torch::Tensor out,
+                  torch::Tensor part, torch::Tensor counters,
+                  int64_t min_pages, int64_t n_split, int64_t ctas,
                   double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
-  repro_torch::launch_paged_decode(
+  C10_CUDA_CHECK(repro_torch::launch_paged_decode(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k_arena.data_ptr(),
       v_arena.data_ptr(), tables.data_ptr<int>(), lengths.data_ptr<int>(),
-      out.data_ptr(), q.size(0), q.size(1), k_arena.size(2), q.size(2),
-      k_arena.size(1), tables.size(1), static_cast<float>(sm_scale),
-      at::cuda::getCurrentCUDAStream());
+      out.data_ptr(), scratch(part), counters.data_ptr<int>(), q.size(0),
+      q.size(1), k_arena.size(2), q.size(2), k_arena.size(1), tables.size(1),
+      min_pages, n_split, ctas, static_cast<float>(sm_scale),
+      at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void paged_prefill(const torch::Tensor& q, const torch::Tensor& k_arena,
                    const torch::Tensor& v_arena, const torch::Tensor& table,
                    const torch::Tensor& positions, torch::Tensor out,
-                   int64_t tq, double sm_scale, int64_t window) {
+                   torch::Tensor part, int64_t tq, int64_t min_pages,
+                   int64_t n_split, double sm_scale, int64_t window) {
   const c10::cuda::CUDAGuard guard(q.device());
-  repro_torch::launch_paged_prefill(
+  C10_CUDA_CHECK(repro_torch::launch_paged_prefill(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k_arena.data_ptr(),
       v_arena.data_ptr(), table.data_ptr<int>(), positions.data_ptr<int>(),
-      out.data_ptr(), q.size(0), q.size(1), k_arena.size(2), q.size(2),
-      k_arena.size(1), table.size(0), tq, static_cast<float>(sm_scale),
-      window, at::cuda::getCurrentCUDAStream());
+      out.data_ptr(), scratch(part), q.size(0), q.size(1), k_arena.size(2),
+      q.size(2), k_arena.size(1), table.size(0), tq, min_pages, n_split,
+      static_cast<float>(sm_scale), window,
+      at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -82,9 +91,9 @@ void ssd(const torch::Tensor& x, const torch::Tensor& dt,
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("paged_decode", &paged_decode, "paged flash-decode (CUDA)");
+  m.def("paged_decode", &paged_decode, "split-KV paged flash-decode (CUDA)");
   m.def("paged_prefill", &paged_prefill,
-        "paged chunked-prefill flash attention (CUDA)");
+        "split-KV paged chunked-prefill attention (CUDA)");
   m.def("decode", &decode, "contiguous flash-decode (CUDA)");
   m.def("flash", &flash, "contiguous flash attention (CUDA)");
   m.def("ssd", &ssd, "Mamba2 SSD chunked scan (CUDA)");

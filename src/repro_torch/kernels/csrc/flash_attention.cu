@@ -1,29 +1,10 @@
-// Flash attention for Hopper (sm_90a), in the two forms the serving engines
-// compute.  Both replace the TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention, body _flash_kernel), which tiles a contiguous K/V over a
-// (batch, kv-head, q-block, kv-block) grid with the kv-block axis
-// sequential, and runs fully masked blocks.
+// Contiguous flash attention for Hopper (sm_90a).  Replaces the TPU kernel
+// src/repro/kernels/flash_attention.py (flash_attention, body
+// _flash_kernel), which tiles a contiguous K/V over a (batch, kv-head,
+// q-block, kv-block) grid with the kv-block axis sequential, and runs fully
+// masked blocks.  (Its paged chunked-prefill form is paged_prefill.cu.)
 //
-// 1. Paged chunked prefill (paged_prefill_kernel): the C queries of one
-//    prompt chunk, at absolute positions n_past.., attend causally over the
-//    sequence's K/V read through its block table (src/repro/models/
-//    layers.py, attention_prefill_paged_apply).  One CTA per (q-tile of the
-//    chunk, KV head) walks the table's pages only up to the page that holds
-//    the tile's largest position (and from the first page inside the
-//    window), so masked pages are skipped.  The tile's tq queries x g heads
-//    (at most 8 rows) keep an f32 online softmax per warp; the CTA's 8 warps
-//    split the pages and merge at the end (attention_tile.cuh).  The mask is
-//    kv_pos <= positions[q] on absolute positions, and positions[q] - kv_pos
-//    < window when window > 0.  Queries of the padded chunk tail are
-//    computed like the others; their rows are never read.
-//    Bound on the H100: for a 32-token chunk the work is 4 * C * H * dh
-//    flops per visible position against 2 * K * dh * bytes of K/V per
-//    position — C * H / (2 * K) = 32 flops per byte in f32, above the 20 of
-//    the CUDA cores (67 TFLOP/s over 3.35 TB/s), so the f32 operations
-//    bound it.  Each q-tile CTA of a KV head re-reads the same pages
-//    (through L2).
-//
-// 2. Contiguous prefill: a whole prompt, q (b, sq, H, dh) against k, v
+// Contiguous prefill: a whole prompt, q (b, sq, H, dh) against k, v
 //    (b, skv, K, dh), causal on positions from 0 (q_pos >= kv_pos,
 //    src/repro/models/layers.py blocked_attention with q_offset 0) or
 //    full, with the sliding window when window > 0.  One CTA per (tile of
@@ -60,59 +41,14 @@
 //    TFLOP/s), against 335 MB of q, k, v and out (0.100 ms at 3.35 TB/s);
 //    in f32 the CUDA cores' 67 TFLOP/s bound it (qwen3's 1024 tokens, 16
 //    heads of 128: 4.3 GFLOP, 64 us).
+#include <math.h>
 #include <stdint.h>
 
-#include "attention_tile.cuh"
 #include "kernels.h"
 #include "mma_tile.cuh"
 
 namespace repro_torch {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
-                         const T* __restrict__ v_arena,
-                         const int* __restrict__ table,
-                         const int* __restrict__ positions, T* __restrict__ out,
-                         int C, int H, int K, int dh, int bs, int span, int tq,
-                         float sm_scale, int window) {
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.y, g = H / K;
-  const int q0 = blockIdx.x * tq;
-  const int nq = min(tq, C - q0);
-  int* qpos = reinterpret_cast<int*>(smem) + kWarps * tq * g * (dh + 2);
-  for (int i = threadIdx.x; i < nq; i += kThreads) qpos[i] = positions[q0 + i];
-  __syncthreads();
-  const long off = (long)q0 * H * dh + (long)kvh * g * dh;
-  attend_rows<T>(q + off, out + off, (long)H * dh, tq, nq, g, dh, qpos,
-                 k_arena, v_arena, bs, K, kvh, PagedKV{table}, span * bs,
-                 sm_scale, window, smem);
-}
-
-void launch_paged_prefill(bool bf16, const void* q, const void* k_arena,
-                          const void* v_arena, const int* table,
-                          const int* positions, void* out, int C, int H, int K,
-                          int dh, int bs, int span, int tq, float sm_scale,
-                          int window, cudaStream_t stream) {
-  const dim3 grid((C + tq - 1) / tq, K);
-  const size_t smem = tile_smem_bytes(tq * (H / K), dh, tq);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_arena),
-        static_cast<const T*>(v_arena), table, positions, static_cast<T*>(out),
-        C, H, K, dh, bs, span, tq, sm_scale, window);
-  } else {
-    paged_prefill_kernel<float><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_arena),
-        static_cast<const float*>(v_arena), table, positions,
-        static_cast<float*>(out), C, H, K, dh, bs, span, tq, sm_scale, window);
-  }
-}
-
-// ============================================================================
-// contiguous form
-// ============================================================================
 constexpr int kFaRows = 64;       // query rows per CTA (queries x group heads)
 constexpr int kFaKeys = 64;       // key positions per staged K/V block
 constexpr int kFaThreads = 256;   // 16 x 16 threads: ty owns rows, tx keys/dims

@@ -7,21 +7,36 @@
 
 namespace repro_torch {
 
-// q (b, H, dh); arenas (n_blocks, bs, K, dh); tables (b, n_pages) i32;
-// lengths (b,) i32; out (b, H, dh).  All of q's type (f32 or bf16).
-void launch_paged_decode(bool bf16, const void* q, const void* k_arena,
-                         const void* v_arena, const int* tables,
-                         const int* lengths, void* out, int b, int H, int K,
-                         int dh, int bs, int n_pages, float sm_scale,
-                         cudaStream_t stream);
+// Split-KV paged attention (split_kv.cuh): n_split CTAs per group of
+// query rows, each split at least min_pages pages; part: f32 scratch of
+// groups * n_split partials of rows * (dh + 2) floats (unused when
+// n_split == 1).  All of q's type (f32 or bf16), dh a multiple of 8,
+// tensors 16-byte aligned.  Both return the error of raising the kernel's
+// shared-memory limit, or of n_split above kMaxSplits.
+//
+// Decode: q (b, H, dh); arenas (n_blocks, bs, K, dh); tables (b, n_pages)
+// i32; lengths (b,) i32; out (b, H, dh).  Groups: b * K, of g = H / K <= 8
+// rows; splits balanced over `ctas` CTAs in all.  counters: b * K ints, 0
+// before the launch and after it.
+cudaError_t launch_paged_decode(bool bf16, const void* q, const void* k_arena,
+                                const void* v_arena, const int* tables,
+                                const int* lengths, void* out, float* part,
+                                int* counters, int b, int H, int K, int dh,
+                                int bs, int n_pages, int min_pages,
+                                int n_split, int ctas, float sm_scale,
+                                cudaStream_t stream);
 
-// q (C, H, dh); arenas (n_blocks, bs, K, dh); table (span,) i32;
-// positions (C,) i32; out (C, H, dh); tq queries per CTA.
-void launch_paged_prefill(bool bf16, const void* q, const void* k_arena,
-                          const void* v_arena, const int* table,
-                          const int* positions, void* out, int C, int H, int K,
-                          int dh, int bs, int span, int tq, float sm_scale,
-                          int window, cudaStream_t stream);
+// Chunked prefill: q (C, H, dh); arenas (n_blocks, bs, K, dh); table
+// (span,) i32; positions (C,) i32; out (C, H, dh); tq queries per 64-row
+// tile.  Groups: cdiv(C, tq) * K, of 64 rows; a second, merging kernel
+// follows when n_split > 1.
+cudaError_t launch_paged_prefill(bool bf16, const void* q, const void* k_arena,
+                                 const void* v_arena, const int* table,
+                                 const int* positions, void* out, float* part,
+                                 int C, int H, int K, int dh, int bs, int span,
+                                 int tq, int min_pages, int n_split,
+                                 float sm_scale, int window,
+                                 cudaStream_t stream);
 
 // q (b, H, dh); caches (b, S, K, dh); lengths (b,) i32 (len_stride 1) or
 // one value for every row (len_stride 0); out (b, H, dh).

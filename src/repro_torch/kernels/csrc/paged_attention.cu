@@ -4,65 +4,367 @@
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py
 // (paged_decode_attention, body _paged_kernel).  That kernel runs a grid
 // (row, kv-head, page) with the page axis sequential and the block table
-// scalar-prefetched; here one CTA per (row, KV head) reads its row's block
-// ids itself, and its 8 warps split the pages p < cdiv(length, bs) between
-// them, so the loop bound is the page-skip and the junk-padded table tail is
-// never loaded.  Positions >= length inside the last page are masked.  Each
-// warp keeps the f32 online softmax of the g query heads of the group over
-// its pages; the warps' partial states are merged at the end.  Query head h
-// maps to KV head h / g.
+// scalar-prefetched.
 //
 // Bound on the H100: HBM bytes — every valid K/V position is read once
 // (2 * length * dh * bytes per row and KV head) against 4 * g * dh flops per
-// position, far below the card's flop:byte ratio.  The design reads each
-// K/V row with one coalesced warp load and keeps kWarps * 4 positions of
-// loads in flight per CTA with no barrier in the page loop.  A batch of b
-// rows still runs only b * K CTAs; splitting a row over CTAs and TMA are
-// later work.
-#include "attention_tile.cuh"
+// position, far below the card's flop:byte ratio.  To read at the card's
+// rate, every SM needs work and tens of KB of loads in flight; one CTA per
+// (row, KV head) gives a batch of 8 rows 64 CTAs for 132 SMs, and the
+// longest row's CTAs, each on one SM's share of HBM, set the time.
+//
+// Design (split-KV, flash-decoding):
+//   * Grid (n_split, K, b).  n_split and the least pages a split takes
+//     (min_pages, 64 positions) come from the host, from shapes alone
+//     (kernels/paged_attention.py split_plan) — never from the lengths, so
+//     the fused decode loop needs no host sync.  On the device each row
+//     cuts its own cdiv(length, bs) valid pages into runs of pps pages,
+//     split s taking [s * pps, (s + 1) * pps): pps is at least min_pages,
+//     at most n_split runs cover the row, and a run is no shorter than an
+//     even share of the whole batch's pages over `ctas` CTAs (the CTAs the
+//     card holds at once, from the host).  So a short row spreads over
+//     several CTAs when the batch is short, and the CTAs stay long enough
+//     to stream when it is long.
+//   * A split at or past the row's valid pages is empty: its CTA returns
+//     before loading anything (split_kv.cuh).
+//   * Staging: the CTA reads its split's block ids into shared memory once,
+//     then copies its positions' K and V rows there with cp.async, 16
+//     bytes a thread, in a ring of kDecStages = 2 tiles of kDecTile = 16
+//     positions: one tile (16 KB in f32 at dh 128) loads while the other
+//     is consumed, and the three CTAs an SM holds (~170 registers a
+//     thread) keep ~48 KB in flight.  Positions past the row's length are
+//     zero-filled and masked.  (On the H100 two stages read as fast as
+//     three or four, or faster, and 32-position tiles slower:
+//     scripts/paged_decode_variants.py.)
+//   * Compute: warp w takes positions w, w + 4, ... of each staged tile; a
+//     lane holds 4 dims of each of the g query rows (registers for G >= g
+//     rows, G a power of two: kMaxRows arrays cost 40 more registers a
+//     thread and a CTA per SM) and of their f32 online softmax (m, l, acc, scores in log2 units), so one score is a 5-step
+//     warp sum.  The 4 warps' states are merged in shared memory at the end.
+//   * Merge: a row with one live split writes its output; otherwise each
+//     CTA stores its partial and the last to arrive merges them
+//     (split_kv.cuh), in the same launch.
+#include <stdint.h>
+
+#include <algorithm>
+
 #include "kernels.h"
+#include "mma_tile.cuh"
+#include "split_kv.cuh"
 
 namespace repro_torch {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
-                        const T* __restrict__ v_arena,
-                        const int* __restrict__ tables,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        int H, int K, int dh, int bs, int n_pages,
-                        float sm_scale) {
-  extern __shared__ float smem[];
-  const int row = blockIdx.x, kvh = blockIdx.y, g = H / K;
-  int* qpos = reinterpret_cast<int*>(smem) + kWarps * g * (dh + 2);
-  if (threadIdx.x == 0) qpos[0] = lengths[row] - 1;   // the new token
-  __syncthreads();
-  const long off = (long)row * H * dh + (long)kvh * g * dh;
-  attend_rows<T>(q + off, out + off, (long)H * dh, /*tq=*/1, /*nq=*/1, g, dh,
-                 qpos, k_arena, v_arena, bs, K, kvh,
-                 PagedKV{tables + (long)row * n_pages}, n_pages * bs,
-                 sm_scale, /*window=*/0, smem);
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecTile = 16;                     // positions per stage
+constexpr int kDecStages = 2;
+constexpr int kDecPerWarp = kDecTile / kDecWarps;
+constexpr int kDecMaxSmem = 96 * 1024;           // the limit the launch sets
+
+__device__ __forceinline__ void load4f(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load4f(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
 }
 
-void launch_paged_decode(bool bf16, const void* q, const void* k_arena,
-                         const void* v_arena, const int* tables,
-                         const int* lengths, void* out, int b, int H, int K,
-                         int dh, int bs, int n_pages, float sm_scale,
-                         cudaStream_t stream) {
-  const dim3 grid(b, K);
-  const size_t smem = tile_smem_bytes(H / K, dh, 1);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_arena),
-        static_cast<const T*>(v_arena), tables, lengths, static_cast<T*>(out),
-        H, K, dh, bs, n_pages, sm_scale);
-  } else {
-    paged_decode_kernel<float><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_arena),
-        static_cast<const float*>(v_arena), tables, lengths,
-        static_cast<float*>(out), H, K, dh, bs, n_pages, sm_scale);
+// Shared memory of a CTA: the ring, reused after the loop for the warps'
+// states and the merge's weights; then the block ids of up to max_pages
+// pages of the split.
+__host__ inline size_t decode_smem_bytes(int g, int dh, int elt, int n_split,
+                                         int max_pages) {
+  size_t bytes = (size_t)kDecStages * 2 * kDecTile * dh * elt;     // ring
+  const size_t states = 4 * (size_t)kDecWarps * g * (dh + 2);
+  const size_t merge = 4 * (size_t)(3 * n_split + 1) * g;
+  if (states > bytes) bytes = states;
+  if (merge > bytes) bytes = merge;
+  return bytes + 4 * (size_t)max_pages;
+}
+
+// G: the query rows of a group held in registers (g <= G; one
+// instantiation per power of two up to 8)
+template <typename T, int G>
+__global__ void __launch_bounds__(kDecThreads)
+    paged_decode_split_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k_arena,
+                              const T* __restrict__ v_arena,
+                              const int* __restrict__ tables,
+                              const int* __restrict__ lengths,
+                              T* __restrict__ out, float* __restrict__ part,
+                              int* __restrict__ counters, int H, int K,
+                              int dh, int bs, int n_pages, int min_pages,
+                              int n_split, int ctas, int ring_bytes,
+                              float sl2) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  T* ring = reinterpret_cast<T*>(dsm);          // [stage][K, V][tile][dh]
+  float* fsm = reinterpret_cast<float*>(dsm);
+  __shared__ int flag;
+  const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
+  const int g = H / K, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the batch's valid pages (each row's splits are balanced against them)
+  __shared__ int warp_pages[kDecWarps];
+  int pages = 0;
+  for (int i = threadIdx.x; i < gridDim.z; i += kDecThreads)
+    pages += (min(lengths[i], n_pages * bs) + bs - 1) / bs;
+  pages = __reduce_add_sync(0xffffffffu, pages);
+  if (lane == 0) warp_pages[warp] = pages;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kDecWarps; ++w) total += warp_pages[w];
+  const int length = min(lengths[row], n_pages * bs);
+  // the row's valid pages in runs of pps pages: at least min_pages, at
+  // most n_split runs, and no shorter than an even share of the batch's
+  // pages over `ctas` CTAs.  Live splits are those holding a valid
+  // position, split 0 always (a row of length 0 comes back zero)
+  const int valid = (length + bs - 1) / bs;
+  const int pps = max(max(min_pages, (valid + n_split - 1) / n_split),
+                      (total * K + ctas - 1) / ctas);
+  const int span = pps * bs;
+  const int n_live = max((valid + pps - 1) / pps, 1);
+  if (split >= n_live) return;
+  const int p0 = split * span, p1 = min(p0 + span, length);
+  const int n_tiles = p1 > p0 ? (p1 - p0 + kDecTile - 1) / kDecTile : 0;
+  // the split's block ids, read once: the copies then wait on no table
+  // load
+  int* blk = reinterpret_cast<int*>(dsm + ring_bytes);
+  const int* table = tables + (long)row * n_pages + split * pps;
+  for (int i = threadIdx.x; i < (p1 - p0 + bs - 1) / bs; i += kDecThreads)
+    blk[i] = table[i];
+  __syncthreads();
+  const long pos_stride = (long)K * dh;
+  constexpr int kVec = 16 / sizeof(T);          // elements per copy
+  // copies a thread makes per tile, at most (dh <= 128)
+  constexpr int kSlots = kDecTile * (128 / kVec) / kDecThreads;
+  const int chunks = dh / kVec;
+  // the thread's copies of a tile — position cj, column cc, the same in
+  // every tile — and where cj of the next tile to stage lies: page pg of
+  // the split, offset of in it, advanced kDecTile positions a tile, so a
+  // copy costs no division
+  int cj[kSlots], cc[kSlots], pg[kSlots], of[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int e = threadIdx.x + k * kDecThreads;
+    cj[k] = e < kDecTile * chunks ? e / chunks : -1;
+    cc[k] = (e - max(cj[k], 0) * chunks) * kVec;
+    pg[k] = max(cj[k], 0) / bs;
+    of[k] = max(cj[k], 0) % bs;
   }
+
+  // stage tile t into ring slot st; tiles are staged in order
+  auto stage = [&](int st, int t) {
+    T* Ks = ring + (long)st * 2 * kDecTile * dh;
+    T* Vs = Ks + kDecTile * dh;
+    const int base = p0 + t * kDecTile;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (cj[k] < 0) break;
+      const bool ok = base + cj[k] < p1;
+      const long off = ok ? ((long)blk[pg[k]] * bs + of[k]) * pos_stride +
+                                (long)kvh * dh + cc[k]
+                          : 0;
+      cp_async16(Ks + cj[k] * dh + cc[k], k_arena + off, ok);
+      cp_async16(Vs + cj[k] * dh + cc[k], v_arena + off, ok);
+      for (of[k] += kDecTile; of[k] >= bs; of[k] -= bs) ++pg[k];
+    }
+  };
+
+  // q rows of the group (pre-scaled by the caller unless sm_scale says
+  // otherwise): lane owns dims 4 lane .. 4 lane + 3
+  const bool dims = 4 * lane < dh;
+  float qr[G][4], acc[G][4], m[G], l[G];
+  const T* qg = q + (long)row * H * dh + (long)kvh * g * dh;
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) qr[r][j] = acc[r][j] = 0.f;
+    if (r < g && dims) load4f(qg + r * dh + 4 * lane, qr[r]);
+  }
+
+#pragma unroll
+  for (int t = 0; t < kDecStages - 1; ++t) {
+    if (t < n_tiles) stage(t, t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int nt = t + kDecStages - 1;
+    if (nt < n_tiles) stage(nt % kDecStages, nt);
+    cp_async_commit();
+    cp_async_wait<kDecStages - 1>();
+    __syncthreads();
+    const T* Ks = ring + (long)(t % kDecStages) * 2 * kDecTile * dh;
+    const T* Vs = Ks + kDecTile * dh;
+    float kx[kDecPerWarp][4], vx[kDecPerWarp][4];
+#pragma unroll
+    for (int u = 0; u < kDecPerWarp; ++u) {
+      const int j = warp + kDecWarps * u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) kx[u][i] = vx[u][i] = 0.f;
+      if (dims) {
+        load4f(Ks + j * dh + 4 * lane, kx[u]);
+        load4f(Vs + j * dh + 4 * lane, vx[u]);
+      }
+    }
+    const int base = p0 + t * kDecTile;
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      if (r >= g) break;
+      float s[kDecPerWarp], mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < kDecPerWarp; ++u) {
+        float part_dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part_dot += qr[r][i] * kx[u][i];
+        part_dot = warp_sum(part_dot);
+        s[u] = base + warp + kDecWarps * u < p1 ? part_dot * sl2 : -INFINITY;
+        mx = fmaxf(mx, s[u]);
+      }
+      const float m_new = fmaxf(m[r], mx);
+      if (m_new == -INFINITY) continue;        // warp-uniform
+      const float alpha = exp2f(m[r] - m_new);
+      float pu[kDecPerWarp], psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kDecPerWarp; ++u) {
+        pu[u] = exp2f(s[u] - m_new);
+        psum += pu[u];
+      }
+      l[r] = l[r] * alpha + psum;
+      m[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = acc[r][i] * alpha;
+#pragma unroll
+        for (int u = 0; u < kDecPerWarp; ++u) a += pu[u] * vx[u][i];
+        acc[r][i] = a;
+      }
+    }
+    __syncthreads();                            // the stage may be refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' states -> the CTA's (acc, m, l) per row
+  float* s_acc = fsm;                           // [warp][g][dh]
+  float* s_m = s_acc + kDecWarps * g * dh;      // [warp][g]
+  float* s_l = s_m + kDecWarps * g;
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    if (r >= g) break;
+    if (dims)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s_acc[(warp * g + r) * dh + 4 * lane + i] = acc[r][i];
+    if (lane == 0) {
+      s_m[warp * g + r] = m[r];
+      s_l[warp * g + r] = l[r];
+    }
+  }
+  __syncthreads();
+  const long ps = partial_floats(g, dh);
+  const int group = row * K + kvh;
+  float* mine = part + ((long)group * n_split + split) * ps;
+  T* o = out + (long)row * H * dh + (long)kvh * g * dh;
+  for (int e = threadIdx.x; e < g * dh; e += kDecThreads) {
+    const int r = e / dh;
+    float M = -INFINITY;
+    for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, s_m[w * g + r]);
+    float A = 0.f, L = 0.f;
+    if (M != -INFINITY)
+      for (int w = 0; w < kDecWarps; ++w) {
+        const float c = exp2f(s_m[w * g + r] - M);
+        A += s_acc[(w * g + r) * dh + e - r * dh] * c;
+        L += s_l[w * g + r] * c;
+      }
+    if (n_live == 1) {
+      o[e] = from_float<T>(A / fmaxf(L, 1e-30f));
+    } else {
+      mine[e] = A;
+      if (e - r * dh == 0) {
+        mine[g * dh + r] = M;
+        mine[g * dh + g + r] = L;
+      }
+    }
+  }
+  if (n_live == 1) return;
+  if (!arrive_last(counters + group, n_live, &flag)) return;
+  merge_partials<T>(part + (long)group * n_split * ps, n_live, g, 0, g, dh,
+                    o, (long)H * dh, g, 1, fsm);
+}
+
+template <typename T, int G>
+cudaError_t launch_decode_split(const void* q, const void* k_arena,
+                                const void* v_arena, const int* tables,
+                                const int* lengths, void* out, float* part,
+                                int* counters, int b, int H, int K, int dh,
+                                int bs, int n_pages, int min_pages,
+                                int n_split, int ctas, float sm_scale,
+                                cudaStream_t stream) {
+  // pages of the longest split: an even share of a batch of full tables
+  const int max_pages = std::max(
+      std::max(min_pages, (n_pages + n_split - 1) / n_split),
+      (int)(((long)n_pages * b * K + ctas - 1) / ctas));
+  const size_t smem = decode_smem_bytes(H / K, dh, sizeof(T), n_split,
+                                        max_pages);
+  const int ring_bytes = (int)(smem - 4 * (size_t)max_pages);
+  if (smem > kDecMaxSmem || n_split > kMaxSplits) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      ensure_smem<paged_decode_split_kernel<T, G>>(kDecMaxSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_split, K, b);
+  paged_decode_split_kernel<T, G><<<grid, kDecThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_arena),
+      static_cast<const T*>(v_arena), tables, lengths, static_cast<T*>(out),
+      part, counters, H, K, dh, bs, n_pages, min_pages, n_split, ctas,
+      ring_bytes, sm_scale * kLog2e);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_decode_typed(const void* q, const void* k_arena,
+                                const void* v_arena, const int* tables,
+                                const int* lengths, void* out, float* part,
+                                int* counters, int b, int H, int K, int dh,
+                                int bs, int n_pages, int min_pages,
+                                int n_split, int ctas, float sm_scale,
+                                cudaStream_t stream) {
+  const int g = H / K;
+#define REPRO_PAGED_DECODE(G)                                                 \
+  if (g <= G)                                                                 \
+    return launch_decode_split<T, G>(q, k_arena, v_arena, tables, lengths,    \
+                                     out, part, counters, b, H, K, dh, bs,    \
+                                     n_pages, min_pages, n_split, ctas,       \
+                                     sm_scale, stream);
+  REPRO_PAGED_DECODE(1)
+  REPRO_PAGED_DECODE(2)
+  REPRO_PAGED_DECODE(4)
+  REPRO_PAGED_DECODE(8)
+#undef REPRO_PAGED_DECODE
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_paged_decode(bool bf16, const void* q, const void* k_arena,
+                                const void* v_arena, const int* tables,
+                                const int* lengths, void* out, float* part,
+                                int* counters, int b, int H, int K, int dh,
+                                int bs, int n_pages, int min_pages,
+                                int n_split, int ctas, float sm_scale,
+                                cudaStream_t stream) {
+  if (bf16)
+    return launch_decode_typed<__nv_bfloat16>(
+        q, k_arena, v_arena, tables, lengths, out, part, counters, b, H, K,
+        dh, bs, n_pages, min_pages, n_split, ctas, sm_scale, stream);
+  return launch_decode_typed<float>(q, k_arena, v_arena, tables, lengths, out,
+                                    part, counters, b, H, K, dh, bs, n_pages,
+                                    min_pages, n_split, ctas, sm_scale,
+                                    stream);
 }
 
 }  // namespace repro_torch

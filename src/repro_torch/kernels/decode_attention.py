@@ -6,8 +6,8 @@ reference's Pallas TPU kernel
 One new token per batch row attends over the first ``lengths[i]``
 positions of its own row of the slotted cache (one layer's (b, S, K, dh)
 slice of the (L, n_slots, max_len, K, dh) cache).  The kernel runs one CTA
-per (row, KV head) and the routine of ``csrc/attention_tile.cuh`` that the
-paged kernels use, with the row read as pages of 16 positions at
+per (row, KV head) and the routine of ``csrc/attention_tile.cuh``, with
+the row read as pages of 16 positions at
 ``row_base + pos·K·dh``: its 8 warps split the pages below
 ``min(length, S)``, so the cache tail is never read and S need not be a
 multiple of any block (the Pallas kernel walks every 256-position block and
@@ -43,8 +43,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (a row of length 0 comes back zero; a length above S sees the whole
     row).  Scores are q·k * sm_scale (default dh**-0.5).  CUDA tensors
     only; returns (b, H, dh) in q's type."""
-    _build.check_inputs("decode_attention", q, k_cache, v_cache, (lengths,),
-                        page=0)
+    _build.check_inputs("decode_attention", q, k_cache, v_cache, (lengths,))
     b = q.shape[0]
     if q.dim() != 3 or k_cache.shape[0] != b \
             or tuple(lengths.shape) not in ((), (b,)):

@@ -1,5 +1,5 @@
 """Flash attention — the hand-written CUDA kernels for Hopper
-(``csrc/flash_attention.cu``) that replace the reference's Pallas TPU
+(``csrc/flash_attention.cu``, ``csrc/paged_prefill.cu``) that replace the reference's Pallas TPU
 kernel ``src/repro/kernels/flash_attention.py::flash_attention``, in the two
 forms the serving engines compute.
 
@@ -19,17 +19,30 @@ rounded to bf16 for P·V, as the reference model path rounds it; the head
 dim padded to a multiple of 16 in shared memory); f32 inputs, the slotted
 engine's, run in f32 on CUDA cores.
 
-**Paged chunked prefill** (:func:`paged_prefill_attention`): the C queries
-of one prompt chunk, at absolute positions ``n_past..``, attend causally
-over the sequence's K/V read through its block table.  The kernel runs one
-CTA per (q-tile of the chunk, KV head), the tile's ``tq × g`` query rows
-(at most 8) in f32 online softmax; the CTA's 8 warps split the table's
-pages and merge their states at the end.  It walks the table only up to
-the page that holds the tile's largest position, with the causal mask
-``kv_pos <= positions[q]`` and, when ``window > 0``, the sliding window.
-Queries of a padded chunk tail are computed and never read.  A 32-token f32
-chunk does about 32 flops per K/V byte, above the CUDA cores' 20 (67
-TFLOP/s over 3.35 TB/s), so its f32 operations bound it.
+**Paged chunked prefill** (:func:`paged_prefill_attention`,
+``csrc/paged_prefill.cu``): the C queries of one prompt chunk, at absolute
+positions ``n_past..``, attend causally over the sequence's K/V read
+through its block table, with the sliding window when ``window > 0``.  A
+CTA owns one tile of 64 query rows (``64 // g`` queries × the g heads of a
+KV head, folded as the contiguous kernel folds them) and one split of the
+table's pages — split-KV, as the paged decode kernel: the grid is (q-tiles,
+K, n_split), sized on the host from the table's ``span`` by
+:func:`~repro_torch.kernels.paged_attention.split_plan`, never from the
+positions; the tile cuts its visible pages (up to its largest position,
+from its window's edge) into ``n_split`` runs.  Splits past them return at
+once; the mask is evaluated only on the 64-key blocks that cross
+the diagonal, the window's edge or the visible range's end.  K/V pages are
+staged by ``cp.async`` through the block table, and S = q·Kᵀ and P·V run on
+the tensor cores (``mma.sync`` m16n8k16, f32 accumulators, f32 online
+softmax in registers).  bf16 inputs take one product each, P rounded to
+bf16 as the reference's model path rounds it; f32 inputs (the paged
+engine's arena) split every operand — q, K, V and P — into a bf16 pair and
+take hi·hi + hi·lo + lo·hi, which keeps the f32 tolerance.  The splits'
+partials (f32 scratch) merge in a second, small kernel of the same call,
+eight rows a CTA (``csrc/split_kv.cuh``).
+Queries of a padded chunk tail are computed and never read.  A 32-token
+f32 chunk does about 32 flops per K/V byte; on the tensor cores the bytes
+bound it.
 
 The plain PyTorch versions are :func:`~repro_torch.kernels.ref.
 flash_attention_ref` and :func:`~repro_torch.kernels.ref.
@@ -44,23 +57,19 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import PREFILL_CTAS_PER_SM, \
+    split_plan
 from repro_torch.kernels.ref import flash_attention_ref, \
     paged_prefill_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref",
            "paged_prefill_attention", "paged_prefill_attention_ref",
-           "queries_per_cta", "flash_queries_per_cta"]
-
-
-def queries_per_cta(g: int) -> int:
-    """Queries a CTA of the paged prefill kernel takes: as many as fit its
-    8 query rows (``tq × g``)."""
-    return _build.MAX_ROWS // g
+           "flash_queries_per_cta"]
 
 
 def flash_queries_per_cta(g: int) -> int:
-    """Queries a CTA of the contiguous kernel takes: as many as fit its 64
-    query rows (``tq × g``)."""
+    """Queries a CTA of the contiguous kernel and of the paged prefill
+    kernel takes: as many as fit its 64 query rows (``tq × g``)."""
     return _build.FA_ROWS // g
 
 
@@ -73,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window`` when ``window > 0``.  Scores are q·k * sm_scale (default
     dh**-0.5).  CUDA tensors only; returns (b, sq, H, dh) in q's type."""
     _build.check_inputs("flash_attention", q, k, v, (),
-                        max_group=_build.FA_ROWS, page=0)
+                        max_group=_build.FA_ROWS)
     if q.dim() != 4 or k.shape[0] != q.shape[0]:
         raise ValueError(f"flash_attention: q must be (b, sq, H, dh) and "
                          f"k, v (b, skv, K, dh), got {tuple(q.shape)} and "
@@ -102,22 +111,31 @@ def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,
                             window: int = 0) -> torch.Tensor:
     """q: (C, H, dh); arenas: (n_blocks, block_size, K, dh), q's type (f32
     or bf16); table: (span,) i32 block ids of the sequence; positions: (C,)
-    i32 absolute positions of the chunk's queries.  Scores are q·k *
-    sm_scale (default dh**-0.5).  CUDA tensors only; returns (C, H, dh) in
+    i32 absolute positions of the chunk's queries; dh a multiple of 8.
+    Scores are q·k * sm_scale (default dh**-0.5).  CUDA tensors only; returns (C, H, dh) in
     q's type."""
     _build.check_inputs("paged_prefill_attention", q, k_arena, v_arena,
-                        (table, positions))
+                        (table, positions), max_group=_build.FA_ROWS,
+                        vec16=True)
     C, H, dh = q.shape
     K = k_arena.shape[2]
     if table.dim() != 1 or tuple(positions.shape) != (C,):
         raise ValueError(f"paged_prefill_attention: table must be (span,) "
                          f"and positions ({C},), got {tuple(table.shape)} "
                          f"and {tuple(positions.shape)}")
-    tq = queries_per_cta(H // K)
+    tq = flash_queries_per_cta(H // K)
+    groups = -(-C // tq) * K
+    n_split, min_pages, _ = split_plan(table.shape[0], k_arena.shape[1],
+                                       groups, _build.sm_count(q.device),
+                                       PREFILL_CTAS_PER_SM)
     out = torch.empty_like(q)
+    part = torch.empty((groups * n_split * _build.FA_ROWS * (dh + 2)
+                        if n_split > 1 else 0,), dtype=torch.float32,
+                       device=q.device)
     scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
     _build.extension().paged_prefill(q, k_arena, v_arena, table, positions,
-                                     out, tq, scale, int(window))
+                                     out, part, tq, min_pages, n_split, scale,
+                                     int(window))
     paged_prefill_attention.launches += 1
     return out
 

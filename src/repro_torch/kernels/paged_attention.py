@@ -3,20 +3,25 @@
 kernel ``src/repro/kernels/paged_attention.py::paged_decode_attention``.
 
 One new token per batch row attends over K/V scattered across fixed-size
-arena blocks.  The kernel runs one CTA per (row, KV head): the CTA reads its
-row's block ids itself, and its 8 warps split the pages ``p < cdiv(length,
-bs)`` between them, so the loop bound is the page-skip and the junk-padded
-table tail is never loaded; positions at or past ``length`` inside the last
-page are masked.  Each warp keeps the f32 online softmax (m, l, acc) of the
-``g`` query heads of the group over its pages, and the warps' states are
-merged at the end; query head ``h`` reads KV head ``h // g``.
+arena blocks.  The kernel splits each row's keys over several CTAs
+(flash-decoding): the grid is (n_split, K, b); a row cuts its
+``cdiv(length, bs)`` valid pages into ``n_split`` runs of ``pps`` pages
+(at least 64 positions), and split ``s`` takes pages ``[s·pps, (s+1)·pps)``,
+reads their block ids itself and stages its K/V positions in shared memory
+with ``cp.async``; a split past the valid pages returns at once, so the
+junk-padded table tail is never loaded.  Each CTA keeps the f32 online
+softmax (m, l, acc) of the ``g`` query heads of the group; a row with one
+live split writes its output, otherwise the split's partial goes to an f32
+scratch buffer and the CTA that arrives last at its (row, KV head) merges
+them in the same launch (``csrc/split_kv.cuh``).  Query head ``h`` reads KV
+head ``h // g``.
 
 What bounds it on the H100: the HBM bytes of each row's valid K/V prefix
-(``4 g dh`` flops per position against ``2 dh`` elements of K/V read), so
-the design reads every valid position exactly once with coalesced warp
-loads, several positions in flight per warp and no barrier in the page
-loop.  It does not split a row over several CTAs yet, so a small batch
-leaves SMs idle.
+(``4 g dh`` flops per position against ``2 dh`` elements of K/V read).  The
+split keeps every SM busy with tens of KB of loads in flight even at a
+small batch; :func:`split_plan` sizes it on the host from shapes alone —
+the table's width, the batch, the KV heads and the SM count, never the
+lengths — so the engine's fused decode loop needs no host sync.
 
 The plain PyTorch version is :func:`~repro_torch.kernels.ref.
 paged_decode_attention_ref`; ``kernels/ops.py`` sends CPU tensors there and
@@ -24,14 +29,52 @@ CUDA tensors here.  ``paged_decode_attention.launches`` counts launches.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
+__all__ = ["paged_decode_attention", "paged_decode_attention_ref",
+           "split_plan"]
+
+# a split holds at least this many positions (one staged block of the
+# prefill kernel; four tiles of the decode kernel's ring)
+MIN_SPLIT_POSITIONS = 64
+# at most this many splits per group (kMaxSplits of csrc/split_kv.cuh: the
+# merge's weights fit the kernels' shared memory)
+MAX_SPLITS = 32
+# CTAs an SM should be given: of the decode kernel's, two in f32 and four
+# in bf16, whose ring takes half the shared memory (on the H100, a batch
+# of 8 rows of up to 2048 positions: f32 0.0484 ms at two against 0.0542
+# at four, bf16 0.0457 against 0.0311; the serve's 300 positions alike);
+# one of the prefill kernel's (a 64-row tile on the tensor cores, up to
+# 168 KB of shared memory)
+DECODE_CTAS_PER_SM = {torch.float32: 2, torch.bfloat16: 4}
+PREFILL_CTAS_PER_SM = 1
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(n_pages: int, block_size: int, n_groups: int, n_sm: int,
+               ctas_per_sm: int) -> Tuple[int, int, int]:
+    """(n_split, min_pages, ctas) of a split-KV launch over a table of
+    ``n_pages`` pages of ``block_size`` positions, for ``n_groups`` groups
+    of query rows (decode: b x K; prefill: q-tiles x K) on ``n_sm`` SMs.
+    Shapes only: the lengths and positions lie on the device and are never
+    read here.  ``ctas`` = ``ctas_per_sm x n_sm`` is the number of CTAs the
+    work should fill; each group gets ``n_split`` CTAs in the grid — twice
+    its even share of ``ctas``, so that one long row can take more than
+    its share, at most ``MAX_SPLITS``, and no more than a full table fills
+    with splits of ``min_pages`` pages (``MIN_SPLIT_POSITIONS``
+    positions).  On the device a group cuts its own visible pages into at
+    most ``n_split`` runs of at least ``min_pages`` pages
+    (``csrc/split_kv.cuh``)."""
+    min_pages = -(-MIN_SPLIT_POSITIONS // block_size)
+    ctas = ctas_per_sm * n_sm
+    want = max(1, min(MAX_SPLITS, 2 * ctas // max(n_groups, 1)))
+    return min(want, -(-n_pages // min_pages)), min_pages, ctas
 
 
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
@@ -41,21 +84,31 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
     """q: (b, H, dh); arenas: (n_blocks, block_size, K, dh), q's type (f32
     or bf16); block_tables: (b, n_pages) i32 arena block ids; lengths: (b,)
     i32 valid token counts, **each >= 1** (a row of length 0 comes back
-    zero).  Scores are q·k * sm_scale (default dh**-0.5).  CUDA tensors
-    only; returns (b, H, dh) in q's type."""
+    zero).  dh a multiple of 8, g = H / K at most 8.  Scores are q·k *
+    sm_scale (default dh**-0.5).  CUDA tensors only; returns (b, H, dh) in
+    q's type."""
     _build.check_inputs("paged_decode_attention", q, k_arena, v_arena,
-                        (block_tables, lengths))
-    b = q.shape[0]
+                        (block_tables, lengths), vec16=True)
+    b, H, dh = q.shape
     if block_tables.dim() != 2 or block_tables.shape[0] != b \
             or tuple(lengths.shape) != (b,):
         raise ValueError(f"paged_decode_attention: tables must be (b, "
                          f"n_pages) and lengths (b,) with b={b}, got "
                          f"{tuple(block_tables.shape)} and "
                          f"{tuple(lengths.shape)}")
+    K = k_arena.shape[2]
+    n_split, min_pages, ctas = split_plan(
+        block_tables.shape[1], k_arena.shape[1], b * K,
+        _build.sm_count(q.device), DECODE_CTAS_PER_SM[q.dtype])
     out = torch.empty_like(q)
-    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    part = torch.empty((b * K * n_split * (H // K) * (dh + 2)
+                        if n_split > 1 else 0,), dtype=torch.float32,
+                       device=q.device)
+    scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
     _build.extension().paged_decode(q, k_arena, v_arena, block_tables,
-                                    lengths, out, scale)
+                                    lengths, out, part,
+                                    _build.counters(q.device, b * K),
+                                    min_pages, n_split, ctas, scale)
     paged_decode_attention.launches += 1
     return out
 

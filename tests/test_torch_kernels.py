@@ -342,12 +342,6 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
     assert FAT.paged_prefill_attention.launches == n_pre
 
 
-@pytest.mark.parametrize("g,want", [(1, 8), (2, 4), (4, 2), (8, 1)])
-def test_prefill_tile_holds_eight_query_rows(g, want):
-    """Queries per CTA: as many as fit the kernel's 8 query rows."""
-    assert FAT.queries_per_cta(g) == want
-
-
 @pytest.mark.parametrize("g,want", [(1, 64), (2, 32), (3, 21), (8, 8)])
 def test_contiguous_prefill_tile_holds_64_query_rows(g, want):
     """Queries per CTA of the contiguous kernel: as many as fit its 64
