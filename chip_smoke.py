@@ -67,9 +67,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the operation
-# rate of each input type — f32 on the CUDA cores, bf16 on the tensor cores
+# rate of each input type — f32 on the CUDA cores, bf16 on the tensor
+# cores, and f32 split into bf16 pairs on the tensor cores (hi.hi + hi.lo
+# + lo.hi: three bf16 products for each f32 one), which is how the kernels
+# in SPLIT_BF16 multiply f32 inputs, so the card can do their f32 work at
+# that rate
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12,
+              "float32 as split bf16": 989e12 / 3}
+SPLIT_BF16 = ("paged_prefill_attention", "ssd_chunked")
 # (atol, rtol) of a kernel against its plain version: f32 differs in the
 # order of its sums; both accumulate bf16 inputs in f32, so a bf16 output
 # differs by about one bf16 rounding of the output (relative 2**-8); the
@@ -111,9 +117,13 @@ def _time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(n_bytes: float, n_ops: float, dtype: str):
+def _bound_ms(n_bytes: float, n_ops: float, dtype: str, name: str):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over the peak for the kernel ``name``'s
+    inputs of type ``dtype``."""
+    split = dtype == "float32" and name in SPLIT_BF16
     t_bytes = n_bytes / HBM_BYTES_S
-    t_ops = n_ops / PEAK_OPS_S[dtype]
+    t_ops = n_ops / PEAK_OPS_S["float32 as split bf16" if split else dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -425,7 +435,7 @@ def phase_kernels() -> dict:
         _check(ok, f"{name} {label} {dname}: max |err| {err:.3g} beyond "
                    f"atol {atol} rtol {rtol}")
         ms, plain_ms, lib_ms = _time_ms(kern), _time_ms(plain), _time_ms(lib)
-        bound_ms, bound_by = _bound_ms(n_bytes, n_ops, dname)
+        bound_ms, bound_by = _bound_ms(n_bytes, n_ops, dname, name)
         print(f"kernel {name} {label} {dname}: max_abs_err {err:.3g} "
               f"(atol {atol} rtol {rtol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
@@ -531,7 +541,7 @@ def phase_ssd_kernels() -> dict:
                    + 4 * (dt.numel() + A.numel() + y.numel() + st.numel()))
         reps = 20 if b * s <= 4096 else 5
         ms, plain_ms = _time_ms(kern, reps=reps), _time_ms(plain, reps=reps)
-        bound_ms, bound_by = _bound_ms(n_bytes, n_ops, dname)
+        bound_ms, bound_by = _bound_ms(n_bytes, n_ops, dname, "ssd_chunked")
         print(f"kernel ssd_chunked {label}: max_abs_err y {errs[0][0]:.3g} "
               f"(atol {errs[0][1]:.3g}; y rounded to bf16 {faulted:.3g}) "
               f"state {errs[1][0]:.3g} (atol {errs[1][1]:.3g}) ms {ms:.4f} "

@@ -4,14 +4,17 @@ and with parts of it changed, timed at chip_smoke's paged-decode shapes.
 
     PYTHONPATH=src:. python3 scripts/paged_decode_variants.py
 
-Needs one GPU and the CUDA toolkit's ``nvcc``.  It copies ``csrc/`` into
-``build/paged_decode_variants/`` once per variant — as it is; without the
-scores, softmax and P·V (only the staging, the partials and the merge are
-left); with a ring of three or four stages in place of two; with tiles of
-32 positions in place of 16 — patched as text, builds each with ``nvcc`` into a shared library
-(all at once, a plain C entry point loaded with ctypes), and prints each
-one's device time (``chip_smoke._time_ms``) with its largest error against
-the plain version, at batch 8 with lengths up to 2048 (chip_smoke's
+Needs one GPU and the CUDA toolkit's ``nvcc``.  It builds
+``csrc/paged_attention.cu`` once per variant into
+``build/paged_decode_variants/`` with ``nvcc``, each a shared library
+with a plain C entry point loaded with ctypes (all at once), setting the
+kernel's own compile-time knobs with ``-D``: as it is; without the scores,
+softmax and P·V (``REPRO_DEC_COMPUTE=0``: only the staging, the partials
+and the merge are left); with a ring of three or four stages in place of
+two (``REPRO_DEC_STAGES``); with tiles of 32 positions in place of 16
+(``REPRO_DEC_TILE``).  It prints each one's device time
+(``chip_smoke._time_ms``) with its largest error against the plain
+version, at batch 8 with lengths up to 2048 (chip_smoke's
 headline) in f32 and bf16, batch 8 at 2048 and at 300 positions (the
 serve's decode step), and batch 1 at 2048.  The variant without compute
 gives wrong results by design; the others must agree with the plain
@@ -22,7 +25,6 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -44,41 +46,27 @@ extern "C" __attribute__((visibility("default"))) int run_decode(
       n_pages, min_pages, n_split, ctas, sm_scale, (cudaStream_t)stream);
 }
 """
-LIMIT = ("constexpr int kDecMaxSmem = 96 * 1024;",
-         "constexpr int kDecMaxSmem = 200 * 1024;")
-# variant -> [(text in paged_attention.cu, its replacement), ...]
+# variant -> the kernel's compile-time settings (csrc/paged_attention.cu)
 VARIANTS = {
-    "as it is": [],
-    "without compute": [("      if (r >= g) break;\n      float s[kDecPerWarp]",
-                         "      if (r >= 0) break;\n      float s[kDecPerWarp]")],
-    "three stages": [("constexpr int kDecStages = 2;",
-                      "constexpr int kDecStages = 3;")],
-    "four stages": [("constexpr int kDecStages = 2;",
-                     "constexpr int kDecStages = 4;")],
-    "32-position tiles": [
-        LIMIT, ("constexpr int kDecTile = 16; ", "constexpr int kDecTile = 32; ")],
+    "as it is": {},
+    "without compute": {"REPRO_DEC_COMPUTE": 0},
+    "three stages": {"REPRO_DEC_STAGES": 3},
+    "four stages": {"REPRO_DEC_STAGES": 4},
+    "32-position tiles": {"REPRO_DEC_TILE": 32},
 }
 
 
 def build() -> dict:
-    src = (CSRC / "paged_attention.cu").read_text()
     procs = {}
-    for i, (name, patches) in enumerate(VARIANTS.items()):
+    for i, (name, defines) in enumerate(VARIANTS.items()):
         d = OUT / f"v{i}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(CSRC, d)
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise SystemExit(f"{name}: the patch no longer matches "
-                                 f"paged_attention.cu")
-            text = text.replace(old, new)
-        (d / "paged_attention.cu").write_text(text)
+        d.mkdir(parents=True, exist_ok=True)
         (d / "shim.cu").write_text(SHIM)
         procs[name] = (d, subprocess.Popen(
             [os.path.join(CUDA_HOME, "bin", "nvcc"), "-O3",
              "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-shared",
-             "-Xcompiler", "-fPIC,-fvisibility=hidden", "-o",
+             "-Xcompiler", "-fPIC,-fvisibility=hidden", f"-I{CSRC}",
+             *(f"-D{k}={v}" for k, v in defines.items()), "-o",
              str(d / "lib.so"), str(d / "shim.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}

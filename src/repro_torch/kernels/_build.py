@@ -14,7 +14,7 @@ import functools
 import os
 import pathlib
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,7 +40,7 @@ SSD_MAX_STATE = 128
 SSD_SLICE = 64
 
 _EXT = None
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 build_seconds: Optional[float] = None     # wall time of this process's build
 
 
@@ -76,15 +76,26 @@ def _sm_count(index: int) -> int:
 
 
 def counters(device: torch.device, n: int) -> torch.Tensor:
-    """The split-KV kernels' arrival counters on ``device``: at least ``n``
-    int32 zeros.  Allocated once (grown when a launch needs more); every
-    launch leaves them at zero again, and launches on one stream run in
-    order, so the kernels share them."""
-    buf = _COUNTERS.get(device)
+    """The paged decode kernel's arrival counters for a launch on
+    ``device``'s current stream: at least ``n`` int32 zeros.  One buffer
+    per stream, allocated once (grown when a launch needs more): every
+    launch leaves its counters at zero again and launches on one stream
+    run in order, while launches on two streams may overlap and must not
+    share them."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
+        _COUNTERS[key] = buf
     return buf
+
+
+def on_one_cuda_device(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless every tensor lies on the first one's
+    CUDA device."""
+    if not all(t.is_cuda and t.device == tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
 
 
 def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -97,9 +108,7 @@ def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
     dh at most 128; with ``vec16`` (kernels that copy 16 bytes at a time)
     dh must be a multiple of 8 and q, k and v 16-byte aligned."""
     tensors = (q, k, v, *int_args)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError(f"{name}: every tensor must be on one CUDA device, "
-                         f"got {[str(t.device) for t in tensors]}")
+    on_one_cuda_device(name, tensors)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: every tensor must be contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):

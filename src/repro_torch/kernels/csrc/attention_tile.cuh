@@ -1,27 +1,20 @@
-// Online-softmax attention of a few query rows against the K/V of one KV
-// head — the device routine of the contiguous decode kernel
-// (decode_attention.cu), with the small helpers the split-KV kernels share
-// (split_kv.cuh).
+// Online-softmax attention of the g query heads of one new token against
+// the K/V of one KV head in a contiguous per-row cache — the device
+// routine of the contiguous decode kernel (decode_attention.cu), with the
+// small helpers the split-KV kernels share (split_kv.cuh).
 //
-// K/V are read as a sequence of "pages" of bs positions; a page's address
-// comes from the kernel's addressing policy (`KV`): row_base + page * bs
-// positions for a contiguous per-row cache (ContigKV), whose last page may
-// be ragged.
-//
-// A CTA holds `tq` queries; with GQA each query carries the g = H / K heads
-// of its KV group, so the CTA has rows = tq * g <= kMaxRows query rows (row
-// r is query r / g, group head r % g).  The CTA's warps split the pages
-// between them — warp w takes pages first + w, first + w + kWarps, ... up
-// to the page that holds the tile's largest position, so pages past the
+// The row's (S, K, dh) cache is read as pages of bs positions at
+// row_base + page * bs * K * dh; the last page may be ragged.  The CTA's
+// warps split the pages between them — warp w takes pages w, w + kWarps,
+// ... up to the page that holds the query's position, so pages past the
 // valid prefix are never loaded — and run without a barrier:
-//   * a lane holds dims lane, lane + 32, ... of each row's q and of its
+//   * a lane holds dims lane, lane + 32, ... of each head's q and of its
 //     f32 accumulator, so every K or V row is one coalesced warp load;
 //   * positions go four at a time: the warp loads their K and V rows (none
-//     at or past n_pos), each row's four scores q·k * sm_scale are summed
-//     across the warp with shuffles, masked to -inf unless kv_pos <=
-//     qpos[query] (and kv_pos > qpos - window when window > 0), and folded
-//     into that row's online softmax state (m, l, acc) with one rescale per
-//     group;
+//     at or past n_pos), each head's four scores q·k * sm_scale are summed
+//     across the warp with shuffles, masked to -inf past the query's
+//     position, and folded into that head's online softmax state (m, l,
+//     acc) with one rescale per group;
 // then the warps' states meet in shared memory and are merged as
 // flash-decode partials: O = sum_w acc_w e^(m_w - M) / sum_w l_w e^(m_w - M).
 #pragma once
@@ -34,7 +27,7 @@ namespace repro_torch {
 
 constexpr int kWarps = 8;              // warps per CTA, splitting the pages
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxRows = 8;            // query rows (queries x group heads)
+constexpr int kMaxRows = 8;            // query heads of a KV group
 constexpr int kMaxDimsPerLane = 4;     // dh <= 128
 constexpr int kGroup = 4;              // positions per online-softmax update
 
@@ -59,38 +52,30 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Bytes of dynamic shared memory of a CTA: the warps' partial states
-// (acc, m, l per row) plus the tile's int query positions.  The Python
-// wrappers size the launch with the same formula (kernels/_build.py).
-__host__ __device__ inline int tile_smem_bytes(int rows, int dh, int tq) {
-  return 4 * kWarps * rows * (dh + 2) + 4 * tq;
+// (acc, m, l per head) plus the query's int position.
+__host__ __device__ inline int tile_smem_bytes(int g, int dh) {
+  return 4 * kWarps * g * (dh + 2) + 4;
 }
 
-// Addressing policies: the element offset of (page p, position 0, KV head
-// kvh, dim 0).  Positions inside a page are K * dh elements apart.
-// kRagged: whether a page may run past n_pos (checked per position only
-// then).
-struct ContigKV {         // one row (S, K, dh) of a contiguous cache
-  static constexpr bool kRagged = true;
-  long row;               // element offset of the row
-  __device__ __forceinline__ long page(int p, int bs, int K, int kvh,
-                                       int dh) const {
-    return row + ((long)p * bs * K + kvh) * dh;
-  }
-};
-
-// q / out: element (query i, group head h, dim d) at [i * q_stride + h * dh + d].
-// qpos: shared int[tq] absolute positions of the tile's queries, visible to
-// every thread (the caller synchronised after writing them).  Queries
-// i >= nq are the tile's ragged edge: masked and never written.  n_pos is
-// the number of positions the K/V hold (pages * bs for an arena, S for a
-// contiguous row): none at or past it is loaded.
-template <typename T, typename KV>
+// q / out: head h's row at [h * dh + d] (q_stride: the distance between
+// two tokens' rows, H * dh).  qpos: shared int, the query's absolute
+// position (-1: nothing visible, the output is zero), visible to every
+// thread (the caller synchronised after writing it).  k_cache / v_cache:
+// the cache; row_base: the element offset of this row's (S, K, dh);
+// n_pos = S positions, none at or past it is loaded.
+template <typename T>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
-                            long q_stride, int tq, int nq, int g, int dh,
-                            const int* qpos, const T* __restrict__ k_arena,
-                            const T* __restrict__ v_arena, int bs, int K,
-                            int kvh, KV kv, int n_pos, float sm_scale,
-                            int window, float* smem) {
+                            long q_stride, int g, int dh, const int* qpos,
+                            const T* __restrict__ k_cache,
+                            const T* __restrict__ v_cache, int bs, int K,
+                            int kvh, long row_base, int n_pos,
+                            float sm_scale, float* smem) {
+  // The rows are indexed as a tile of tq = 1 query x g heads (row r: query
+  // r / g, head r % g, live while the query is < nq).  Folded by hand to
+  // one query (q[r * dh], every r < g live) the kernel ran 1.3x (f32) to
+  // 1.9x (bf16) slower on the H100: nvcc schedules the position loop
+  // differently.
+  constexpr int tq = 1, nq = 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rows = tq * g;
 
@@ -113,30 +98,24 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     }
   }
 
-  // page range: up to the page of the largest position (the loop bound is
-  // the page-skip), and from the first page inside the window
-  int lo = 0x7fffffff, hi = -1;
-  for (int i = 0; i < nq; ++i) {
-    lo = min(lo, qpos[i]);
-    hi = max(hi, qpos[i]);
-  }
-  const int first = window > 0 ? max(lo - window + 1, 0) / bs : 0;
+  // pages up to the one that holds the query's position (the page-skip)
+  const int hi = qpos[0];
   const int last = hi < 0 ? -1 : min(hi, n_pos - 1) / bs;
-  const long pos_stride = (long)K * dh;    // between positions of a block
+  const long pos_stride = (long)K * dh;    // between positions of a page
 
-  for (int p = first + warp; p <= last; p += kWarps) {
-    const long base = kv.page(p, bs, K, kvh, dh);
+  for (int p = warp; p <= last; p += kWarps) {
+    const long base = row_base + ((long)p * bs * K + kvh) * dh;
     for (int t0 = 0; t0 < bs; t0 += kGroup) {
       float kx[kGroup][kMaxDimsPerLane], vx[kGroup][kMaxDimsPerLane];
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
-        const bool held = !KV::kRagged || p * bs + t0 + u < n_pos;
+        const bool held = p * bs + t0 + u < n_pos;
 #pragma unroll
         for (int j = 0; j < kMaxDimsPerLane; ++j) {
           const int d = lane + 32 * j;
           const long off = base + (t0 + u) * pos_stride + d;
-          kx[u][j] = held && d < dh ? to_float(k_arena[off]) : 0.f;
-          vx[u][j] = held && d < dh ? to_float(v_arena[off]) : 0.f;
+          kx[u][j] = held && d < dh ? to_float(k_cache[off]) : 0.f;
+          vx[u][j] = held && d < dh ? to_float(v_cache[off]) : 0.f;
         }
       }
 #pragma unroll
@@ -151,9 +130,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
           for (int j = 0; j < kMaxDimsPerLane; ++j) part += qr[r][j] * kx[u][j];
           part = warp_sum(part);
           const int kpos = p * bs + t0 + u;
-          const bool ok = kpos <= rpos[r] &&
-                          (!KV::kRagged || kpos < n_pos) &&
-                          (window <= 0 || rpos[r] - kpos < window);
+          const bool ok = kpos <= rpos[r] && kpos < n_pos;
           s[u] = ok ? part * sm_scale : -INFINITY;
           mx = fmaxf(mx, s[u]);
         }
@@ -198,8 +175,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   }
   __syncthreads();
   for (int e = threadIdx.x; e < rows * dh; e += kThreads) {
-    const int r = e / dh, d = e % dh, i = r / g, h = r % g;
-    if (i >= nq) continue;
+    const int r = e / dh, d = e % dh;
     float M = -INFINITY;
     for (int w = 0; w < kWarps; ++w) M = fmaxf(M, s_m[w * rows + r]);
     float o = 0.f;
@@ -212,7 +188,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       }
       o = O / fmaxf(L, 1e-30f);
     }
-    out[(long)i * q_stride + h * dh + d] = from_float<T>(o);
+    out[r * dh + d] = from_float<T>(o);
   }
 }
 

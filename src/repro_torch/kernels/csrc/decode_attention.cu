@@ -43,10 +43,9 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) qpos[0] = lengths[row * len_stride] - 1;
   __syncthreads();
   const long off = (long)row * H * dh + (long)kvh * g * dh;
-  attend_rows<T>(q + off, out + off, (long)H * dh, /*tq=*/1, /*nq=*/1, g, dh,
-                 qpos, k_cache, v_cache, kContigPage, K, kvh,
-                 ContigKV{(long)row * S * K * dh}, S, sm_scale,
-                 /*window=*/0, smem);
+  attend_rows<T>(q + off, out + off, (long)H * dh, g, dh, qpos, k_cache,
+                 v_cache, kContigPage, K, kvh, (long)row * S * K * dh, S,
+                 sm_scale, smem);
 }
 
 void launch_decode(bool bf16, const void* q, const void* k_cache,
@@ -54,7 +53,7 @@ void launch_decode(bool bf16, const void* q, const void* k_cache,
                    void* out, int b, int H, int K, int dh, int S,
                    float sm_scale, cudaStream_t stream) {
   const dim3 grid(b, K);
-  const size_t smem = tile_smem_bytes(H / K, dh, 1);
+  const size_t smem = tile_smem_bytes(H / K, dh);
   if (bf16) {
     using T = __nv_bfloat16;
     decode_kernel<T><<<grid, kThreads, smem, stream>>>(

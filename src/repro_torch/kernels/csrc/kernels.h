@@ -17,7 +17,8 @@ namespace repro_torch {
 // Decode: q (b, H, dh); arenas (n_blocks, bs, K, dh); tables (b, n_pages)
 // i32; lengths (b,) i32; out (b, H, dh).  Groups: b * K, of g = H / K <= 8
 // rows; splits balanced over `ctas` CTAs in all.  counters: b * K ints, 0
-// before the launch and after it.
+// before the launch and after it, used by no launch that may overlap this
+// one.
 cudaError_t launch_paged_decode(bool bf16, const void* q, const void* k_arena,
                                 const void* v_arena, const int* tables,
                                 const int* lengths, void* out, float* part,

@@ -35,7 +35,8 @@
 //     thread) keep ~48 KB in flight.  Positions past the row's length are
 //     zero-filled and masked.  (On the H100 two stages read as fast as
 //     three or four, or faster, and 32-position tiles slower:
-//     scripts/paged_decode_variants.py.)
+//     scripts/paged_decode_variants.py builds the kernel with other
+//     REPRO_DEC_* settings below.)
 //   * Compute: warp w takes positions w, w + 4, ... of each staged tile; a
 //     lane holds 4 dims of each of the g query rows (registers for G >= g
 //     rows, G a power of two: kMaxRows arrays cost 40 more registers a
@@ -54,10 +55,24 @@
 
 namespace repro_torch {
 
+// Compile-time settings, overridden with -D only by
+// scripts/paged_decode_variants.py: positions per stage, stages of the
+// ring, and whether the scores, softmax and P.V run at all (0: only the
+// staging, the partials and the merge — wrong results by design)
+#ifndef REPRO_DEC_TILE
+#define REPRO_DEC_TILE 16
+#endif
+#ifndef REPRO_DEC_STAGES
+#define REPRO_DEC_STAGES 2
+#endif
+#ifndef REPRO_DEC_COMPUTE
+#define REPRO_DEC_COMPUTE 1
+#endif
+
 constexpr int kDecWarps = 4;
 constexpr int kDecThreads = 32 * kDecWarps;
-constexpr int kDecTile = 16;                     // positions per stage
-constexpr int kDecStages = 2;
+constexpr int kDecTile = REPRO_DEC_TILE;         // positions per stage
+constexpr int kDecStages = REPRO_DEC_STAGES;
 constexpr int kDecPerWarp = kDecTile / kDecWarps;
 constexpr int kDecMaxSmem = 96 * 1024;           // the limit the launch sets
 
@@ -216,7 +231,7 @@ __global__ void __launch_bounds__(kDecThreads)
     const int base = p0 + t * kDecTile;
 #pragma unroll
     for (int r = 0; r < G; ++r) {
-      if (r >= g) break;
+      if (r >= g || !REPRO_DEC_COMPUTE) break;
       float s[kDecPerWarp], mx = -INFINITY;
 #pragma unroll
       for (int u = 0; u < kDecPerWarp; ++u) {

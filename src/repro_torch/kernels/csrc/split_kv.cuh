@@ -20,9 +20,15 @@
 // nothing and are not read.
 //   * Decode merges in the CTA that arrives last at its (row, KV head),
 //     counted by an arrival counter that this CTA sets back to 0, so the
-//     next launch needs no memset: a decode partial is g x dh floats, and a
-//     second kernel would add a launch to a step bound by the host's
-//     enqueue.
+//     next launch needs no memset.  A decode partial is g x dh floats; the
+//     prefill's merge kernel, launched as a programmatic dependent, made
+//     every decode launch 1-3 us slower on the H100 (b = 8 f32 0.0470
+//     against 0.0457 ms, b = 1 bf16 0.0168 against 0.0141: the dependent
+//     grid waits for the whole main grid to finish).  Launches that may
+//     overlap must not share counters: the wrapper keeps one buffer per
+//     stream (kernels/_build.py counters), and a CUDA graph keeps the
+//     buffer of the stream it was captured on, so two replays of one
+//     graph must not overlap.
 //   * Prefill merges in a second, small kernel launched by the same host
 //     call (paged_prefill.cu): a tile's partial is 64 x dh floats (33 KB at
 //     dh 128), and one CTA reading 16 of them serially took ~20 us on the

@@ -33,7 +33,6 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (4e-3, 1e-2)}
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 LOG2E = 1.4426950408889634
-ROWS = 64            # query rows of a prefill tile (kPfRows)
 KEYS = 64            # keys of a staged prefill block (kPfKeys)
 
 
@@ -401,10 +400,49 @@ def test_split_plan_reads_shapes_only():
             assert ctas == 4 * 132
 
 
-@pytest.mark.parametrize("g,tq", [(1, 64), (2, 32), (3, 21), (8, 8)])
-def test_prefill_tile_holds_64_query_rows(g, tq):
-    """The paged prefill kernel folds queries x group heads into tiles of
-    64 rows, as the contiguous kernel does: qwen3's 32-token chunk at g = 2
-    is one tile."""
-    assert FAT.flash_queries_per_cta(g) == tq
-    assert tq * g <= ROWS < (tq + 1) * g
+def _misaligned(*shape: int) -> torch.Tensor:
+    """A contiguous f32 tensor whose data starts 4 bytes past a 16-byte
+    boundary."""
+    n = math.prod(shape)
+    base = torch.randn(n + 4)
+    off = next(i for i in range(1, 4) if (base.data_ptr() + 4 * i) % 16)
+    return base[off:off + n].view(shape)
+
+
+@pytest.mark.parametrize("fault", ["dh 12", "misaligned q", "misaligned k"])
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def test_paged_wrappers_refuse_what_16_byte_copies_cannot_read(
+        monkeypatch, kernel, fault):
+    """Both split-KV kernels stage q, K and V by cp.async, 16 bytes a
+    thread, so their wrappers refuse a head dim that is not a multiple of
+    8 and a tensor that does not start on a 16-byte boundary, before they
+    build or launch.  The device check is patched out so that the refusal
+    is reached on the CPU."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "on_one_cuda_device", lambda name, ts: None)
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the wrapper reached the build")
+
+    monkeypatch.setattr(_build, "extension", no_build)
+    dh = 12 if fault == "dh 12" else 16
+    H, K, bs, n_blocks = 4, 2, 8, 4
+    q_shape = (2, H, dh) if kernel == "decode" else (6, H, dh)
+    q = (_misaligned(*q_shape) if fault == "misaligned q"
+         else torch.randn(q_shape))
+    arena = (n_blocks, bs, K, dh)
+    ka = _misaligned(*arena) if fault == "misaligned k" else torch.randn(arena)
+    va = torch.randn(arena)
+    before = (PAT.paged_decode_attention.launches,
+              FAT.paged_prefill_attention.launches)
+    with pytest.raises(ValueError, match="divisible by 8 and 16-byte"):
+        if kernel == "decode":
+            PAT.paged_decode_attention(
+                q, ka, va, torch.tensor([[1, 2], [3, 0]], dtype=torch.int32),
+                torch.tensor([9, 3], dtype=torch.int32))
+        else:
+            FAT.paged_prefill_attention(
+                q, ka, va, torch.tensor([2, 1], dtype=torch.int32),
+                torch.arange(6, dtype=torch.int32))
+    assert (PAT.paged_decode_attention.launches,
+            FAT.paged_prefill_attention.launches) == before
