@@ -13,25 +13,29 @@ Phases, each printing its result lines:
    300 positions over 128-page tables) and with rows of 1-40 positions
    (trailing splits empty), and chunked prefill of 32 tokens at n_past 0,
    224 and 992, ragged last chunks and a 256-token window (block 16), in
-   f32 (the engine's arena) and bf16; contiguous decode at
-   batch 1 and 8 over a 2048-position cache; contiguous causal prefill at
-   128 and 1024 tokens, and one with a sliding window; bf16 cases of each;
-   the two contiguous kernels at zamba2's shapes (32 heads of 80, g = 1:
-   prefill of 4 x 4096 tokens, decode at batch 4 over 160 positions); the
-   bf16 contiguous prefill also at a ragged 1000 tokens, with a 256-token
-   window, and at zamba2 SMOKE's widths (4 heads of 16); and the SSD scan
-   at mamba2's and zamba2's full widths, f32 and bf16, batch 1-4, 2048 and
-   4096 positions, and mamba2 at 1 x 32768 (32-column P slices).  Each
-   case prints its time, the plain version's, one
-   ``scaled_dot_product_attention`` call as a yardstick (none computes the
-   scan), and the least time the card could take;
+   f32 (the engine's arena) and bf16; contiguous decode at batch 1 and 8
+   over a 2048-position cache, over S = 2040 (a ragged last page), with a
+   row of length 0 and lengths above S, with one () length shared by
+   every row, and with rows of 1-40 positions, f32 and bf16; contiguous
+   causal prefill at 64, 128, 256, 1000 and 1024 tokens, and one with a
+   sliding window, f32 and bf16; the two contiguous kernels at zamba2's
+   shapes (32 heads of 80, g = 1: prefill of 4 x 4096 tokens, decode at
+   batch 4 over 160 positions) and the prefill at zamba2 SMOKE's widths
+   (4 heads of 16); and the SSD scan at mamba2's and zamba2's full
+   widths, f32 and bf16, batch 1-4, 2048 and 4096 positions, and mamba2
+   at 1 x 32768 (32-column P slices).  Each case prints its time, the
+   plain version's, one ``scaled_dot_product_attention`` call as a
+   yardstick (none computes the scan), and the least time the card could
+   take (for f32 work multiplied as split bf16, also at the CUDA cores'
+   f32 peak);
 3. the paged engine serving 8 requests at the full width of qwen3-1.7b
    (28 layers, bf16 random weights from a seed), with both paged kernels
    counted; then the profiles of one fused 8-step decode dispatch and of
    one prefill chunk at n_past 992;
 4. the slotted engine (the default layout) serving the same 8 requests at
    full width with f32 weights (the layout serves f32 models only), with
-   both contiguous kernels counted;
+   both contiguous kernels counted; then the profiles of one decode step
+   and of one 1024-token prefill;
 5. Clover's real-mode control loop (``repro_torch.launch.serve --mode
    real``) on the card: annealing over configuration graphs of the SMOKE
    ladder on measured latencies;
@@ -49,8 +53,10 @@ Phases, each printing its result lines:
    logits and greedy tokens;
 10. the ``kernels`` line: every ported kernel with its launches on the main
    path that runs it (phase 3 for the paged kernels, phase 4 for the
-   contiguous decode, phase 7 for the scan, phase 8's forward for the
-   contiguous prefill, whose record is that forward's bf16 shape).
+   contiguous decode and the f32 contiguous prefill, whose record is the
+   slotted serve's 1024-token shape, phase 7 for the scan, phase 8's
+   forward for the bf16 contiguous prefill, whose record is that
+   forward's shape).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is ``{"ok": true, "device": {...}}``.
@@ -75,7 +81,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12,
               "float32 as split bf16": 989e12 / 3}
-SPLIT_BF16 = ("paged_prefill_attention", "ssd_chunked")
+SPLIT_BF16 = ("paged_prefill_attention", "flash_attention", "ssd_chunked")
 # (atol, rtol) of a kernel against its plain version: f32 differs in the
 # order of its sums; both accumulate bf16 inputs in f32, so a bf16 output
 # differs by about one bf16 rounding of the output (relative 2**-8); the
@@ -117,13 +123,15 @@ def _time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(n_bytes: float, n_ops: float, dtype: str, name: str):
+def _bound_ms(n_bytes: float, n_ops: float, dtype: str, name: str,
+              rate: str = ""):
     """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
     rate and the operations over the peak for the kernel ``name``'s
-    inputs of type ``dtype``."""
+    inputs of type ``dtype`` (or over ``PEAK_OPS_S[rate]``)."""
     split = dtype == "float32" and name in SPLIT_BF16
     t_bytes = n_bytes / HBM_BYTES_S
-    t_ops = n_ops / PEAK_OPS_S["float32 as split bf16" if split else dtype]
+    t_ops = n_ops / PEAK_OPS_S[rate or ("float32 as split bf16" if split
+                                        else dtype)]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -231,16 +239,17 @@ def _sdpa_prefill(q, ka, va, table, pos, window: int = 0):
 
 
 def _contig_decode_case(b: int, dtype, seed: int, S: int = 2048, K: int = 8,
-                        g: int = 2, dh: int = 128, shared: bool = False):
+                        g: int = 2, dh: int = 128, lengths=None):
     """Random slotted-decode inputs: one layer's (b, S, K, dh) caches with
-    per-row lengths drawn up to S, one row at S; with ``shared``, the one
-    length S for every row (the generic decode step's scalar position)."""
+    per-row lengths drawn up to S, one row at S; or the given ``lengths``:
+    an int is one () length shared by every row (the generic decode step's
+    scalar position), a tuple one length per row."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     torch.manual_seed(seed)
-    lengths = np.int32(S) if shared else rng.integers(1, S + 1, size=b)
-    if not shared:
+    if lengths is None:
+        lengths = rng.integers(1, S + 1, size=b)
         lengths[0] = S
     dev = "cuda"
     q = torch.randn(b, K * g, dh, device=dev).to(dtype)
@@ -290,7 +299,7 @@ def _sdpa_flash(q, k, v, window: int):
 
 # zamba2's shared attention: 32 heads of 80 over 32 KV heads (g = 1); its
 # decode step reads a cache of 128 prompt + 32 new positions at one shared
-# length
+# length (lengths=160 in a case)
 ZAMBA2_ATTN = dict(K=32, g=1, dh=80)
 # zamba2 SMOKE's: 4 heads of 16 over 4 KV heads
 ZAMBA2_SMOKE_ATTN = dict(K=4, g=1, dh=16)
@@ -300,14 +309,20 @@ def phase_kernels() -> dict:
     """Hold every attention kernel against its plain version; returns
     per-kernel records measured at the headline shape of its main path
     (f32: paged decode b=8, paged prefill n_past=992, contiguous decode
-    b=8; bf16: contiguous prefill of 4 x 4096 tokens at zamba2's widths,
-    the hybrid forward's).  The split-KV paged kernels also run at the
-    serve's decode step, with empty splits and length 1, on ragged chunks
-    and with a window, in both types.  The contiguous kernels run at zamba2's shapes
-    (``ZAMBA2_ATTN``) as the hybrid phase gives them: prefill of 4 prompts
-    of 4096 tokens, decode at batch 4 over 160 positions; the bf16
-    tensor-core prefill also at a ragged 1000 tokens, with a window, and
-    at zamba2 SMOKE's head dim 16."""
+    b=8, contiguous prefill of qwen3's 1024 tokens, the slotted serve's;
+    bf16: contiguous prefill of 4 x 4096 tokens at zamba2's widths, the
+    hybrid forward's).  The split-KV paged kernels also run at the serve's
+    decode step, with empty splits and length 1, on ragged chunks and with
+    a window, in both types.  The split-KV contiguous decode also runs
+    over S = 2040 (a ragged last page), with a row of length 0 (held to
+    zero, the wrapper's contract, where the plain version averages V), a
+    length above S, one () length shared by every row, and rows of 1-40
+    positions (empty trailing splits), in both types.  The contiguous
+    kernels run at zamba2's shapes (``ZAMBA2_ATTN``) as the hybrid phase
+    gives them: prefill of 4 prompts of 4096 tokens, decode at batch 4
+    over 160 positions; the tensor-core prefill also at the slotted
+    serve's other buckets (64, 256 tokens; f32), a ragged 1000 tokens,
+    with a window, and at zamba2 SMOKE's head dim 16, in both types."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
@@ -326,8 +341,22 @@ def phase_kernels() -> dict:
                 for d in (bf16, f32)]
              + [("flash", (1000, 0), bf16), ("flash", (1024, 256), bf16),
                 ("flash", (200, 0), bf16, dict(ZAMBA2_SMOKE_ATTN, b=2))]
-             + [("contig_decode", 4, d, dict(ZAMBA2_ATTN, S=160, shared=True))
+             + [("contig_decode", 4, d, dict(ZAMBA2_ATTN, S=160, lengths=160))
                 for d in (bf16, f32)]
+             # the split-KV contiguous decode: a ragged last page (S =
+             # 2040), a row of length 0 and lengths above S, one () length
+             # shared by every row (the serve's longest row), rows whose
+             # trailing splits are empty (lengths 1-40)
+             + [("contig_decode", 8, d, shape) for d in (f32, bf16)
+                for shape in (dict(S=2040),
+                              dict(S=2040, lengths=(0, 2041, 1000, 2040, 17,
+                                                    4096, 1, 2039)),
+                              dict(lengths=1055),
+                              dict(lengths=(1, 40, 17, 2, 33, 16, 5, 24)))]
+             # the f32 tensor-core prefill at the slotted serve's other
+             # buckets, ragged, and at zamba2 SMOKE's head dim 16
+             + [("flash", (sq, 0), f32) for sq in (64, 256, 1000)]
+             + [("flash", (200, 0), f32, dict(ZAMBA2_SMOKE_ATTN, b=2))]
              # the split-KV paged kernels: the serve's decode step (300
              # positions a row over 128-page tables), rows whose trailing
              # splits are empty (lengths 1-40), bf16 at batch 1; prefill
@@ -337,14 +366,20 @@ def phase_kernels() -> dict:
              + [("decode", 8, d, dict(lengths=(1, 40, 17, 2, 33, 16, 5, 24)))
                 for d in (f32, bf16)]
              + [("decode", 1, bf16)]
+             # a group of one query row (zamba2's widths): odd partials
+             + [("decode", 4, f32, dict(ZAMBA2_ATTN, max_len=160))]
              + [("prefill", n, bf16) for n in (0, 224)]
              + [("prefill", n, d, dict(true_c=c)) for d in (f32, bf16)
                 for n, c in ((0, 5), (992, 7))]
              + [("prefill", 992, d, dict(window=256)) for d in (f32, bf16)])
-    headlines = {("decode", 8, "float32", ()), ("prefill", 992, "float32", ()),
-                 ("contig_decode", 8, "float32", ()),
+    # the case whose numbers each record of the kernels line carries
+    headlines = {("decode", 8, "float32", ()): "paged_decode_attention",
+                 ("prefill", 992, "float32", ()): "paged_prefill_attention",
+                 ("contig_decode", 8, "float32", ()): "decode_attention",
                  ("flash", (4096, 0), "bfloat16",
-                  tuple(sorted(dict(ZAMBA2_ATTN, b=4).items())))}
+                  tuple(sorted(dict(ZAMBA2_ATTN, b=4).items()))):
+                     "flash_attention",
+                 ("flash", (1024, 0), "float32", ()): "flash_attention_f32"}
     for i, (kind, arg, dtype, *shape) in enumerate(cases):
         shape = dict(shape[0]) if shape else {}
         dname = str(dtype).replace("torch.", "")
@@ -379,7 +414,17 @@ def phase_kernels() -> dict:
             n_ops = 4 * int(ln.sum()) * H * dh
             name, label = "decode_attention", f"b={arg}"
             if shape:
-                label += f" S={kc.shape[1]} H={H} dh={dh} shared length"
+                given = tuple(int(x) for x in lengths.reshape(-1).cpu())
+                label += (f" S={kc.shape[1]} H={H} dh={dh} lengths "
+                          f"{'shared ' if lengths.dim() == 0 else ''}"
+                          f"{given if lengths.dim() else given[0]}")
+            if bool((ln == 0).any()):
+                # a row of length 0 comes back zero (the wrapper's
+                # contract); the plain version, like the reference's
+                # -1e30 mask, averages V over the row
+                zero = (ln == 0).to(q.device)
+                plain = lambda a=args, z=zero: REF.decode_attention_ref(
+                    *a).masked_fill(z[:, None, None], 0)
         elif kind == "flash":
             sq, window = arg
             args = _flash_case(sq, dtype, seed=i, **shape)
@@ -439,10 +484,17 @@ def phase_kernels() -> dict:
         print(f"kernel {name} {label} {dname}: max_abs_err {err:.3g} "
               f"(atol {atol} rtol {rtol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+        if dname == "float32" and name in SPLIT_BF16:
+            # the same work at the CUDA cores' f32 peak, the rate of a
+            # kernel that multiplies f32 outside the tensor cores
+            cc_ms, cc_by = _bound_ms(n_bytes, n_ops, dname, name, "float32")
+            print(f"kernel {name} {label} {dname}: bound_ms at the CUDA "
+                  f"cores' f32 peak {cc_ms:.5f} ({cc_by})")
         if key in headlines:
-            records[name] = {"max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by, "library_ms": lib_ms}
+            records[headlines[key]] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
     return records
 
 
@@ -580,7 +632,8 @@ def _device_profile(fn, steps: int, t_wall: float, parts: dict) -> str:
         return sum(e.self_device_time_total for e in dev
                    if pick(e.key)) / steps / 1e3
 
-    part_s = ", ".join(f"{label} {part_ms(pick):.3f} ms"
+    part_s = ", ".join(f"{label} {part_ms(pick):.3f} ms = "
+                       f"{part_ms(pick) * steps * 1e3 / busy_us:.3f} of busy"
                        for label, pick in parts.items())
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     top_s = "; ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f}"
@@ -702,7 +755,7 @@ def phase_serve() -> dict:
     t_wall = time.perf_counter() - t
     device = _device_profile(dispatch, 8, t_wall, {
         "attention kernel (split and merge)":
-            lambda key: "paged_decode" in key})
+            lambda key: "decode_split_kernel" in key and "PagedKV" in key})
     print(f"decode step (batch {B}, {ctx} tokens of context): wall "
           f"{t_wall / 8 * 1e3:.2f} ms, host enqueue "
           f"{t_enqueue / 8 * 1e3:.2f} ms, {device}")
@@ -840,10 +893,30 @@ def phase_slotted_serve() -> dict:
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t
     device = _device_profile(step, 1, t_wall, {
-        "attention kernel":
-            lambda key: "decode_kernel" in key and "paged" not in key})
+        "attention kernel (split and merge)":
+            lambda key: "decode_split_kernel" in key and "ContigKV" in key})
     ctx = int(inst.cache["lengths"].max())
     print(f"slotted decode step (8 slots, up to {ctx} positions): wall "
+          f"{t_wall * 1e3:.2f} ms, host enqueue {t_enqueue * 1e3:.2f} ms, "
+          f"{device}")
+    # one admission's prefill of the serve's longest prompt (1024 tokens,
+    # the largest bucket): wall, host enqueue, device busy and the share
+    # of the f32 tensor-core flash kernel
+    tokens = torch.as_tensor(prompts[1][None], device=inst.device)
+
+    def prefill():
+        return R.prefill_kv(inst.params, {"tokens": tokens})[0]
+
+    prefill()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prefill()
+    t_enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t
+    device = _device_profile(prefill, 1, t_wall, {
+        "flash kernel": lambda key: "flash_tc_kernel" in key})
+    print(f"slotted prefill ({tokens.shape[1]} tokens): wall "
           f"{t_wall * 1e3:.2f} ms, host enqueue {t_enqueue * 1e3:.2f} ms, "
           f"{device}")
     # the logits themselves: finite, of the padded vocab's width
@@ -1074,7 +1147,7 @@ def _forward_run(tag: str, model, b: int, s: int, per_forward: dict,
     del lg
     device = _device_profile(fwd, 1, t_wall, {
         "ssd kernel": lambda key: "ssd_kernel" in key,
-        "flash kernel": lambda key: "flash_" in key and "_kernel" in key})
+        "flash kernel": lambda key: "flash_tc_kernel" in key})
     print(f"{tag} forward {b} x {s}: {b * s / t_wall:.1f} tokens/s, wall "
           f"{t_wall * 1e3:.1f} ms, host enqueue {t_enqueue * 1e3:.1f} ms, "
           f"peak device memory {peak:.2f} GiB; launches {counts}; {device}")
@@ -1167,8 +1240,9 @@ def _greedy_run(tag: str, model, n_prompt: int, n_new: int, per_step: dict,
     device = _device_profile(
         lambda: R.decode_step(model, cache, {"tokens": tok}, cfg), 1,
         t_wall / n_new, {
-            "attention kernel":
-                lambda key: "decode_kernel" in key and "paged" not in key})
+            "attention kernel (split and merge)":
+                lambda key: "decode_split_kernel" in key
+                and "ContigKV" in key})
     print(f"{tag} decode (batch {b}): replay of {n_prompt} prompt tokens "
           f"{t_replay / n_prompt * 1e3:.2f} ms/step; {reading}; {n_new} new "
           f"tokens: wall {t_wall / n_new * 1e3:.2f} ms/step, host enqueue "
@@ -1358,6 +1432,9 @@ KERNELS = (
     ("flash_attention",
      "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:80"),
+    ("flash_attention_f32",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:80"),
     ("ssd_chunked",
      "src/repro_torch/kernels/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:72"),
@@ -1380,7 +1457,7 @@ def main() -> int:
     t2 = time.perf_counter()
     launches = phase_serve()
     t3 = time.perf_counter()
-    launches.update(phase_slotted_serve())
+    slotted = phase_slotted_serve()
     t4 = time.perf_counter()
     phase_clover()
     t5 = time.perf_counter()
@@ -1392,9 +1469,11 @@ def main() -> int:
     t8 = time.perf_counter()
     phase_ssm_parity()
     t9 = time.perf_counter()
-    # the flash record is the hybrid forward's shape (bf16, 4 x 4096, 32
-    # heads of 80), so its launches are that forward's; the slotted serve's
-    # f32 prefill launches are printed in its phase
+    # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
+    # heads of 80) with that forward's launches, and the slotted serve's
+    # f32 prefill (1024 tokens) with the serve's launches
+    launches["decode_attention"] = slotted["decode_attention"]
+    launches["flash_attention_f32"] = slotted["flash_attention"]
     launches["flash_attention"] = hybrid["flash_attention"]
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "

@@ -24,8 +24,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 SOURCES = ("binding.cpp", "paged_attention.cu", "paged_prefill.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
 
-# limits of csrc/attention_tile.cuh and of the paged decode kernel:
-# kMaxRows query rows (the g heads of a group) per CTA, dh <= 128
+# limits of the split-KV decode body (csrc/decode_split.cuh, the paged and
+# the contiguous decode): up to 8 query rows (the g heads of a group) per
+# CTA, dh <= 128
 MAX_ROWS = 8
 MAX_HEAD_DIM = 128
 # the contiguous flash kernel (csrc/flash_attention.cu) and the paged
@@ -76,7 +77,7 @@ def _sm_count(index: int) -> int:
 
 
 def counters(device: torch.device, n: int) -> torch.Tensor:
-    """The paged decode kernel's arrival counters for a launch on
+    """The split-KV decode kernels' arrival counters for a launch on
     ``device``'s current stream: at least ``n`` int32 zeros.  One buffer
     per stream, allocated once (grown when a launch needs more): every
     launch leaves its counters at zero again and launches on one stream

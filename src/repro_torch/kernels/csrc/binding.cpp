@@ -53,14 +53,17 @@ void paged_prefill(const torch::Tensor& q, const torch::Tensor& k_arena,
 
 void decode(const torch::Tensor& q, const torch::Tensor& k_cache,
             const torch::Tensor& v_cache, const torch::Tensor& lengths,
-            torch::Tensor out, double sm_scale) {
+            torch::Tensor out, torch::Tensor part, torch::Tensor counters,
+            int64_t min_pages, int64_t n_split, int64_t ctas,
+            double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
-  repro_torch::launch_decode(
+  C10_CUDA_CHECK(repro_torch::launch_decode(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k_cache.data_ptr(),
       v_cache.data_ptr(), lengths.data_ptr<int>(), lengths.dim() == 0 ? 0 : 1,
-      out.data_ptr(), q.size(0), q.size(1), k_cache.size(2), q.size(2),
-      k_cache.size(1), static_cast<float>(sm_scale),
-      at::cuda::getCurrentCUDAStream());
+      out.data_ptr(), scratch(part), counters.data_ptr<int>(), q.size(0),
+      q.size(1), k_cache.size(2), q.size(2), k_cache.size(1), min_pages,
+      n_split, ctas, static_cast<float>(sm_scale),
+      at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -94,7 +97,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_decode", &paged_decode, "split-KV paged flash-decode (CUDA)");
   m.def("paged_prefill", &paged_prefill,
         "split-KV paged chunked-prefill attention (CUDA)");
-  m.def("decode", &decode, "contiguous flash-decode (CUDA)");
+  m.def("decode", &decode, "split-KV contiguous flash-decode (CUDA)");
   m.def("flash", &flash, "contiguous flash attention (CUDA)");
   m.def("ssd", &ssd, "Mamba2 SSD chunked scan (CUDA)");
 }

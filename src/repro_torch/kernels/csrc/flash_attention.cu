@@ -5,44 +5,66 @@
 // masked blocks.  (Its paged chunked-prefill form is paged_prefill.cu.)
 //
 // Contiguous prefill: a whole prompt, q (b, sq, H, dh) against k, v
-//    (b, skv, K, dh), causal on positions from 0 (q_pos >= kv_pos,
-//    src/repro/models/layers.py blocked_attention with q_offset 0) or
-//    full, with the sliding window when window > 0.  One CTA per (tile of
-//    kFaRows = 64 query rows — 64 / g queries x g heads —, KV head, batch
-//    row) walks K/V blocks of kFaKeys = 64 positions; blocks past the
-//    tile's last query (causal) or before its window are skipped — the
-//    Pallas kernel runs them — and the mask is evaluated only on the
-//    blocks that cross the diagonal, the window's edge or the end of the
-//    keys.  Two bodies, chosen by the dtype alone:
-//    * bf16 (flash_bf16_kernel): tensor cores, mma.sync.m16n8k16 with
-//      bf16 operands and f32 accumulators; each of 4 warps owns 16 rows.
-//      q's fragments stay in registers; K and V blocks are staged by
-//      cp.async into a ring of two stages, so the next block loads while
-//      this one's products run.  S = q k^T for 64 keys is 8 accumulator
-//      tiles; the online softmax (max, rescale, row sums) stays f32 in
-//      registers, reduced over the 4 lanes that share a row; P is rounded
-//      to bf16 straight from the accumulator fragments (their C layout is
-//      the A layout of P . V) — the reference model path's own rounding
-//      (layers.py blocked_attention, p.astype(v.dtype)) — and P . V reads
-//      V with ldmatrix.trans.  The head dim is padded to a multiple of 16
-//      with zeros in shared memory (one instantiation per padded width,
-//      16 .. 128); rows are dh + 8 elements apart, an odd number of
-//      16-byte units, so ldmatrix reads no bank twice.  mma.sync rather
-//      than wgmma: a warp's 16 rows and its softmax state stay in one
-//      warp's registers without warpgroup-wide shared-memory descriptors;
-//      wgmma is later work.
-//    * f32 (flash_f32_kernel): CUDA cores, the reference's precision for
-//      the slotted engine.  Each of 256 threads owns a 4 x 4 tile of
-//      scores and 4 rows x 8 dims of the output; K/V blocks are staged
-//      synchronously (widened once) and reused by all 64 rows.
-//    Bound on the H100: operations — 4 dh flops per visible (query head,
-//    key) pair.  At the hybrid forward's 4 x 4096 tokens, 32 heads of 80,
-//    causal: 344 GFLOP, 0.348 ms at the bf16 tensor-core peak (989
-//    TFLOP/s), against 335 MB of q, k, v and out (0.100 ms at 3.35 TB/s);
-//    in f32 the CUDA cores' 67 TFLOP/s bound it (qwen3's 1024 tokens, 16
-//    heads of 128: 4.3 GFLOP, 64 us).
+// (b, skv, K, dh), causal on positions from 0 (q_pos >= kv_pos,
+// src/repro/models/layers.py blocked_attention with q_offset 0) or full,
+// with the sliding window when window > 0 — the slotted engine's prefill
+// (f32) and the hybrid forward (bf16, and f32 in its f32 replay).
+//
+// Bound on the H100: operations — 4 dh flops per visible (query head, key)
+// pair.  At the hybrid forward's 4 x 4096 tokens, 32 heads of 80, causal:
+// 344 GFLOP, 0.348 ms at the bf16 tensor-core peak (989 TFLOP/s), against
+// 335 MB of q, k, v and out (0.100 ms at 3.35 TB/s).  f32 inputs are
+// multiplied as split bf16 pairs (three bf16 products for each f32 one),
+// so their bound is the work at 989/3 TFLOP/s: qwen3's 1024-token slotted
+// prefill, 16 heads of 128, 4.3 GFLOP, 13 us (64 us at the CUDA cores' 67
+// TFLOP/s, the rate the previous f32 body was held to).
+//
+// Design: one body (flash_tc_kernel<T, DP>) for both input types.
+//   * Tiles.  One CTA per (tile of kFaRows = 64 query rows — 64 / g
+//     queries x g heads —, KV head, batch row); 4 warps own 16 rows each.
+//     Causal tiles are taken heaviest first (the last queries see the most
+//     keys), so the card's last wave is of short tiles.  The CTA walks K/V
+//     blocks of kFaKeys = 64 positions; blocks past the tile's last query
+//     (causal) or before its window are skipped — the Pallas kernel runs
+//     them — and the mask is evaluated only on the blocks that cross the
+//     diagonal, the window's edge or the end of the keys.
+//   * Products on the tensor cores: S = q k^T and P . V as
+//     mma.sync.m16n8k16 with f32 accumulators; the online softmax (max,
+//     rescale, row sums; scores in log2 units) stays f32 in registers,
+//     reduced over the 4 lanes that share a row, and P goes from the score
+//     fragments (their C layout is the A layout of P . V) straight into
+//     registers.
+//       - bf16 inputs: q's fragments stay in registers; K and V blocks are
+//         staged by cp.async into a ring of two stages, so the next block
+//         loads while this one's products run; one product each, P rounded
+//         to bf16 — the reference model path's own rounding (layers.py
+//         blocked_attention, p.astype(v.dtype)) — and V read with
+//         ldmatrix.trans.
+//       - f32 inputs: every operand — q, K, V and P — is split into a bf16
+//         pair (split_bf16) and each product is hi.hi + hi.lo + lo.hi,
+//         keeping ~16 bits of each f32 operand (a single bf16 rounding
+//         would not hold f32's 1e-4).  The layout and the helpers are the
+//         paged prefill's (mma_tile.cuh TileSmem, split_rows,
+//         split_frag_a): one f32 stage of K and V, filled by cp.async, is
+//         split once per block into bf16 hi / lo tiles read by ldmatrix,
+//         then refilled with the next block while this one's products run;
+//         q is split at the fragment.  Three products make a block's chain
+//         of dependent mma.sync three times the bf16 one, and a causal
+//         prompt's time is that of its last tile's blocks in a row (the
+//         grid of a 1024-token prompt fits the card at once).  So the f32
+//         CTA has 8 warps: two per 16 rows, each scoring half of every
+//         block's keys with its own online softmax, the two halves' states
+//         merged in shared memory at the end — half the chain per block,
+//         and the split shared by 256 threads.
+//   * The head dim is padded to a multiple of 16 with zeros in shared
+//     memory (one instantiation per padded width, 16 .. 128).  mma.sync
+//     rather than wgmma: a warp's 16 rows and its softmax state stay in one
+//     warp's registers without warpgroup-wide shared-memory descriptors;
+//     wgmma is later work.
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "kernels.h"
 #include "mma_tile.cuh"
@@ -51,256 +73,88 @@ namespace repro_torch {
 
 constexpr int kFaRows = 64;       // query rows per CTA (queries x group heads)
 constexpr int kFaKeys = 64;       // key positions per staged K/V block
-constexpr int kFaThreads = 256;   // 16 x 16 threads: ty owns rows, tx keys/dims
 
-// Shared memory of a CTA: q rows and V rows padded to dh + 4 floats, and
-// the K block, whose space then holds the probabilities [kFaRows][kFaKeys+4].
-__host__ __device__ inline int flash_smem_bytes(int dh) {
-  const int ds = dh + 4;
-  const int kp = kFaKeys * ds > kFaRows * (kFaKeys + 4) ? kFaKeys * ds
-                                                        : kFaRows * (kFaKeys + 4);
-  return 4 * (kFaRows * ds + kp + kFaKeys * ds);
-}
+// Warps of a CTA: 4 own 16 rows each (bf16); f32 doubles them, each pair of
+// warps of a 16-row slice splitting a block's keys in halves
+template <typename T>
+struct FaWarps {
+  static constexpr int value = std::is_same<T, float>::value ? 8 : 4;
+};
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__global__ void __launch_bounds__(kFaThreads, 2)
-    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     int sq, int skv, int H, int K, int dh, int tq,
-                     int causal, int window, float sm_scale) {
-  extern __shared__ __align__(16) float fsm[];
-  const int g = H / K, rows = tq * g;
-  const int q0 = blockIdx.x * tq, kvh = blockIdx.y, bi = blockIdx.z;
-  const int nq = min(tq, sq - q0);
-  const int ds = dh + 4, d4 = dh >> 2, ps = kFaKeys + 4;
-  float* Qs = fsm;                                   // [kFaRows][ds]
-  float* Ks = Qs + kFaRows * ds;                     // [kFaKeys][ds]
-  float* Ps = Ks;                                    // [kFaRows][ps], later
-  float* Vs = Ks + max(kFaKeys * ds, kFaRows * ps);  // [kFaKeys][ds]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  // the tile's q rows: row r is query q0 + r / g, head kvh * g + r % g
-  for (int e = tid; e < kFaRows * d4; e += kFaThreads) {
-    const int r = e / d4, d = (e % d4) * 4, i = r / g;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && i < nq)
-      x = load4(q + (((long)bi * sq + q0 + i) * H + kvh * g + r % g) * dh + d);
-    *reinterpret_cast<float4*>(Qs + r * ds + d) = x;
-  }
-
-  int rq[4];                     // query position of each owned row, -1 dead
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a, i = r / g;
-    rq[a] = r < rows && i < nq ? q0 + i : -1;
-    m[a] = -INFINITY;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
-  }
-
-  // visible key range of the tile: [kv_lo, kv_hi)
-  const int kv_hi = causal ? min(skv, q0 + nq) : skv;
-  const int kv_lo = window > 0 ? max(q0 - window + 1, 0) : 0;
-  for (int kb = kv_lo / kFaKeys * kFaKeys; kb < kv_hi; kb += kFaKeys) {
-    __syncthreads();             // the last block's P and V are consumed
-    for (int e = tid; e < kFaKeys * d4; e += kFaThreads) {
-      const int j = e / d4, d = (e % d4) * 4, pos = kb + j;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (pos < skv) {
-        const long off = (((long)bi * skv + pos) * K + kvh) * dh + d;
-        kx = load4(k + off);
-        vx = load4(v + off);
-      }
-      *reinterpret_cast<float4*>(Ks + j * ds + d) = kx;
-      *reinterpret_cast<float4*>(Vs + j * ds + d) = vx;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-    for (int d = 0; d < dh; d += 4) {
-      float4 qa[4], kc[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qa[a] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * a) * ds + d);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kc[c] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * c) * ds + d);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] += dot4(qa[a], kc[c]);
-    }
-
-    // mask, then fold the block into each row's online softmax
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = kb + tx + 16 * c;
-        const bool ok = rq[a] >= 0 && kpos < skv &&
-                        (!causal || kpos <= rq[a]) &&
-                        (window <= 0 || rq[a] - kpos < window);
-        s[a][c] = ok ? s[a][c] * sm_scale : -INFINITY;
-        mx = fmaxf(mx, s[a][c]);
-      }
-      const float m_new = fmaxf(m[a], group16_max(mx));
-      const float alpha = m_new == -INFINITY ? 1.f : expf(m[a] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[a][c] = m_new == -INFINITY ? 0.f : expf(s[a][c] - m_new);
-        psum += s[a][c];
-      }
-      l[a] = l[a] * alpha + group16_sum(psum);
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[a][c] *= alpha;
-    }
-    __syncthreads();             // every thread is done reading the K block
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) Ps[(ty + 16 * a) * ps + tx + 16 * c] = s[a][c];
-    __syncthreads();
-
-    // acc += P V: dims 4 tx .. 4 tx + 3 and 64 + 4 tx .. 64 + 4 tx + 3
-    const bool lo = 4 * tx < dh, hi = 64 + 4 * tx < dh;
-    for (int j = 0; j < kFaKeys; j += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        pa[a] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * a) * ps + j);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vr = Vs + (j + u) * ds;
-        const float4 v0 = lo ? *reinterpret_cast<const float4*>(vr + 4 * tx)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 v1 = hi ? *reinterpret_cast<const float4*>(vr + 64 + 4 * tx)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float p = u == 0 ? pa[a].x : u == 1 ? pa[a].y
-                        : u == 2 ? pa[a].z : pa[a].w;
-          acc[a][0] += p * v0.x;
-          acc[a][1] += p * v0.y;
-          acc[a][2] += p * v0.z;
-          acc[a][3] += p * v0.w;
-          acc[a][4] += p * v1.x;
-          acc[a][5] += p * v1.y;
-          acc[a][6] += p * v1.z;
-          acc[a][7] += p * v1.w;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    if (rq[a] < 0) continue;
-    const int r = ty + 16 * a;
-    const float inv = 1.f / fmaxf(l[a], 1e-30f);
-    float* o = out + (((long)bi * sq + rq[a]) * H + kvh * g + r % g) * dh;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int d = (c < 4 ? 4 * tx : 64 + 4 * tx) + (c & 3);
-      if (d < dh) o[d] = acc[a][c] * inv;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 body (tensor cores, mma.sync.m16n8k16)
-// ---------------------------------------------------------------------------
-constexpr int kFbWarps = 4;                 // a warp owns 16 of the 64 rows
-constexpr int kFbThreads = 32 * kFbWarps;
-
-// Shared memory (bf16) of the tensor-core body at padded head dim DP: the
-// tile's q rows and two stages of the K and V blocks, each row DP + 8
-// elements long (an odd number of 16-byte units: ldmatrix reads of 8 rows
-// hit 8 distinct bank groups).
-__host__ __device__ constexpr int flash_bf16_smem_bytes(int DP) {
-  return 2 * (DP + 8) * (kFaRows + 2 * 2 * kFaKeys);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kFbThreads)
-    flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out, int sq, int skv, int H,
-                      int K, int dh, int tq, int causal, int window,
-                      float sm_scale, int vec) {
-  constexpr int LD = DP + 8;                // row stride in elements
+template <typename T, int DP>
+__global__ void __launch_bounds__(32 * FaWarps<T>::value)
+    flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out, int sq,
+                    int skv, int H, int K, int dh, int tq, int causal,
+                    int window, float sm_scale, int vec) {
+  using S = TileSmem<T, DP, kFaRows, kFaKeys>;
+  using bf16 = __nv_bfloat16;
+  constexpr bool kF32 = S::kF32;
+  constexpr int LB = S::LB, LS = S::LS;
+  constexpr int kThreads = 32 * FaWarps<T>::value;
+  constexpr int kHalves = FaWarps<T>::value / 4;   // parts of a block's keys
+  constexpr int NK = 8 / kHalves;           // 8-key tiles a warp scores
   constexpr int NT = DP / 8;                // 8-wide tiles of the output
   constexpr int KS = DP / 16;               // 16-deep slices of q . k
-  extern __shared__ __align__(16) __nv_bfloat16 fbs[];
-  __nv_bfloat16* Qs = fbs;                                // [kFaRows][LD]
-  __nv_bfloat16* KVs = Qs + kFaRows * LD;                 // [2][K, V][kFaKeys][LD]
+  extern __shared__ __align__(16) unsigned char fsm[];
+  T* Qs = reinterpret_cast<T*>(fsm);                    // [kFaRows][LB]
+  unsigned char* stage0 = fsm + S::kQ;                  // staged K, V
+  // f32: the split hi / lo of the staged K and V, which the products read
+  bf16* KVsplit = reinterpret_cast<bf16*>(stage0 + S::kStage);
   const int g = H / K, rows = tq * g;
-  const int q0 = blockIdx.x * tq, kvh = blockIdx.y, bi = blockIdx.z;
+  // causal tiles heaviest first
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = tile * tq, kvh = blockIdx.y, bi = blockIdx.z;
   const int nq = min(tq, sq - q0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warp's 16 rows, and its first key of each block (compile-time 0
+  // with one warp a row slice: a runtime offset in the ldmatrix addresses
+  // made the bf16 body slower on the H100)
+  const int rw = kHalves == 2 ? warp & 3 : warp;
+  const int key0 = kHalves == 2 ? (warp >> 2) * 8 * NK : 0;
   const int gr = lane >> 2, t4 = lane & 3;  // fragment row and column pair
 
-  // zero the padded columns dh .. DP - 1 of every row once: the copies
-  // below never write them
+  // zero the padded columns dh .. DP - 1 once: the copies below never
+  // write them
   if (dh < DP) {
     const int pad = DP - dh;
-    for (int e = tid; e < (kFaRows + 4 * kFaKeys) * pad; e += kFbThreads)
-      Qs[(e / pad) * LD + dh + e % pad] = __float2bfloat16(0.f);
+    for (int e = tid; e < kFaRows * pad; e += kThreads)
+      Qs[(e / pad) * LB + dh + e % pad] = from_float<T>(0.f);
+    // bf16: K, V of two stages; f32: K hi, K lo, V hi, V lo
+    bf16* kv = kF32 ? KVsplit : reinterpret_cast<bf16*>(stage0);
+    for (int e = tid; e < 4 * kFaKeys * pad; e += kThreads)
+      kv[(e / pad) * LB + dh + e % pad] = __float2bfloat16(0.f);
   }
+  // vec elements a copy: 16 bytes, or 8 for bf16 rows that are not
+  // 16-byte aligned
+  auto copy = [&](T* dst, const T* src, bool ok) {
+    if (vec * (int)sizeof(T) == 16)
+      cp_async16(dst, src, ok);
+    else
+      cp_async8(dst, src, ok);
+  };
   const int nch = dh / vec;                 // copies per row
   // the tile's q rows: row r is query q0 + r / g, head kvh * g + r % g
-  for (int e = tid; e < kFaRows * nch; e += kFbThreads) {
+  for (int e = tid; e < kFaRows * nch; e += kThreads) {
     const int r = e / nch, c = (e % nch) * vec, i = r / g;
     const bool ok = r < rows && i < nq;
-    const __nv_bfloat16* src =
-        q + (((long)bi * sq + (ok ? q0 + i : 0)) * H + kvh * g + r % g) * dh + c;
-    if (vec == 8)
-      cp_async16(Qs + r * LD + c, src, ok);
-    else
-      cp_async8(Qs + r * LD + c, src, ok);
+    copy(Qs + r * LB + c,
+         q + (((long)bi * sq + (ok ? q0 + i : 0)) * H + kvh * g + r % g) * dh +
+             c,
+         ok);
   }
-  // K and V rows kb .. kb + 63 into stage st; rows at or past skv are zero
+  // K and V rows kb .. kb + 63 into stage st (f32: the one stage); rows at
+  // or past skv are zero
   auto stage_kv = [&](int st, int kb) {
-    __nv_bfloat16* Ks = KVs + st * 2 * kFaKeys * LD;
-    __nv_bfloat16* Vs = Ks + kFaKeys * LD;
-    for (int e = tid; e < kFaKeys * nch; e += kFbThreads) {
+    constexpr int L = kF32 ? LS : LB;
+    T* Ks = reinterpret_cast<T*>(stage0 + st * S::kStage);
+    T* Vs = Ks + kFaKeys * L;
+    for (int e = tid; e < kFaKeys * nch; e += kThreads) {
       const int j = e / nch, c = (e % nch) * vec, pos = kb + j;
       const bool ok = pos < skv;
       const long off = (((long)bi * skv + (ok ? pos : 0)) * K + kvh) * dh + c;
-      if (vec == 8) {
-        cp_async16(Ks + j * LD + c, k + off, ok);
-        cp_async16(Vs + j * LD + c, v + off, ok);
-      } else {
-        cp_async8(Ks + j * LD + c, k + off, ok);
-        cp_async8(Vs + j * LD + c, v + off, ok);
-      }
+      copy(Ks + j * L + c, k + off, ok);
+      copy(Vs + j * L + c, v + off, ok);
     }
   };
 
@@ -309,7 +163,7 @@ __global__ void __launch_bounds__(kFbThreads)
   int qp[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + gr + 8 * h, i = r / g;
+    const int r = rw * 16 + gr + 8 * h, i = r / g;
     qp[h] = r < rows && i < nq ? q0 + i : -1;
   }
   const int qmin = q0, qmax = q0 + nq - 1;
@@ -323,7 +177,7 @@ __global__ void __launch_bounds__(kFbThreads)
   if (nblk > 0) stage_kv(0, kb0);
   cp_async_commit();                        // group 0: q and the first block
 
-  uint32_t qf[KS][4];
+  uint32_t qf[kF32 ? 1 : KS][4];            // bf16: q's fragments
   float acc[NT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -332,37 +186,73 @@ __global__ void __launch_bounds__(kFbThreads)
 
   for (int it = 0; it < nblk; ++it) {
     const int kb = kb0 + it * kFaKeys;
-    if (it + 1 < nblk) stage_kv((it + 1) & 1, kb + kFaKeys);
-    cp_async_commit();                      // the next block loads meanwhile
-    cp_async_wait<1>();
-    __syncthreads();
-    if (it == 0) {                          // q fragments, kept in registers
+    const bf16 *Kh, *Kl, *Vh, *Vl;
+    if constexpr (kF32) {
+      // stage -> hi / lo, then refill the stage with the next block while
+      // this one's products run
+      cp_async_wait<0>();
+      __syncthreads();
+      split_rows<kFaKeys, LS, LB>(reinterpret_cast<const float*>(stage0),
+                                  KVsplit, 2 * kFaKeys, dh, kThreads);
+      __syncthreads();
+      if (it + 1 < nblk) stage_kv(0, kb + kFaKeys);
+      cp_async_commit();
+      Kh = KVsplit;
+      Kl = Kh + kFaKeys * LB;
+      Vh = Kl + kFaKeys * LB;
+      Vl = Vh + kFaKeys * LB;
+    } else {
+      if (it + 1 < nblk) stage_kv((it + 1) & 1, kb + kFaKeys);
+      cp_async_commit();                    // the next block loads meanwhile
+      cp_async_wait<1>();
+      __syncthreads();
+      if (it == 0) {                        // q fragments, kept in registers
 #pragma unroll
-      for (int s = 0; s < KS; ++s)
-        ldmatrix_x4(qf[s], Qs + (warp * 16 + (lane & 15)) * LD + 16 * s +
-                               (lane >> 4) * 8);
+        for (int s = 0; s < KS; ++s)
+          ldmatrix_x4(qf[s], Qs + (rw * 16 + (lane & 15)) * LB + 16 * s +
+                                 (lane >> 4) * 8);
+      }
+      Kh = reinterpret_cast<const bf16*>(stage0 + (it & 1) * S::kStage);
+      Vh = Kh + kFaKeys * LB;
+      Kl = Vl = nullptr;
     }
-    const __nv_bfloat16* Ks = KVs + (it & 1) * 2 * kFaKeys * LD;
-    const __nv_bfloat16* Vs = Ks + kFaKeys * LD;
 
-    // S = q k^T: 16 rows x 64 keys per warp, 8 tiles of 8 keys
-    float sc[8][4];
+    // S = q k^T: 16 rows x 8 NK keys per warp, NK tiles of 8 keys
+    float sc[NK][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int u = 0; u < 4; ++u) sc[n][u] = 0.f;
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
+      uint32_t qh[4], ql[4];
+      if constexpr (kF32) {
+        split_frag_a(reinterpret_cast<const float*>(Qs), LB, rw * 16, 16 * s,
+                     qh, ql);
+      } else {
 #pragma unroll
-      for (int n = 0; n < 8; n += 2) {
+        for (int i = 0; i < 4; ++i) qh[i] = qf[s][i];
+      }
+#pragma unroll
+      for (int n = 0; n < NK; n += 2) {
         // matrices: keys 8n.. / 8n+8.. x dims 16s.. / 16s+8..
-        uint32_t kf[4];
         const int mi = lane >> 3;
-        ldmatrix_x4(kf, Ks + (8 * n + (mi >> 1) * 8 + (lane & 7)) * LD +
-                            16 * s + (mi & 1) * 8);
+        const int off = (key0 + 8 * n + (mi >> 1) * 8 + (lane & 7)) * LB +
+                        16 * s + (mi & 1) * 8;
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kh + off);
         const uint32_t b0[2] = {kf[0], kf[1]}, b1[2] = {kf[2], kf[3]};
-        mma_bf16(sc[n], qf[s], b0);
-        mma_bf16(sc[n + 1], qf[s], b1);
+        if constexpr (kF32) {
+          uint32_t kfl[4];
+          ldmatrix_x4(kfl, Kl + off);
+          const uint32_t c0[2] = {kfl[0], kfl[1]}, c1[2] = {kfl[2], kfl[3]};
+          mma_bf16(sc[n], qh, c0);
+          mma_bf16(sc[n + 1], qh, c1);
+          mma_bf16(sc[n], ql, b0);
+          mma_bf16(sc[n + 1], ql, b1);
+        }
+        mma_bf16(sc[n], qh, b0);
+        mma_bf16(sc[n + 1], qh, b1);
       }
     }
 
@@ -374,12 +264,12 @@ __global__ void __launch_bounds__(kFbThreads)
     for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           float x = sc[n][2 * h + u] * sl2;
           if (edge) {
-            const int kp = kb + 8 * n + 2 * t4 + u;
+            const int kp = kb + key0 + 8 * n + 2 * t4 + u;
             const bool ok = qp[h] >= 0 && kp < skv &&
                             (!causal || kp <= qp[h]) &&
                             (window <= 0 || qp[h] - kp < window);
@@ -395,7 +285,7 @@ __global__ void __launch_bounds__(kFbThreads)
       const float alpha = exp2f(m[h] - base);
       float ps = 0.f;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const float p = exp2f(sc[n][2 * h + u] - base);
@@ -411,107 +301,173 @@ __global__ void __launch_bounds__(kFbThreads)
       }
     }
 
-    // O += P V: P rounded to bf16 from the score fragments (the C layout
-    // of two 8-key tiles is the A layout of one 16-key slice)
+    // O += P V, P from the score fragments (the C layout of two 8-key
+    // tiles is the A layout of one 16-key slice): rounded to bf16 for bf16
+    // inputs, split into hi / lo for f32
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const uint32_t pf[4] = {pack_bf16(sc[2 * s][0], sc[2 * s][1]),
-                              pack_bf16(sc[2 * s][2], sc[2 * s][3]),
-                              pack_bf16(sc[2 * s + 1][0], sc[2 * s + 1][1]),
-                              pack_bf16(sc[2 * s + 1][2], sc[2 * s + 1][3])};
+    for (int s = 0; s < NK / 2; ++s) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* p = sc[2 * s + (i >> 1)] + 2 * (i & 1);
+        if constexpr (kF32)
+          split_bf16(p[0], p[1], ph[i], pl[i]);
+        else
+          ph[i] = pack_bf16(p[0], p[1]);
+      }
 #pragma unroll
       for (int n = 0; n < NT; n += 2) {
         // matrices: keys 16s.. / 16s+8.. x dims 8n.. / 8n+8.., transposed
-        uint32_t vf[4];
         const int mi = lane >> 3;
-        ldmatrix_x4_trans(vf, Vs + (16 * s + (mi & 1) * 8 + (lane & 7)) * LD +
-                                  8 * n + (mi >> 1) * 8);
+        const int off = (key0 + 16 * s + (mi & 1) * 8 + (lane & 7)) * LB +
+                        8 * n + (mi >> 1) * 8;
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vh + off);
         const uint32_t b0[2] = {vf[0], vf[1]}, b1[2] = {vf[2], vf[3]};
-        mma_bf16(acc[n], pf, b0);
-        mma_bf16(acc[n + 1], pf, b1);
+        if constexpr (kF32) {
+          uint32_t vfl[4];
+          ldmatrix_x4_trans(vfl, Vl + off);
+          const uint32_t c0[2] = {vfl[0], vfl[1]}, c1[2] = {vfl[2], vfl[3]};
+          mma_bf16(acc[n], ph, c0);
+          mma_bf16(acc[n + 1], ph, c1);
+          mma_bf16(acc[n], pl, b0);
+          mma_bf16(acc[n + 1], pl, b1);
+        }
+        mma_bf16(acc[n], ph, b0);
+        mma_bf16(acc[n + 1], ph, b1);
       }
     }
     __syncthreads();                        // this stage is free to refill
   }
   cp_async_wait<0>();
 
+  // the row sums over the 4 lanes of a row
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float lt = l[h];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if constexpr (kHalves == 2) {
+    // the second half's (acc, m, l) meet the first's through shared memory
+    // (the staged K / V are read no more): M = max(m0, m1), each weighted
+    // 2^(m - M), exactly 0 where m is -inf
+    float* xacc = reinterpret_cast<float*>(stage0);       // [kFaRows][LB]
+    float* xm = xacc + kFaRows * LB;                      // [kFaRows]
+    float* xl = xm + kFaRows;                             // [kFaRows]
+    __syncthreads();
+    if (key0 > 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rw * 16 + gr + 8 * h;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<float2*>(xacc + r * LB + 8 * n + 2 * t4) =
+              make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+        if (t4 == 0) {
+          xm[r] = m[h];
+          xl[r] = l[h];
+        }
+      }
+    }
+    __syncthreads();
+    if (key0 > 0) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw * 16 + gr + 8 * h;
+      const float m1 = xm[r], M = fmaxf(m[h], m1);
+      const float base = M == -INFINITY ? 0.f : M;
+      const float c0 = exp2f(m[h] - base), c1 = exp2f(m1 - base);
+      l[h] = l[h] * c0 + xl[r] * c1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 a =
+            *reinterpret_cast<const float2*>(xacc + r * LB + 8 * n + 2 * t4);
+        acc[n][2 * h] = acc[n][2 * h] * c0 + a.x * c1;
+        acc[n][2 * h + 1] = acc[n][2 * h + 1] * c0 + a.y * c1;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
     if (qp[h] < 0) continue;
-    const int r = warp * 16 + gr + 8 * h;
-    const float inv = 1.f / fmaxf(lt, 1e-30f);
-    __nv_bfloat16* o = out + (((long)bi * sq + qp[h]) * H + kvh * g + r % g) * dh;
+    const int r = rw * 16 + gr + 8 * h;
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    T* o = out + (((long)bi * sq + qp[h]) * H + kvh * g + r % g) * dh;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int d = 8 * n + 2 * t4;
-      if (d < dh)
+      if (d >= dh) continue;
+      if constexpr (kF32)
+        *reinterpret_cast<float2*>(o + d) =
+            make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+      else
         *reinterpret_cast<__nv_bfloat162*>(o + d) = __floats2bfloat162_rn(
             acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
     }
   }
 }
 
-template <int DP>
-cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
-                              void* out, int b, int sq, int skv, int H, int K,
-                              int dh, int tq, bool causal, int window,
-                              float sm_scale, cudaStream_t stream) {
-  constexpr int smem = flash_bf16_smem_bytes(DP);
+template <typename T, int DP>
+cudaError_t launch_flash_tc(const void* q, const void* k, const void* v,
+                            void* out, int b, int sq, int skv, int H, int K,
+                            int dh, int tq, bool causal, int window,
+                            float sm_scale, cudaStream_t stream) {
+  constexpr int smem = TileSmem<T, DP, kFaRows, kFaKeys>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  // 16-byte copies where every row start is 16-byte aligned, else 8-byte
-  const bool wide = dh % 8 == 0 &&
+  // 16-byte copies where every row start is 16-byte aligned (always for
+  // f32: the wrapper takes dh % 4 == 0 and 16-byte aligned tensors), else
+  // 8-byte copies of 4 bf16
+  const bool wide = dh * (int)sizeof(T) % 16 == 0 &&
                     ((reinterpret_cast<uintptr_t>(q) |
                       reinterpret_cast<uintptr_t>(k) |
                       reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   const dim3 grid((sq + tq - 1) / tq, K, b);
-  using T = __nv_bfloat16;
-  flash_bf16_kernel<DP><<<grid, kFbThreads, smem, stream>>>(
+  flash_tc_kernel<T, DP><<<grid, 32 * FaWarps<T>::value, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, skv, H, K, dh, tq,
-      causal ? 1 : 0, window, sm_scale, wide ? 8 : 4);
+      causal ? 1 : 0, window, sm_scale, (wide ? 16 : 8) / (int)sizeof(T));
   return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_flash_typed(const void* q, const void* k, const void* v,
+                               void* out, int b, int sq, int skv, int H,
+                               int K, int dh, int tq, bool causal, int window,
+                               float sm_scale, cudaStream_t stream) {
+  // the head dim padded to the tensor cores' depth of 16
+#define REPRO_FLASH(DP)                                                       \
+  case DP / 16:                                                               \
+    return launch_flash_tc<T, DP>(q, k, v, out, b, sq, skv, H, K, dh, tq,     \
+                                  causal, window, sm_scale, stream);
+  switch ((dh + 15) / 16) {
+    REPRO_FLASH(16)
+    REPRO_FLASH(32)
+    REPRO_FLASH(48)
+    REPRO_FLASH(64)
+    REPRO_FLASH(80)
+    REPRO_FLASH(96)
+    REPRO_FLASH(112)
+    REPRO_FLASH(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_FLASH
 }
 
 cudaError_t launch_flash(bool bf16, const void* q, const void* k,
                          const void* v, void* out, int b, int sq, int skv,
                          int H, int K, int dh, int tq, bool causal, int window,
                          float sm_scale, cudaStream_t stream) {
-  if (bf16) {
-    // the head dim padded to the tensor cores' depth of 16
-#define REPRO_FLASH_BF16(DP)                                                  \
-  case DP / 16:                                                               \
-    return launch_flash_bf16<DP>(q, k, v, out, b, sq, skv, H, K, dh, tq,      \
-                                 causal, window, sm_scale, stream);
-    switch ((dh + 15) / 16) {
-      REPRO_FLASH_BF16(16)
-      REPRO_FLASH_BF16(32)
-      REPRO_FLASH_BF16(48)
-      REPRO_FLASH_BF16(64)
-      REPRO_FLASH_BF16(80)
-      REPRO_FLASH_BF16(96)
-      REPRO_FLASH_BF16(112)
-      REPRO_FLASH_BF16(128)
-      default:
-        return cudaErrorInvalidValue;
-    }
-#undef REPRO_FLASH_BF16
-  }
-  const int smem = flash_smem_bytes(dh);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + tq - 1) / tq, K, b);
-  flash_f32_kernel<<<grid, kFaThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, skv, H, K,
-      dh, tq, causal ? 1 : 0, window, sm_scale);
-  return cudaSuccess;
+  if (bf16)
+    return launch_flash_typed<__nv_bfloat16>(q, k, v, out, b, sq, skv, H, K,
+                                             dh, tq, causal, window, sm_scale,
+                                             stream);
+  return launch_flash_typed<float>(q, k, v, out, b, sq, skv, H, K, dh, tq,
+                                   causal, window, sm_scale, stream);
 }
 
 }  // namespace repro_torch

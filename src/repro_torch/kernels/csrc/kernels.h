@@ -7,7 +7,7 @@
 
 namespace repro_torch {
 
-// Split-KV paged attention (split_kv.cuh): n_split CTAs per group of
+// Split-KV attention (split_kv.cuh): n_split CTAs per group of
 // query rows, each split at least min_pages pages; part: f32 scratch of
 // groups * n_split partials of rows * (dh + 2) floats (unused when
 // n_split == 1).  All of q's type (f32 or bf16), dh a multiple of 8,
@@ -39,15 +39,22 @@ cudaError_t launch_paged_prefill(bool bf16, const void* q, const void* k_arena,
                                  float sm_scale, int window,
                                  cudaStream_t stream);
 
-// q (b, H, dh); caches (b, S, K, dh); lengths (b,) i32 (len_stride 1) or
-// one value for every row (len_stride 0); out (b, H, dh).
-void launch_decode(bool bf16, const void* q, const void* k_cache,
-                   const void* v_cache, const int* lengths, int len_stride,
-                   void* out, int b, int H, int K, int dh, int S,
-                   float sm_scale, cudaStream_t stream);
+// Contiguous decode, the same split-KV body as the paged decode: q (b, H,
+// dh); caches (b, S, K, dh), read as pages of 16 positions; lengths (b,)
+// i32 (len_stride 1) or one value for every row (len_stride 0); out (b, H,
+// dh).  Splits, scratch and counters as for the paged decode, planned over
+// cdiv(S, 16) pages.
+cudaError_t launch_decode(bool bf16, const void* q, const void* k_cache,
+                          const void* v_cache, const int* lengths,
+                          int len_stride, void* out, float* part,
+                          int* counters, int b, int H, int K, int dh, int S,
+                          int min_pages, int n_split, int ctas,
+                          float sm_scale, cudaStream_t stream);
 
-// q (b, sq, H, dh); k, v (b, skv, K, dh); out (b, sq, H, dh); tq queries
-// per CTA.  Returns the error of raising the kernel's shared-memory limit.
+// Contiguous flash attention, one tensor-core body for both types: q (b,
+// sq, H, dh); k, v (b, skv, K, dh); out (b, sq, H, dh); tq queries per CTA;
+// dh a multiple of 4, f32 tensors 16-byte aligned and bf16 8-byte aligned.
+// Returns the error of raising the kernel's shared-memory limit.
 cudaError_t launch_flash(bool bf16, const void* q, const void* k,
                          const void* v, void* out, int b, int sq, int skv,
                          int H, int K, int dh, int tq, bool causal, int window,

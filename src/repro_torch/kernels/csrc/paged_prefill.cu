@@ -34,7 +34,8 @@
 //     itself, alongside the positions; q and each K/V block are staged by
 //     cp.async (16 bytes a thread) — bf16 in a ring of two, so the next
 //     block loads while this one's products run; f32 through one f32 stage
-//     that is split into bf16 hi / lo tiles, then refilled with the next
+//     that is split into bf16 hi / lo tiles (split_rows of mma_tile.cuh,
+//     which the contiguous flash body shares), then refilled with the next
 //     block while this one's products run.
 //   * Products.  S = q.K^T and P.V run as mma.sync.m16n8k16 with f32
 //     accumulators, each of 4 warps owning 16 rows; the online softmax
@@ -63,8 +64,6 @@
 //   are never read.
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "kernels.h"
 #include "mma_tile.cuh"
 #include "split_kv.cuh"
@@ -79,24 +78,11 @@ constexpr int kMrgRows = 8;          // rows per CTA of the merge kernel
 constexpr int kMrgThreads = 256;
 constexpr int kMaxSpan = 4096;       // pages of a table (64K positions at 16)
 
-// Shared memory of the main kernel at padded head dim DP.  Rows of bf16
-// tiles read by ldmatrix are DP + 8 elements apart (an odd number of
-// 16-byte units: no bank read twice).
-//   bf16: q [64][DP + 8], then two stages of K and V [64][DP + 8].
-//   f32:  q [64][DP + 8] f32 (float2 fragment reads, conflict-free at that
-//         stride), one f32 stage of K and V [64][DP + 4] filled by
-//         cp.async, and the split bf16 hi and lo of K and V [64][DP + 8].
+// Shared memory of the main kernel at padded head dim DP (mma_tile.cuh):
+// bf16 q and a ring of two K/V stages, or f32 q, one f32 K/V stage and its
+// split bf16 hi / lo tiles.
 template <typename T, int DP>
-struct PfSmem {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int LB = DP + 8;                // bf16 rows, and f32 q
-  static constexpr int LS = DP + 4;                // f32 staging rows
-  static constexpr int kQ = kPfRows * LB * (int)sizeof(T);
-  static constexpr int kStage = kF32 ? 2 * kPfKeys * LS * 4
-                                     : 2 * kPfKeys * LB * 2;
-  static constexpr int kSplit = kF32 ? 4 * kPfKeys * LB * 2 : 0;
-  static constexpr int kBytes = kQ + (kF32 ? 1 : 2) * kStage + kSplit;
-};
+using PfSmem = TileSmem<T, DP, kPfRows, kPfKeys>;
 
 // The tile's keys: visible positions [lo, hi) — up to its largest query
 // position (and at most n_pos), from its smallest's window edge — cut into
@@ -126,20 +112,6 @@ __device__ __forceinline__ TileSplits tile_splits(const int* qpos, int nq,
   t.pps = max(min_pages, (pages + n_split - 1) / n_split);
   t.n_live = max((pages + t.pps - 1) / t.pps, 1);
   return t;
-}
-
-// A fragment of m16n8k16 (rows r0, r0 + 8; columns c0 + 2t, c0 + 2t + 8) of
-// an f32 tile in shared memory, split into bf16 hi and lo pairs
-__device__ __forceinline__ void split_frag_a(const float* tile, int ld,
-                                             int r0, int c0, uint32_t (&hi)[4],
-                                             uint32_t (&lo)[4]) {
-  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = *reinterpret_cast<const float2*>(
-        tile + (r0 + gr + 8 * (i & 1)) * ld + c0 + 2 * t + 8 * (i >> 1));
-    split_bf16(x.x, x.y, hi[i], lo[i]);
-  }
 }
 
 template <typename T, int DP>
@@ -224,23 +196,6 @@ __global__ void __launch_bounds__(kPfThreads)
       cp_async16(Vs + j * L + c, v_arena + off, ok);
     }
   };
-  // f32: the staged K and V split into bf16 hi and lo, [K hi, K lo, V hi,
-  // V lo][64][LB]
-  auto split_kv = [&]() {
-    const float* st = reinterpret_cast<const float*>(stage0);
-    const int d4 = dh / 4;
-    for (int e = tid; e < 2 * kPfKeys * d4; e += kPfThreads) {
-      const int j = e / d4, c = (e - j * d4) * 4;   // j: K rows, then V rows
-      const float4 x = *reinterpret_cast<const float4*>(st + j * LS + c);
-      uint2 h, l;
-      split_bf16(x.x, x.y, h.x, l.x);
-      split_bf16(x.z, x.w, h.y, l.y);
-      bf16* dst = KVsplit + (j >= kPfKeys ? 2 * kPfKeys * LB : 0) +
-                  (j % kPfKeys) * LB + c;
-      *reinterpret_cast<uint2*>(dst) = h;
-      *reinterpret_cast<uint2*>(dst + kPfKeys * LB) = l;
-    }
-  };
 
   // query position of the thread's two rows, -1 past the tile
   int qp[2];
@@ -268,7 +223,8 @@ __global__ void __launch_bounds__(kPfThreads)
       // this one's products run
       cp_async_wait<0>();
       __syncthreads();
-      split_kv();
+      split_rows<kPfKeys, LS, LB>(reinterpret_cast<const float*>(stage0),
+                                  KVsplit, 2 * kPfKeys, dh, kPfThreads);
       __syncthreads();
       if (it + 1 < nblk) stage_kv(0, kb + kPfKeys);
       cp_async_commit();

@@ -1,7 +1,8 @@
 // Split-KV attention (flash-decoding): the partial states of the CTAs that
-// share one group of query rows, and their merge — shared by the paged
-// decode kernel (paged_attention.cu) and the paged chunked-prefill kernel
-// (paged_prefill.cu).
+// share one group of query rows, and their merge — shared by the split-KV
+// decode body (decode_split.cuh: the paged decode of paged_attention.cu
+// and the contiguous decode of decode_attention.cu) and the paged
+// chunked-prefill kernel (paged_prefill.cu).
 //
 // A group is the query rows one CTA holds for one KV head: the g heads of a
 // decode row, or a 64-row tile of a prefill chunk.  Each group gets n_split
@@ -38,14 +39,24 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attention_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace repro_torch {
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSplits = 32;   // splits per group (kernels/paged_attention.py)
 
-// floats of one partial: acc[rows][dh], m[rows], l[rows]
+// floats of one partial: acc[rows][dh], m[rows], l[rows] — a multiple of 4
+// (every partial 16-byte aligned, as the merge's float4 reads need) when
+// rows is even and dh % 4 == 0: the decode lays a group of odd g out as g +
+// 1 rows (decode_split.cuh)
 __host__ __device__ inline long partial_floats(int rows, int dh) {
   return (long)rows * (dh + 2);
 }

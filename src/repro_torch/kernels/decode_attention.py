@@ -5,19 +5,25 @@ reference's Pallas TPU kernel
 
 One new token per batch row attends over the first ``lengths[i]``
 positions of its own row of the slotted cache (one layer's (b, S, K, dh)
-slice of the (L, n_slots, max_len, K, dh) cache).  The kernel runs one CTA
-per (row, KV head) and the routine of ``csrc/attention_tile.cuh``, with
-the row read as pages of 16 positions at
-``row_base + pos·K·dh``: its 8 warps split the pages below
-``min(length, S)``, so the cache tail is never read and S need not be a
-multiple of any block (the Pallas kernel walks every 256-position block and
-asserts ``S % 256 == 0``).
+slice of the (L, n_slots, max_len, K, dh) cache), or of the hybrid decode
+step's cache at one shared position.  The kernel is the split-KV body of
+the paged decode (``csrc/decode_split.cuh``) with a contiguous address: the
+row is read as pages of :data:`CONTIG_PAGE` positions at ``(row·S +
+pos)·K·dh``, the arena's position stride with the identity for a block
+table.  The grid is (n_split, K, b), planned on the host from S alone by
+:func:`~repro_torch.kernels.paged_attention.split_plan` over
+``cdiv(S, 16)`` pages — never from the lengths, so the slotted step stays
+free of host syncs; on the device each row cuts its own valid pages below
+``min(length, S)`` into runs, splits past them return at once, K/V are
+staged by ``cp.async`` 16 bytes a thread, and the CTA that arrives last at
+a (row, KV head) merges the splits' partials (``csrc/split_kv.cuh``).  So
+the cache tail is never read and S need not be a multiple of any block
+(the Pallas kernel walks every 256-position block and asserts ``S % 256 ==
+0``).
 
 What bounds it on the H100: the HBM bytes of each row's visible K/V prefix
-(``4 g dh`` flops per position against ``2 dh`` elements read); the design
-reads every visible position once with coalesced warp loads and several
-positions in flight per warp.  It does not split a row over several CTAs
-yet, so a small batch leaves SMs idle.
+(``4 g dh`` flops per position against ``2 dh`` elements read); the split
+keeps every SM streaming even at a batch of a few rows.
 
 The plain PyTorch version is :func:`~repro_torch.kernels.ref.
 decode_attention_ref`; ``kernels/ops.py`` sends CPU tensors there and CUDA
@@ -30,9 +36,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import DECODE_CTAS_PER_SM, \
+    partial_floats, split_plan
 from repro_torch.kernels.ref import decode_attention_ref
 
-__all__ = ["decode_attention", "decode_attention_ref"]
+__all__ = ["decode_attention", "decode_attention_ref", "CONTIG_PAGE"]
+
+# positions per page of a contiguous row (kContigPage of
+# csrc/decode_split.cuh): the unit of the split plan
+CONTIG_PAGE = 16
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -41,9 +53,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (b, H, dh); caches: (b, S, K, dh), q's type (f32 or bf16), any S;
     lengths: () i32 shared by every row or (b,) i32 per row, **each >= 1**
     (a row of length 0 comes back zero; a length above S sees the whole
-    row).  Scores are q·k * sm_scale (default dh**-0.5).  CUDA tensors
+    row).  dh a multiple of 8, g = H / K at most 8, tensors 16-byte
+    aligned.  Scores are q·k * sm_scale (default dh**-0.5).  CUDA tensors
     only; returns (b, H, dh) in q's type."""
-    _build.check_inputs("decode_attention", q, k_cache, v_cache, (lengths,))
+    _build.check_inputs("decode_attention", q, k_cache, v_cache, (lengths,),
+                        vec16=True)
     b = q.shape[0]
     if q.dim() != 3 or k_cache.shape[0] != b \
             or tuple(lengths.shape) not in ((), (b,)):
@@ -51,9 +65,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"(b, S, K, dh) and lengths () or (b,) with b={b}, "
                          f"got {tuple(q.shape)}, {tuple(k_cache.shape)} and "
                          f"{tuple(lengths.shape)}")
+    _, H, dh = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    n_split, min_pages, ctas = split_plan(
+        -(-S // CONTIG_PAGE), CONTIG_PAGE, b * K, _build.sm_count(q.device),
+        DECODE_CTAS_PER_SM[q.dtype])
     out = torch.empty_like(q)
-    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
-    _build.extension().decode(q, k_cache, v_cache, lengths, out, scale)
+    g = H // K
+    part = torch.empty((b * K * n_split * partial_floats(g + g % 2, dh)
+                        if n_split > 1 else 0,), dtype=torch.float32,
+                       device=q.device)
+    scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
+    _build.extension().decode(q, k_cache, v_cache, lengths, out, part,
+                              _build.counters(q.device, b * K), min_pages,
+                              n_split, ctas, scale)
     decode_attention.launches += 1
     return out
 

@@ -3,21 +3,25 @@
 kernel ``src/repro/kernels/flash_attention.py::flash_attention``, in the two
 forms the serving engines compute.
 
-**Contiguous** (:func:`flash_attention`, slotted prefill): q (b, sq, H, dh)
-against k, v (b, skv, K, dh), causal on positions from 0, or full, with the
-Pallas kernel's sliding window when ``window > 0``.  One CTA per (tile of
-``64 // g`` queries, KV head, batch row) holds the tile's 64 query rows
-(queries × group heads), walks K/V blocks of 64 positions and keeps an f32
-online softmax per row.  Blocks past the tile's last query (causal) or
-before its window are skipped — the Pallas kernel runs fully masked blocks
-— and only blocks on the diagonal or the window's edge are masked.  What
-bounds it on the H100: its operations (``4 dh`` flops per visible (query
-head, key) pair; 344 GFLOP at the hybrid forward's 4 × 4096 tokens, 32
-heads of 80).  bf16 inputs run on the tensor cores (``mma.sync`` m16n8k16,
-f32 accumulators; K/V staged by ``cp.async`` in a two-stage ring; P
-rounded to bf16 for P·V, as the reference model path rounds it; the head
-dim padded to a multiple of 16 in shared memory); f32 inputs, the slotted
-engine's, run in f32 on CUDA cores.
+**Contiguous** (:func:`flash_attention`: the slotted prefill in f32, the
+hybrid forward in bf16): q (b, sq, H, dh) against k, v (b, skv, K, dh),
+causal on positions from 0, or full, with the Pallas kernel's sliding
+window when ``window > 0``.  One CTA per (tile of ``64 // g`` queries, KV
+head, batch row) holds the tile's 64 query rows (queries × group heads),
+walks K/V blocks of 64 positions and keeps an f32 online softmax per row.
+Blocks past the tile's last query (causal) or before its window are
+skipped — the Pallas kernel runs fully masked blocks — and only blocks on
+the diagonal or the window's edge are masked.  One body for both types, on
+the tensor cores (``mma.sync`` m16n8k16, f32 accumulators, the head dim
+padded to a multiple of 16 in shared memory): bf16 inputs stage K/V by
+``cp.async`` in a two-stage ring and round P to bf16 for P·V, as the
+reference model path rounds it; f32 inputs split every operand — q, K, V
+and P — into a bf16 pair and take hi·hi + hi·lo + lo·hi, which keeps the
+f32 tolerance, through one f32 stage split once per block (the paged
+prefill's layout).  What bounds it on the H100: its operations (``4 dh``
+flops per visible (query head, key) pair; 344 GFLOP at the hybrid
+forward's 4 × 4096 tokens, 32 heads of 80), at the bf16 peak, or a third
+of it for f32 inputs.
 
 **Paged chunked prefill** (:func:`paged_prefill_attention`,
 ``csrc/paged_prefill.cu``): the C queries of one prompt chunk, at absolute
@@ -58,7 +62,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import PREFILL_CTAS_PER_SM, \
-    split_plan
+    partial_floats, split_plan
 from repro_torch.kernels.ref import flash_attention_ref, \
     paged_prefill_attention_ref
 
@@ -129,7 +133,8 @@ def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,
                                        groups, _build.sm_count(q.device),
                                        PREFILL_CTAS_PER_SM)
     out = torch.empty_like(q)
-    part = torch.empty((groups * n_split * _build.FA_ROWS * (dh + 2)
+    part = torch.empty((groups * n_split
+                        * partial_floats(_build.FA_ROWS, dh)
                         if n_split > 1 else 0,), dtype=torch.float32,
                        device=q.device)
     scale = dh ** -0.5 if sm_scale is None else float(sm_scale)

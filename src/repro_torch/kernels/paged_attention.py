@@ -1,6 +1,8 @@
 """Paged flash-decode attention — the hand-written CUDA kernel for Hopper
-(``csrc/paged_attention.cu``) that replaces the reference's Pallas TPU
-kernel ``src/repro/kernels/paged_attention.py::paged_decode_attention``.
+(``csrc/paged_attention.cu``, over the split-KV decode body of
+``csrc/decode_split.cuh`` that the contiguous decode shares) that replaces
+the reference's Pallas TPU kernel
+``src/repro/kernels/paged_attention.py::paged_decode_attention``.
 
 One new token per batch row attends over K/V scattered across fixed-size
 arena blocks.  The kernel splits each row's keys over several CTAs
@@ -38,7 +40,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
-           "split_plan"]
+           "split_plan", "partial_floats"]
 
 # a split holds at least this many positions (one staged block of the
 # prefill kernel; four tiles of the decode kernel's ring)
@@ -54,6 +56,14 @@ MAX_SPLITS = 32
 # 168 KB of shared memory)
 DECODE_CTAS_PER_SM = {torch.float32: 2, torch.bfloat16: 4}
 PREFILL_CTAS_PER_SM = 1
+
+
+def partial_floats(rows: int, dh: int) -> int:
+    """f32 words of one split's partial (acc, m, l) of ``rows`` query rows
+    (``partial_floats`` of csrc/split_kv.cuh); a decode group of g rows is
+    laid out as ``g + g % 2`` rows, so that with dh % 4 == 0 every partial
+    starts 16-byte aligned, as the merge's float4 reads need."""
+    return rows * (dh + 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,7 +111,8 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
         block_tables.shape[1], k_arena.shape[1], b * K,
         _build.sm_count(q.device), DECODE_CTAS_PER_SM[q.dtype])
     out = torch.empty_like(q)
-    part = torch.empty((b * K * n_split * (H // K) * (dh + 2)
+    g = H // K
+    part = torch.empty((b * K * n_split * partial_floats(g + g % 2, dh)
                         if n_split > 1 else 0,), dtype=torch.float32,
                        device=q.device)
     scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
