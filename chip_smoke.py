@@ -40,8 +40,10 @@ Phases, each printing its result lines:
    real``) on the card: annealing over configuration graphs of the SMOKE
    ladder on measured latencies;
 6. the paged and the slotted engines at SMOKE size on the card against the
-   same engines on the CPU (plain versions), and slotted against paged on
-   the card: the greedy token streams must be equal;
+   same engines on the CPU (plain versions), slotted against paged on the
+   card, and a paged engine with preemption on a small arena (swap-outs and
+   partial swap-ins) against the CPU and against the unpreempted paged
+   engine on the card: the greedy token streams must be equal;
 7. mamba2-2.7b at full width (bf16) through ``registry.forward`` (4 x
    4096 and 1 x 32768 tokens, the scan counted) and greedy decode through
    ``make_cache`` / ``decode_step``, whose replayed prompt is held against
@@ -49,10 +51,17 @@ Phases, each printing its result lines:
 8. zamba2-2.7b at full width the same way (the scan and the contiguous
    flash attention counted in the forward, the contiguous decode in each
    step);
-9. mamba2 and zamba2 at SMOKE size on the card against the CPU: forward
+9. a paged serve with preemption, telemetry and quality selection at the
+   full width of qwen3-1.7b (bf16): the ladder x0.5 / x1, one paged
+   instance each on an arena small enough that each swaps out twice, 16
+   requests of two SLO classes routed by a static selector; routing,
+   preemptions, partial swap-in, joules in the responses, the trace and the
+   carbon feed are checked, and the swap staging pair round-trips pages
+   bit for bit;
+10. mamba2 and zamba2 at SMOKE size on the card against the CPU: forward
    logits and greedy tokens;
-10. the ``kernels`` line: every ported kernel with its launches on the main
-   path that runs it (phase 3 for the paged kernels, phase 4 for the
+11. the ``kernels`` line: every ported kernel with its launches on the main
+   paths that run it (phases 3 and 9 for the paged kernels, phase 4 for the
    contiguous decode and the f32 contiguous prefill, whose record is the
    slotted serve's 1024-token shape, phase 7 for the scan, phase 8's
    forward for the bf16 contiguous prefill, whose record is that
@@ -1019,12 +1028,23 @@ def _equal_streams(what: str, a: dict, b: dict, model, prompts) -> int:
     return ties
 
 
+# arena of phase 6's preempted paged engine (block 8): small enough that
+# its 8 requests swap out and resume partially (on the CPU: 4 preemptions,
+# 3 pages saved; block counts depend on lengths only, not on the device)
+PARITY_PREEMPT_BLOCKS = 16
+
+
 def phase_parity() -> None:
     """SMOKE-size engines on the card (kernels) and on the CPU (plain
     versions), same weights, same prompts: the paged engine on the card
     against the paged engine on the CPU, the slotted engine on the card
     against the slotted engine on the CPU and against the paged engine on
-    the card — the greedy streams must be equal."""
+    the card, and a paged engine with preemption on an arena of
+    ``PARITY_PREEMPT_BLOCKS`` (swap-outs, partial swap-ins: decode over
+    restored pages and prefix pages re-acquired from the radix tree) on
+    the card against the same engine on the CPU and against the paged
+    engine without preemption on the card — the greedy streams must be
+    equal."""
     from repro_torch.configs import qwen3_1_7b
     from repro_torch.core.config_graph import ConfigGraph
     from repro_torch.serving import engine as ENG
@@ -1037,11 +1057,14 @@ def phase_parity() -> None:
     prompts = _mixed_prompts(cfg.vocab_size)
     n_new = 12
     outs, stats = {}, {}
-    for layout in ("paged", "slotted"):
+    engines = {"paged": dict(kv_layout="paged"),
+               "slotted": dict(kv_layout="slotted"),
+               "preempt": dict(kv_layout="paged", preemption=True,
+                               n_blocks=PARITY_PREEMPT_BLOCKS)}
+    for layout, kw in engines.items():
         for fam, dev in ((fam_gpu, None), (fam_cpu, "cpu")):
-            eng = ENG.RealEngine(fam, n_slots=2, max_len=64,
-                                 kv_layout=layout, block_size=8, max_seqs=6,
-                                 device=dev)
+            eng = ENG.RealEngine(fam, n_slots=2, max_len=64, block_size=8,
+                                 max_seqs=6, device=dev, **kw)
             eng.configure(ConfigGraph.from_dict(cfg.name, {("x1", 1): 1}))
             key = (layout, dev or "cuda")
             stats[key] = serve_prompts(eng, prompts, n_new=n_new)
@@ -1062,12 +1085,29 @@ def phase_parity() -> None:
                f"{stats['slotted', 'cpu'][key]}")
     ties_sp = _equal_streams("parity slotted/paged", outs["slotted", "cuda"],
                              outs["paged", "cuda"], model, prompts)
+    ties_p = _equal_streams("parity preempted", outs["preempt", "cuda"],
+                            outs["preempt", "cpu"], model, prompts)
+    ties_pp = _equal_streams("parity preempted/paged", outs["preempt", "cuda"],
+                             outs["paged", "cuda"], model, prompts)
+    m_pre = stats["preempt", "cuda"]
+    _check(m_pre["preemptions"] >= 1 and m_pre["partial_swapin_pages_saved"]
+           >= 1, f"parity preempted: {m_pre['preemptions']} preemptions, "
+           f"{m_pre['partial_swapin_pages_saved']} pages saved")
+    for key in ("preemptions", "swapin_pages_copied",
+                "partial_swapin_pages_saved", "prefill_chunks"):
+        _check(m_pre[key] == stats["preempt", "cpu"][key] or ties_p,
+               f"parity preempted: {key} {m_pre[key]} vs "
+               f"{stats['preempt', 'cpu'][key]}")
     print(f"parity: on {len(prompts)} requests x {n_new} tokens the SMOKE "
           f"paged engine on the card equals the CPU's ({ties} near-tie "
           f"divergences; prefix hits "
           f"{stats['paged', 'cuda']['prefix_hit_tokens']}), the slotted "
           f"engine on the card equals the CPU's ({ties_s}) and the paged "
-          f"engine on the card ({ties_sp})")
+          f"engine on the card ({ties_sp}); with preemption on "
+          f"{PARITY_PREEMPT_BLOCKS} blocks ({m_pre['preemptions']} "
+          f"preemptions, {m_pre['swapin_pages_copied']} pages copied, "
+          f"{m_pre['partial_swapin_pages_saved']} saved) the card equals "
+          f"the CPU ({ties_p}) and the unpreempted paged engine ({ties_pp})")
 
 
 # =============================================================================
@@ -1337,7 +1377,250 @@ def phase_hybrid() -> dict:
 
 
 # =============================================================================
-# phase 9: the SSM and hybrid families on the card against the CPU
+# phase 9: paged serve with preemption, telemetry and quality selection
+# =============================================================================
+# arena of each phase-9 instance (block 16): small enough that each rung
+# swaps out twice and resumes partially.  Block counts depend only on the
+# prompts' lengths, n_new, the block size and the arena, so the value was
+# found on the CPU with the SMOKE family at phase 3's lengths: 78 blocks give
+# 2 preemptions a rung, 57 pages saved and 15 copied on each; 77 and 79-88
+# give fewer than 2 preemptions a rung
+PREEMPT_BLOCKS = 78
+
+
+def _mixed_quality_requests(prompts, n_new: int):
+    """Phase 3's prompts twice, interleaved: rid 2k is prompt k as an
+    interactive request, rid 2k + 1 the same prompt as a deferrable one."""
+    from repro_torch.serving.api import DEFERRABLE, INTERACTIVE, \
+        InferenceRequest
+    return [InferenceRequest(rid=2 * k + j, prompt=p, max_new_tokens=n_new,
+                             slo=slo)
+            for k, p in enumerate(prompts)
+            for j, slo in enumerate((INTERACTIVE, DEFERRABLE))]
+
+
+def _timed_serve(eng, requests):
+    """Submit ``requests`` and drain the engine, timing each scheduler step
+    (``RealEngine.step``) on the host clock; returns (responses, seconds
+    of each step)."""
+    seconds = []
+    step = eng.step
+
+    def timed():
+        t = time.perf_counter()
+        out = step()
+        seconds.append(time.perf_counter() - t)
+        return out
+    eng.step = timed
+    try:
+        for req in requests:
+            eng.submit(req)
+        return eng.drain(), seconds
+    finally:
+        del eng.step
+
+
+def _round_trip(inst) -> str:
+    """The swap staging pair on the instance's arena, outside the serve:
+    gather 5 pages (padded to a bucket of 8 with junk block 0) into pinned
+    host memory, scatter them into 5 other blocks (the 3 padded slots write
+    zero pages into block 0); the moved pages must equal the originals bit
+    for bit."""
+    import numpy as np
+    import torch
+    src, dst = [1, 3, 5, 7, 9], [70, 71, 72, 73, 74]
+    idx = np.zeros((8,), np.int64)
+    idx[:5] = src
+    img_k, img_v = inst._gather_pages(idx)
+    hk, hv = img_k.wait(), img_v.wait()
+    _check(hk.is_pinned() and hv.is_pinned(), "round trip: image not pinned")
+    ar = inst.arena
+    _check(bool(ar["k"][:, src].abs().sum() > 0), "round trip: empty pages")
+    idx[:5] = dst
+    inst._restore_pages(idx, hk[:, :5], hv[:, :5])
+    torch.cuda.synchronize()
+    for name in ("k", "v"):
+        _check(torch.equal(ar[name][:, src], ar[name][:, dst]),
+               f"round trip: {name} pages differ after gather and scatter")
+        _check(not bool(ar[name][:, 0].any()),
+               "round trip: block 0 holds more than the zero padding")
+    return (f"5 pages of {tuple(hk.shape[2:])} x {hk.shape[0]} layers "
+            f"gathered into pinned memory and scattered into other blocks: "
+            f"bit-identical")
+
+
+def _preempt_engine():
+    """Phase 9's engine, configured (warm-up included): qwen3-1.7b at full
+    width with bf16 weights from seed 0 on the ladder x0.5 / x1, one paged
+    instance a rung with an f32 arena of ``PREEMPT_BLOCKS`` blocks of 16,
+    preemption and prefix caching on, a static selector pinning deferrable
+    work to x0.5.  Returns (engine, its graph, the selector)."""
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.core.config_graph import ConfigGraph
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving.quality import make_selector
+    cfg = qwen3_1_7b.FULL
+    family = ENG.build_engine_family(cfg, fracs=(0.5, 1.0), seed=0)
+    sel = make_selector("static", pins={"deferrable": "x0.5"})
+    eng = ENG.RealEngine(family, max_len=2048, kv_layout="paged",
+                         block_size=16, n_blocks=PREEMPT_BLOCKS, max_seqs=8,
+                         preemption=True, prefix_caching=True,
+                         quality_selector=sel, ci_g_per_kwh=300.0)
+    graph = ConfigGraph.from_dict(cfg.name, {("x0.5", 1): 1, ("x1", 1): 1})
+    eng.configure(graph)
+    return eng, graph, sel
+
+
+def phase_preempt_serve() -> dict:
+    """qwen3-1.7b at full width (bf16 weights) on the ladder x0.5 (14
+    layers) and x1 (28), one paged instance each with an f32 arena of
+    ``PREEMPT_BLOCKS`` blocks, preemption and prefix caching on, a static
+    quality selector pinning deferrable work to x0.5: 16 requests (phase
+    3's prompts as interactive and again as deferrable), 48 new tokens
+    each.  The serve runs twice on the same instances: without telemetry,
+    then with a bundle (trace and carbon feed), whose launches are counted;
+    the second must route every request as decided, preempt each rung at
+    least twice with a partial swap-in, conserve joules in the responses,
+    the trace and the feed, and launch both paged kernels.  Then the swap
+    staging pair round-trips pages on x1's arena (``_round_trip``).
+    Returns the paged kernels' launches during the telemetry serve."""
+    import torch
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.obs import CarbonFeed, Telemetry, TraceRecorder, \
+        validate_trace
+    from repro_torch.serving.scheduler import latency_percentile
+    cfg = qwen3_1_7b.FULL
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, graph, sel = _preempt_engine()
+    t_cfg = eng.last_reconfig_s
+    torch.cuda.synchronize()
+    arena_b = {inst.ev.variant.name: sum(a.numel() * a.element_size()
+                                         for a in inst.arena.values())
+               for inst in eng.instances}
+    print(f"preempt: family + arenas {time.perf_counter() - t0 - t_cfg:.1f} "
+          f"s, configure (warmup) {t_cfg:.1f} s; {PREEMPT_BLOCKS} blocks of "
+          f"16 an instance, f32: "
+          + ", ".join(f"{v} {b / PREEMPT_BLOCKS / 1e6:.3f} MB a block, "
+                      f"{b / 1e6:.1f} MB" for v, b in arena_b.items()))
+    prompts = _serve_prompts(cfg.vocab_size)
+    n_new = 48
+    _, steps_plain = _timed_serve(eng, _mixed_quality_requests(prompts,
+                                                                n_new))
+    m_plain = eng.stats()
+    plain_out = dict(eng.last_outputs)
+    tel = Telemetry(tracer=TraceRecorder("real-paged"),
+                    feed=CarbonFeed(300.0, interval_s=1e9, region="h100"),
+                    backend="real-paged")
+    eng.telemetry = tel
+    eng.configure(graph)                 # fresh allocators and prefix trees
+    pre0 = {inst.ev.variant.name: inst.preemptions for inst in eng.instances}
+    torch.cuda.synchronize()
+    PA.paged_decode_attention.launches = 0
+    FA.paged_prefill_attention.launches = 0
+    resps, steps = _timed_serve(eng, _mixed_quality_requests(prompts, n_new))
+    torch.cuda.synchronize()
+    launches = {"paged_decode_attention": PA.paged_decode_attention.launches,
+                "paged_prefill_attention":
+                    FA.paged_prefill_attention.launches}
+    m = eng.stats()
+    n_req = 2 * len(prompts)
+    _check(m["served"] == n_req == len(resps),
+           f"preempt: served {m['served']} of {n_req}")
+    decided = {d.rid: d.variant for d in sel.decisions}
+    for r in resps:
+        _check(len(r.tokens) == n_new,
+               f"preempt: rid {r.rid}: {len(r.tokens)} tokens")
+        _check(bool(((r.tokens >= 0) & (r.tokens < cfg.padded_vocab)).all()),
+               f"preempt: rid {r.rid}: token ids out of range")
+        _check(r.variant == decided[r.rid] == ("x1" if r.slo == "interactive"
+                                               else "x0.5"),
+               f"preempt: rid {r.rid} ({r.slo}) served on {r.variant}, "
+               f"decided {decided[r.rid]}")
+    per_rung = {inst.ev.variant.name: inst.preemptions
+                - pre0[inst.ev.variant.name] for inst in eng.instances}
+    _check(min(per_rung.values()) >= 2 and sum(per_rung.values())
+           == m["preemptions"], f"preempt: preemptions per rung {per_rung}, "
+           f"session {m['preemptions']}")
+    _check(m["partial_swapin_pages_saved"] >= 1,
+           "preempt: no page saved by a partial swap-in")
+    total_j = sum(r.energy_j for r in resps)
+    _check(abs(total_j - m["energy_j"]) <= 1e-9 * m["energy_j"],
+           f"preempt: per-request joules {total_j} != session "
+           f"{m['energy_j']}")
+    summary = validate_trace(tel.tracer, expect_energy_j=m["energy_j"],
+                             expect_requests=n_req)
+    for name in ("swap_out", "swap_in"):
+        n = len(tel.tracer.instants(name))
+        _check(n == m["preemptions"],
+               f"preempt: {n} {name} instants for {m['preemptions']} "
+               f"preemptions")
+    tel.feed.flush(eng._feed_clock)
+    _check(abs(tel.feed.energy_j_total - m["energy_j"])
+           <= 1e-12 * m["energy_j"],
+           f"preempt: feed {tel.feed.energy_j_total} J != session "
+           f"{m['energy_j']} J")
+    _check(all(n > 0 for n in launches.values()),
+           f"preempt: a paged kernel was not launched: {launches}")
+    _check(m["compile_retraces"] == 0, "preempt: shape missed by warmup")
+    same = sum(bool((plain_out[rid] == eng.last_outputs[rid]).all())
+               for rid in plain_out)
+    reg = eng.last_registry
+    swap_ms = {d["phase"]: h.percentile(50.0) * 1e3 for _, d, h in
+               reg.labeled_series("phase_latency_s")
+               if d["phase"] in ("swap_d2h", "swap_h2d")}
+    for slo in ("interactive", "deferrable"):
+        rs = [r for r in resps if r.slo == slo]
+        ttft = [r.ttft_s for r in rs]
+        print(f"preempt: {slo}: {len(rs)} requests on "
+              f"{rs[0].variant}, {sum(r.n_tokens for r in rs) / m['wall_s']:.1f}"
+              f" tok/s of the session's wall, TTFT p50 "
+              f"{latency_percentile(ttft, 50.0) * 1e3:.1f} ms p95 "
+              f"{latency_percentile(ttft, 95.0) * 1e3:.1f} ms")
+    print(f"preempt: {m['served']} requests, {m['tokens']} tokens in "
+          f"{m['wall_s']:.2f} s = {m['tokens_per_s']:.1f} tok/s; "
+          f"preemptions {m['preemptions']} (per rung {per_rung}); swap-in "
+          f"pages copied "
+          f"{m['swapin_pages_copied']}, saved by partial swap-in "
+          f"{m['partial_swapin_pages_saved']}; swap p50 D2H "
+          f"{swap_ms.get('swap_d2h', float('nan')):.3f} ms H2D "
+          f"{swap_ms.get('swap_h2d', float('nan')):.3f} ms (host enqueue); "
+          f"decode steps {m['decode_steps']} in {m['decode_dispatches']} "
+          f"dispatches; host_syncs {m['host_syncs']}; h2d "
+          f"{m['h2d_transfers']}; blocks peak {m['blocks_peak']}; "
+          f"{m['j_per_token']:.3f} J/token (reference power model)")
+    print(f"preempt: trace {summary['records']} records, "
+          f"{summary['spans']} spans, {summary['requests']} request spans "
+          f"summing to the session's {summary['energy_j']:.3f} J; feed "
+          f"{tel.feed.energy_j_total:.3f} J in {len(tel.feed.snapshots)} "
+          f"snapshot(s); streams equal to the serve without telemetry: "
+          f"{same}/{len(plain_out)}")
+    # the telemetry's host cost: both serves run the same schedule (the
+    # same steps, ticks and decode steps), so their steps pair up
+    _check(len(steps) == len(steps_plain)
+           and m["decode_steps"] == m_plain["decode_steps"],
+           f"preempt: {len(steps)} / {len(steps_plain)} steps with and "
+           f"without telemetry")
+    ratio = sorted(a / b for a, b in zip(steps, steps_plain))
+    print(f"preempt: telemetry: {len(steps)} scheduler steps, median "
+          f"{sorted(steps)[len(steps) // 2] * 1e3:.2f} ms against "
+          f"{sorted(steps_plain)[len(steps) // 2] * 1e3:.2f} ms without a "
+          f"bundle, median paired ratio {ratio[len(ratio) // 2]:.4f}; wall "
+          f"{m['wall_s']:.3f} s against {m_plain['wall_s']:.3f} s "
+          f"({m['wall_s'] / m_plain['wall_s'] - 1:+.3f})")
+    print(f"preempt: launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"preempt: round trip on x1's arena: "
+          f"{_round_trip(eng.instances[-1])}")
+    del eng, resps
+    torch.cuda.empty_cache()
+    return launches
+
+
+# =============================================================================
+# phase 10: the SSM and hybrid families on the card against the CPU
 # =============================================================================
 # f32 logits of a SMOKE model on the card against the CPU: sums in another
 # order (cuBLAS, the SSD kernel), so the port's tolerance against the
@@ -1467,20 +1750,25 @@ def main() -> int:
     t7 = time.perf_counter()
     hybrid = phase_hybrid()
     t8 = time.perf_counter()
-    phase_ssm_parity()
+    preempt = phase_preempt_serve()
     t9 = time.perf_counter()
+    phase_ssm_parity()
+    t10 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
     launches["decode_attention"] = slotted["decode_attention"]
     launches["flash_attention_f32"] = slotted["flash_attention"]
     launches["flash_attention"] = hybrid["flash_attention"]
+    for name, n in preempt.items():       # the paged kernels' two serves
+        launches[name] += n
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "
           f"clover {t5 - t4:.1f} s, parity {t6 - t5:.1f} s, ssm "
-          f"{t7 - t6:.1f} s, hybrid {t8 - t7:.1f} s, ssm parity "
-          f"{t9 - t8:.1f} s, total {t9 - t0:.1f} s")
+          f"{t7 - t6:.1f} s, hybrid {t8 - t7:.1f} s, preempted serve "
+          f"{t9 - t8:.1f} s, ssm parity {t10 - t9:.1f} s, total "
+          f"{t10 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

@@ -31,7 +31,21 @@ pluggable admission policies, per-request energy attribution (per-request
 joules sum to the session total), open-loop arrivals, and — paged — the
 device-resident decode loop: loop state stays on the device, greedy tokens
 feed back on the device, a fused dispatch runs ``fused_steps`` steps, and
-token readbacks land a tick later through pinned host buffers.
+token readbacks land a tick later through pinned host buffers.  On top:
+
+  * **paged preemption** (``preemption=True``): admission reserves only the
+    prompt's blocks and decode grows block tables on demand; when the arena
+    runs dry mid-decode the lowest-priority / youngest sequence is swapped
+    out to host memory, re-queued, and restored bit-exactly on
+    re-admission — **partially** when the radix tree still holds its
+    prompt blocks (only the evicted tail is copied back);
+  * **telemetry** (``telemetry=``, ``obs.Telemetry``): a per-session
+    metrics registry with phase timings, lifecycle spans and per-tick
+    counter tracks in a persistent ``TraceRecorder``, and one exact
+    (wall, joules, grams) segment per session into a ``CarbonFeed``;
+  * **mixed quality** (``quality_selector=``, ``serving.quality``): each
+    request's ladder rung is decided at submit, and admission places it
+    only on instances of that rung.
 
 How the JAX-specific parts of the reference translate:
 
@@ -44,11 +58,14 @@ How the JAX-specific parts of the reference translate:
     copies (:func:`_h2d`), counted as ``h2d_transfers`` exactly as the
     reference counts them;
   * ``warmup`` and the shape-key bookkeeping stay, so ``compile_retraces``
-    keeps its meaning; eager PyTorch compiles nothing, so it stays 0.
+    keeps its meaning; eager PyTorch compiles nothing, so it stays 0;
+  * the jitted swap staging pair (page gather, donated page scatter)
+    becomes ``index_select`` over the arena's block axis into a fresh
+    tensor, copied to pinned host memory like a readback, and
+    ``index_copy_`` back into the arena.
 
-Not ported yet, and refused with ``NotImplementedError``: preemption and
-swap, ``mesh=``/``roles=`` (sharding and disaggregation), ``telemetry=``
-and ``quality_selector=``.
+Not ported yet, and refused with ``NotImplementedError``: ``mesh=`` and
+``roles=`` (sharding and disaggregation).
 """
 from __future__ import annotations
 
@@ -66,11 +83,13 @@ from repro_torch.core import perf_model as PM
 from repro_torch.core.catalog import Variant
 from repro_torch.models import registry as R
 from repro_torch.models.config import ModelConfig
-from repro_torch.obs import MetricsRegistry, PhaseProfiler
+from repro_torch.obs import MetricsRegistry, PhaseProfiler, Telemetry, \
+    TraceRecorder
 from repro_torch.serving.api import DONE, InferenceRequest, \
     InferenceResponse, serve_prompts
 from repro_torch.serving.kvpool import BlockAllocator, RadixPrefixCache
 from repro_torch.serving.policies import SchedulerPolicy, make_policy
+from repro_torch.serving.quality import make_selector
 from repro_torch.serving.scheduler import SchedulerCore, latency_percentile
 
 __all__ = ["latency_percentile", "EngineVariant", "build_engine_family",
@@ -180,10 +199,14 @@ class _Readback:
         else:
             self.host, self.event = t, None
 
-    def numpy(self) -> np.ndarray:
+    def wait(self) -> torch.Tensor:
+        """The host tensor, once the copy into it has landed."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return self.host
+
+    def numpy(self) -> np.ndarray:
+        return self.wait().numpy()
 
 
 @dataclasses.dataclass
@@ -217,16 +240,65 @@ class _PendingFirst:
     tick_id: int
 
 
+@dataclasses.dataclass
+class _SwapState:
+    """Host-side image of a preempted paged sequence: everything needed to
+    restore it bit-exactly — request identity, generated tokens, the next
+    decode token, and the K/V contents of the blocks it held (``n_ctx``
+    valid positions).  Restoring writes the pages back into freshly
+    allocated arena blocks, so greedy decode continues on identical state.
+
+    ``tree_blocks`` records how many of the sequence's leading pages were
+    radix-tree-resident at swap-out (full prompt blocks the prefix cache
+    still holds).  On re-admission those pages are re-acquired from the
+    tree instead of copied from the image — a PARTIAL swap-in that restores
+    only the evicted tail.  The image still covers every page, so a tree
+    eviction between swap-out and resume just degrades to a full restore.
+
+    The device→host copy is STAGED: ``img_k``/``img_v`` are readbacks of a
+    page gather whose copy into pinned host memory is in flight, so
+    swap-out never blocks the decode loop; ``host_k``/``host_v`` wait on
+    the copy's event (normally long landed at resume)."""
+    rid: int
+    t_arrival: float
+    prompt: np.ndarray
+    n_new: int
+    priority: int
+    tokens: List[int]
+    remaining: int
+    n_ctx: int                     # K/V positions already in the arena
+    next_token: int
+    t_first: Optional[float]
+    cached_tokens: int
+    preempts: int
+    img_k: _Readback               # (L, >= n_blocks, bs, K, dh) pages
+    img_v: _Readback
+    n_blocks: int                  # pages used (the image may be padded)
+    tree_blocks: int = 0           # leading pages tree-backed at swap-out
+    slo: str = "interactive"
+    deadline_s: Optional[float] = None
+
+    @property
+    def host_k(self) -> torch.Tensor:
+        """(L, n_blocks, bs, K, dh) host image (waits for the copy)."""
+        return self.img_k.wait()[:, :self.n_blocks]
+
+    @property
+    def host_v(self) -> torch.Tensor:
+        return self.img_v.wait()[:, :self.n_blocks]
+
+
 def _tick_info(prefill_s: float = 0.0, decode_s: float = 0.0,
                decode_steps: int = 0, occupied: int = 0,
                blocks_in_use: int = 0, prefill_rids=None, decode_rids=None,
-               emitted=None) -> Dict[str, object]:
+               emitted=None, preempted=None) -> Dict[str, object]:
     return {"prefill_s": prefill_s, "decode_s": decode_s,
             "decode_steps": decode_steps, "occupied": occupied,
             "blocks_in_use": blocks_in_use,
             "prefill_rids": prefill_rids or [],   # [(rid, seconds), ...]
             "decode_rids": decode_rids or [],     # rows sharing the decode
-            "emitted": emitted or []}             # [(rid, token), ...]
+            "emitted": emitted or [],             # [(rid, token), ...]
+            "preempted": preempted or []}         # [_SwapState, ...]
 
 
 def _note_shape(inst, key: Tuple) -> None:
@@ -258,6 +330,8 @@ class _SlotState:
     tokens: List[int]              # generated token ids (prefill token first)
     t_first: Optional[float] = None   # wall time of the first generated token
     priority: int = 0
+    preempts: int = 0              # slotted sequences never preempt (uniform
+                                   # field so the engine reads one shape)
 
 
 def _write_slot(cache: Dict[str, torch.Tensor], k_all: torch.Tensor,
@@ -516,6 +590,7 @@ class _PagedSeq:
     tokens: List[int] = dataclasses.field(default_factory=list)
     t_first: Optional[float] = None
     priority: int = 0
+    preempts: int = 0               # times this sequence was swapped out
     pending_steps: int = 0          # decode steps dispatched but not landed
                                     # (``remaining`` is decremented at
                                     # DISPATCH; completion waits for landing)
@@ -536,7 +611,14 @@ class PagedInstance:
     the map); a sequence holds exactly ``ceil((prompt+n_new)/block_size)``
     blocks, minus whatever the radix prefix cache already has.  The decode
     batch is ``max_seqs`` static rows; admission is bounded by *blocks*, not
-    rows."""
+    rows.
+
+    With ``preemption=True`` the whole-sequence reservation is dropped:
+    admission reserves only the PROMPT's blocks and decode grows each
+    sequence's table on demand; when the arena runs dry mid-decode the
+    lowest-priority / youngest sequence is swapped out to host memory
+    (``_SwapState``) for the engine to re-queue and later restore
+    bit-exactly."""
 
     profiler: PhaseProfiler = _NULL_PROFILER
 
@@ -544,6 +626,7 @@ class PagedInstance:
                  block_size: int = 16, max_seqs: int = 8, max_len: int = 96,
                  chunk_blocks: int = 2, prefix_caching: bool = True,
                  cache_watermark: float = 0.25, chunk_burst: int = 4,
+                 preemption: bool = False,
                  policy: Optional[SchedulerPolicy] = None,
                  pipeline: bool = True, fused_steps: int = 8):
         self.ev = ev
@@ -562,6 +645,7 @@ class PagedInstance:
         # and LRU eviction under full-arena pressure throws away exactly
         # the chains the next FIFO request was about to hit (cache thrash)
         self.cache_watermark = cache_watermark
+        self.preemption = preemption
         # the engine's admission policy also orders THIS instance's chunked-
         # prefill queue (None / is_fifo → admission-order)
         self.policy = policy
@@ -579,6 +663,12 @@ class PagedInstance:
         self._adm_seq = 0                # admission counter (policy tie-break)
         self.prefill_chunks = 0
         self.prefix_hit_tokens = 0
+        self.preemptions = 0
+        # swap-in page accounting: ``total`` counts the pages a FULL restore
+        # would have written back, ``copied`` the pages actually written —
+        # the gap is what the radix tree's surviving blocks saved
+        self.swapin_pages_total = 0
+        self.swapin_pages_copied = 0
         self._shapes: set = set()        # shape keys seen (see _note_shape)
         self.retraces = 0                # lifetime post-warmup shape misses
         # --- device-resident decode hot path ---------------------------------
@@ -588,8 +678,9 @@ class PagedInstance:
         self.pipeline = pipeline
         self.fused_steps = max(int(fused_steps), 1)
         # device mirrors of (next, tables, lengths, active): uploaded only
-        # when an EVENT (admission, prefill completion, release, compaction)
-        # dirties the host copies — steady-state decode runs on the device
+        # when an EVENT (admission, prefill completion, release, preemption,
+        # table growth, compaction) dirties the host copies — steady-state
+        # decode runs on the device
         self._dev: Optional[Dict[str, torch.Tensor]] = None
         self._dev_B = 0
         self._dev_active: Optional[np.ndarray] = None
@@ -597,7 +688,8 @@ class PagedInstance:
         self._inflight: Deque[_PendingDecode] = deque()
         self._pending_first: List[_PendingFirst] = []
         self._tick_id = 0
-        # per-tick landing accumulators (reset at each tick() entry)
+        # per-tick landing accumulators (reset at each tick() entry; the
+        # flush helpers append here so _swap_out can force-land mid-tick)
         self._ev_emitted: List[Tuple[int, int]] = []
         self._ev_finished: List[_PagedSeq] = []
         self._ld_s = 0.0                 # landed decode seconds this tick
@@ -683,11 +775,14 @@ class PagedInstance:
 
     def can_admit(self, prompt_len: int, n_new: int) -> bool:
         """Admission control by BLOCK availability: a free batch row plus
-        enough free-or-evictable blocks for the worst case (no prefix hit)
-        of the WHOLE sequence."""
+        enough free-or-evictable blocks.  Without preemption the worst case
+        (no prefix hit) of the WHOLE sequence is reserved; with preemption
+        only the prompt needs to fit now — decode grows on demand and block
+        pressure is resolved by swapping victims out."""
         assert prompt_len + n_new <= self.max_len, \
             f"prompt {prompt_len} + n_new {n_new} > max_len {self.max_len}"
-        need = self.alloc.blocks_for_tokens(prompt_len + n_new)
+        need = self.alloc.blocks_for_tokens(
+            prompt_len if self.preemption else prompt_len + n_new)
         assert need <= self.alloc.num_allocatable, \
             f"request needs {need} blocks > arena {self.alloc.num_allocatable}"
         if all(s is not None for s in self.rows):
@@ -709,7 +804,8 @@ class PagedInstance:
         n_cached = 0
         if self.prefix is not None:
             matched, n_cached = self.prefix.match(prompt)
-        need = self.alloc.blocks_for_tokens(true_len + n_new) - len(matched)
+        need = self.alloc.blocks_for_tokens(
+            true_len if self.preemption else true_len + n_new) - len(matched)
         if need > self.alloc.num_free and self.prefix is not None:
             self.prefix.evict(need - self.alloc.num_free)
         blocks = matched + self.alloc.alloc(need)
@@ -728,15 +824,182 @@ class PagedInstance:
         self._dirty = True               # admission event: mirrors changed
         return seq, 0.0
 
+    # --- preemption / swap ---------------------------------------------------
+    def can_resume(self, swap: _SwapState) -> bool:
+        """Re-admission check for a swapped-out sequence: a free row plus
+        its saved block count (decode re-grows past that on demand)."""
+        if all(s is not None for s in self.rows):
+            return False
+        return self._avail_blocks() >= swap.n_blocks
+
+    def resume(self, swap: _SwapState) -> Tuple[_PagedSeq, float]:
+        """Restore a preempted sequence — PARTIALLY when the radix tree
+        still holds its prompt blocks.
+
+        The leading pages recorded tree-backed at swap-out are re-acquired
+        from the prefix cache (``match_full``: a reference per block, no
+        device copy — their K/V never left the arena); only the evicted
+        tail pages are written back from the host image.  If the tree
+        dropped the nodes in the meantime the match comes back short and
+        the difference is restored from the host — bit-exact either way."""
+        row = self.rows.index(None)
+        nb = swap.n_blocks
+        reused: List[int] = []
+        if self.prefix is not None and swap.tree_blocks > 0:
+            reused = self.prefix.match_full(
+                swap.prompt, max_blocks=min(swap.tree_blocks, nb))
+        n_tail = nb - len(reused)
+        if n_tail > self.alloc.num_free and self.prefix is not None:
+            self.prefix.evict(n_tail - self.alloc.num_free)
+        tail = self.alloc.alloc(n_tail)
+        if n_tail:
+            # the tail count is padded to its bucket, as the reference's
+            # restore is: the extra slots write zero pages into junk block 0
+            pb = _pow2_bucket(n_tail, self.n_pages)
+            idx = np.zeros((pb,), np.int64)
+            idx[:n_tail] = tail
+            self.h2d_transfers += 3      # index vector + K + V page uploads
+            t_h2d = time.perf_counter()
+            self._restore_pages(idx, swap.host_k[:, len(reused):],
+                                swap.host_v[:, len(reused):])
+            self.profiler.observe("swap_h2d", time.perf_counter() - t_h2d)
+        blocks = reused + tail
+        self.swapin_pages_total += nb
+        self.swapin_pages_copied += n_tail
+        seq = _PagedSeq(swap.rid, swap.t_arrival, swap.prompt, swap.n_new,
+                        row, blocks, n_done=len(swap.prompt),
+                        cached_tokens=swap.cached_tokens,
+                        remaining=swap.remaining, tokens=list(swap.tokens),
+                        t_first=swap.t_first, priority=swap.priority,
+                        preempts=swap.preempts, slo=swap.slo,
+                        deadline_s=swap.deadline_s, seq=self._adm_seq)
+        self._adm_seq += 1
+        self.tables[row, :nb] = blocks
+        self.tables[row, nb:] = 0
+        self.lengths[row] = swap.n_ctx
+        self._next[row, 0] = swap.next_token
+        self.rows[row] = seq
+        self._dirty = True               # swap-in event: mirrors changed
+        return seq, 0.0
+
+    def _gather_pages(self, idx: np.ndarray) -> Tuple[_Readback, _Readback]:
+        """Swap-out half of the staging pair: gather arena pages ``idx``
+        (``index_select`` over the block axis) into fresh device tensors and
+        start their copies to the host (:class:`_Readback`), so the loop
+        never waits here.  The copies run on the current stream behind the
+        gather, so the blocks may be handed out again at once: a later write
+        into them is queued behind the copy, and so is any reuse of the
+        gathered tensors' memory once they are freed."""
+        dev_idx = self._put(idx)
+        return (_Readback(self.arena["k"].index_select(1, dev_idx)),
+                _Readback(self.arena["v"].index_select(1, dev_idx)))
+
+    def _restore_pages(self, idx: np.ndarray, hk: torch.Tensor,
+                       hv: torch.Tensor) -> None:
+        """Swap-in half of the staging pair: write host pages ``hk``/``hv``
+        (L, n, bs, K, dh) into arena blocks ``idx[:n]`` with ``index_copy_``;
+        the slots of ``idx`` past n (block 0, the junk sink) get zero
+        pages."""
+        dev_idx = self._put(idx)
+        pinned = self.device.type == "cuda"
+        for name, h in (("k", hk), ("v", hv)):
+            pad = torch.zeros((h.shape[0], len(idx)) + tuple(h.shape[2:]),
+                              dtype=h.dtype, pin_memory=pinned)
+            pad[:, :h.shape[1]].copy_(h)
+            self.arena[name].index_copy_(
+                1, dev_idx, pad.to(self.device, non_blocking=True))
+
+    def _select_victim(self, exclude: _PagedSeq) -> Optional[_PagedSeq]:
+        """Preemption victim: lowest priority first, youngest (latest
+        arrival) within a level; only fully-prefilled decoding sequences
+        qualify (mid-prefill rows sit in the prefill queue)."""
+        cands = [s for s in self.rows
+                 if s is not None and s.prefilled and s.remaining > 0
+                 and s is not exclude]
+        if not cands:
+            return None
+        return min(cands, key=lambda s: (s.priority, -s.t_arrival))
+
+    def _swap_out(self, seq: _PagedSeq) -> _SwapState:
+        """Swap a sequence's K/V pages to host memory and release its arena
+        blocks + batch row; the engine re-queues the returned image.
+
+        In-flight work lands first (``_flush_all``): the image must carry
+        the sequence's true tokens, length and next token.  ``tree_blocks``
+        snapshots how many leading pages the radix tree backs at this
+        instant — the pages ``resume`` will try to re-acquire by reference;
+        a ceiling, not a promise, since LRU eviction may drop them before
+        re-admission.  The page copy is staged (``_gather_pages``),
+        bucket-padded with junk pages that the image slices off."""
+        self._flush_all()
+        n_ctx = int(self.lengths[seq.row])
+        nb = self.alloc.blocks_for_tokens(max(n_ctx, 1))
+        idx = np.zeros((_pow2_bucket(nb, self.n_pages),), np.int64)
+        idx[:nb] = seq.blocks[:nb]
+        tree_blocks = 0
+        if self.prefix is not None:
+            tree_blocks = self.prefix.live_prefix_blocks(seq.prompt, limit=nb)
+        t_d2h = time.perf_counter()
+        img_k, img_v = self._gather_pages(idx)
+        self.profiler.observe("swap_d2h", time.perf_counter() - t_d2h)
+        swap = _SwapState(
+            rid=seq.rid, t_arrival=seq.t_arrival, prompt=seq.prompt,
+            n_new=seq.n_new, priority=seq.priority, tokens=list(seq.tokens),
+            remaining=seq.remaining, n_ctx=n_ctx,
+            next_token=int(self._next[seq.row, 0]), t_first=seq.t_first,
+            cached_tokens=seq.cached_tokens, preempts=seq.preempts + 1,
+            img_k=img_k, img_v=img_v, n_blocks=nb, tree_blocks=tree_blocks,
+            slo=seq.slo, deadline_s=seq.deadline_s)
+        self.alloc.free(seq.blocks)      # decref: prefix-tree refs survive
+        self._clear_row(seq)
+        self.preemptions += 1
+        return swap
+
+    def _ensure_decode_capacity(self) -> List[_SwapState]:
+        """Pre-decode pass under ``preemption=True``: grow every decoding
+        row's block table to cover its next token write, swapping out
+        victims when the arena (free list + evictable prefix blocks) runs
+        dry.  Restarts after every mutation — ``_compact`` reshuffles rows,
+        so cached indices would go stale."""
+        swapped: List[_SwapState] = []
+        while True:
+            needy = None
+            for i, s in enumerate(self.rows):
+                if (s is not None and s.prefilled and s.remaining > 0
+                        and self.alloc.blocks_for_tokens(
+                            int(self.lengths[i]) + 1) > len(s.blocks)):
+                    needy = s
+                    break
+            if needy is None:
+                return swapped
+            if self.alloc.num_free < 1 and self.prefix is not None:
+                self.prefix.evict(1)
+            if self.alloc.num_free >= 1:
+                bid = self.alloc.alloc(1)[0]
+                needy.blocks.append(bid)
+                self.tables[needy.row, len(needy.blocks) - 1] = bid
+                self._dirty = True       # table growth: mirrors changed
+                continue
+            if self._inflight or self._pending_first:
+                # land in-flight work before choosing a victim: a pending
+                # completion may release its blocks and spare the swap
+                self._flush_all()
+                continue
+            victim = self._select_victim(exclude=needy) or needy
+            swapped.append(self._swap_out(victim))
+
     def _release(self, seq: _PagedSeq) -> None:
         self.alloc.free(seq.blocks)      # decref: prefix-tree refs survive
+        self._clear_row(seq)
+        self._enforce_watermark()
+
+    def _clear_row(self, seq: _PagedSeq) -> None:
         self.rows[seq.row] = None
         self.tables[seq.row, :] = 0
         self.lengths[seq.row] = 0
         self._next[seq.row, 0] = 0
         self._compact(seq.row)
         self._dirty = True               # release event: mirrors changed
-        self._enforce_watermark()
 
     def _compact(self, hole: int) -> None:
         """Keep occupied rows a contiguous prefix: move the highest occupied
@@ -883,8 +1146,10 @@ class PagedInstance:
             self._land_item(self._inflight.popleft())
 
     def _flush_all(self) -> None:
-        """Force-land everything, first tokens included (the synchronous
-        reference loop)."""
+        """Force-land everything, first tokens included — the synchronous
+        reference loop, and the swap-out / victim-selection path, where the
+        host image must carry the true tokens, lengths, and next token of
+        every sequence."""
         self._flush_decodes()
         for pf in list(self._pending_first):
             self._land_first(pf)
@@ -948,7 +1213,8 @@ class PagedInstance:
         on the device (``_dev``), the greedy token feeds back on the device,
         and tick N's (k, B) token block lands while tick N+1's dispatch is
         already queued.  Only EVENTS (admission, prefill completion,
-        release) dirty the mirrors and trigger a flush + one re-upload.
+        release, growth, preemption) dirty the mirrors and trigger a flush +
+        one re-upload.
 
         Prefill policy: while the batch is decode-starved (fewer decodable
         rows than half the row capacity), burst up to ``chunk_burst``
@@ -982,6 +1248,9 @@ class PagedInstance:
                     self._land_first(seq.pending_first)  # its first token
                     self._ev_finished.append(seq)
                     self._release(seq)
+        # decode-time block pressure: grow tables on demand, swap victims
+        # out when the arena is dry (PREEMPTED lifecycle state)
+        preempted = self._ensure_decode_capacity() if self.preemption else []
         active = np.array([s is not None and s.prefilled and s.remaining > 0
                            for s in self.rows])
         occ = int(active.sum())
@@ -1035,7 +1304,7 @@ class PagedInstance:
             decode_steps=self._ld_steps, occupied=self._ld_occ,
             blocks_in_use=self.alloc.blocks_in_use(),
             prefill_rids=prefill_rids, decode_rids=self._ld_rids,
-            emitted=self._ev_emitted)
+            emitted=self._ev_emitted, preempted=preempted)
 
 
 # =============================================================================
@@ -1043,18 +1312,24 @@ class PagedInstance:
 # =============================================================================
 class _Session:
     """One serve session's bookkeeping: the policy queue, the open-loop
-    release schedule, per-request energy meters, the admission gate, and
-    the aggregate counters ``stats`` reports."""
+    release schedule, per-request energy meters, swapped-out images, the
+    admission gate, and the aggregate counters ``stats`` reports."""
 
     def __init__(self, core: SchedulerCore, instances,
-                 registry: MetricsRegistry) -> None:
+                 registry: MetricsRegistry,
+                 tracer: Optional[TraceRecorder] = None) -> None:
         self.core = core
         self.registry = registry
+        self.tracer = tracer
+        self.span_ids: Dict[int, int] = {}       # rid → "request" span sid
+        self.preempt_sids: Dict[int, int] = {}   # rid → open "preempted" sid
         self.t0 = time.perf_counter()
         self.future: List[Tuple[float, int, int]] = []   # (t_abs, seq, rid)
         self._fseq = 0
         self.requests: Dict[int, InferenceRequest] = {}
         self.meters: Dict[int, float] = {}
+        self.swapped: Dict[int, _SwapState] = {}
+        self.variant_of: Dict[int, str] = {}     # rid → decided ladder rung
         self.admit_gate: Dict[int, Tuple] = {}           # id(inst) → (rid, sig)
         self.admit_t: Dict[int, float] = {}
         self.responses: List[InferenceResponse] = []
@@ -1065,6 +1340,7 @@ class _Session:
         self.admitted_sum = 0
         self.tick_samples = 0
         self.blocks_peak = 0
+        self.preempt_total = 0
         self.progressed = False
         # wall seconds already charged per instance (prefill + decode); the
         # remainder of the serve wall is charged at idle power at drain, so
@@ -1091,9 +1367,13 @@ class _Session:
 
 
 # lifetime instance counters a session reports as deltas, by stats name (a
-# slotted instance has no prefill chunks or prefix hits: it counts 0)
+# slotted instance has no prefill chunks, prefix hits or swap-ins: it
+# counts 0); ``swapin_pages_total`` is folded into
+# ``partial_swapin_pages_saved`` at finalize
 _INSTANCE_COUNTERS = {"prefill_chunks": "prefill_chunks",
                       "prefix_hit_tokens": "prefix_hit_tokens",
+                      "swapin_pages_total": "swapin_pages_total",
+                      "swapin_pages_copied": "swapin_pages_copied",
                       "retraces": "compile_retraces",
                       "host_syncs": "host_syncs",
                       "h2d_transfers": "h2d_transfers",
@@ -1108,9 +1388,8 @@ class RealEngine:
     ``core.perf_model``) and carbon (``ci_g_per_kwh``) per request.
 
     ``device`` is where the family's weights live (the GPU by default; the
-    CPU on request).  The reference's ``preemption``, ``telemetry``,
-    ``quality_selector``, ``mesh`` and ``roles`` are not ported yet and
-    raise ``NotImplementedError``."""
+    CPU on request).  The reference's ``mesh`` and ``roles`` are not ported
+    yet and raise ``NotImplementedError``."""
 
     def __init__(self, family: Sequence[EngineVariant], n_slots: int = 4,
                  max_len: int = 96, *, kv_layout: str = "slotted",
@@ -1119,20 +1398,20 @@ class RealEngine:
                  prefix_caching: bool = True,
                  policy: Union[str, SchedulerPolicy, None] = "fifo",
                  preemption: bool = False, ci_g_per_kwh: float = 0.0,
-                 telemetry=None, decode_pipeline: bool = True,
-                 fused_steps: int = 8, quality_selector=None, mesh=None,
-                 roles=None,
+                 telemetry: Optional[Telemetry] = None,
+                 decode_pipeline: bool = True, fused_steps: int = 8,
+                 quality_selector=None, mesh=None, roles=None,
                  device: Optional[Union[str, torch.device]] = None):
-        unported = {"preemption": preemption,
-                    "telemetry": telemetry is not None,
-                    "quality_selector": quality_selector is not None,
-                    "mesh": mesh is not None, "roles": bool(roles)}
+        unported = {"mesh": mesh is not None, "roles": bool(roles)}
         missing = [k for k, v in unported.items() if v]
         if missing:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(missing)}")
         if kv_layout not in ("slotted", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if preemption and kv_layout == "slotted":
+            raise ValueError("preemption requires the paged KV layout "
+                             "(slots never grow)")
         self.device = resolve_device(device)
         for ev in family:
             where = {p.device for p in ev.params.parameters()}
@@ -1155,15 +1434,29 @@ class RealEngine:
         self.chunk_blocks = chunk_blocks
         self.prefix_caching = prefix_caching
         self.policy = make_policy(policy)
+        # mixed-quality request path: the selector decides each request's
+        # ladder rung at submit; admission then only places it on instances
+        # of that variant (serving.quality — name, instance, or None)
+        self.quality_selector = make_selector(quality_selector)
+        self.preemption = preemption
         # decode hot path: ``decode_pipeline=False`` selects the synchronous
         # reference loop (re-upload + blocking readback every tick) — the
         # greedy-parity oracle; ``fused_steps`` bounds on-device step fusion
         self.decode_pipeline = decode_pipeline
         self.fused_steps = fused_steps
         self.ci_g_per_kwh = ci_g_per_kwh
-        # one engine-owned phase profiler shared by every instance; it stays
-        # disabled (registry None) until telemetry is ported
+        # optional telemetry bundle: the engine repoints its ``registry`` at
+        # every session open (per-session registries) and emits lifecycle
+        # spans into its persistent ``tracer``; its ``feed`` receives one
+        # exact (wall, joules, grams) segment per session
+        self.telemetry = telemetry
+        # one engine-owned phase profiler shared by every instance; its
+        # registry is repointed at each session open (and set to None when
+        # no telemetry bundle is attached, so the un-instrumented hot path
+        # stays a single attribute check)
         self.profiler = PhaseProfiler()
+        self.last_registry: Optional[MetricsRegistry] = None
+        self._feed_clock = 0.0           # feed-time seconds across sessions
         self._pool: Dict[Tuple[str, int],
                          List[Union[Instance, PagedInstance]]] = {}
         self._session: Optional[_Session] = None
@@ -1183,6 +1476,7 @@ class RealEngine:
                                  max_len=self.max_len,
                                  chunk_blocks=self.chunk_blocks,
                                  prefix_caching=self.prefix_caching,
+                                 preemption=self.preemption,
                                  policy=self.policy,
                                  pipeline=self.decode_pipeline,
                                  fused_steps=self.fused_steps)
@@ -1225,15 +1519,31 @@ class RealEngine:
             reg = MetricsRegistry.standard(f"real-{self.kv_layout}",
                                            labels={"kv_layout":
                                                    self.kv_layout})
+            tel = self.telemetry
+            if tel is not None:
+                tel.registry = reg       # per-session registry (see obs)
+            # phase profiling rides the telemetry opt-in: without a bundle
+            # the profiler stays disabled and the hot path pays nothing
+            self.profiler.registry = reg if tel is not None else None
             self.policy.reset_holds()    # rids repeat across sessions
-            self._session = _Session(SchedulerCore(self.policy),
-                                     self.instances, reg)
+            self._session = _Session(
+                SchedulerCore(self.policy), self.instances, reg,
+                tracer=tel.tracer if tel is not None else None)
+            self.last_registry = reg
             self.last_admit_order = []
             self.last_outputs = {}
+            if self.quality_selector is not None:
+                # bind the selector to the rungs this configuration can
+                # actually serve (deduped by name, any instance count)
+                ladder = {inst.ev.variant.name: inst.ev.variant
+                          for inst in self.instances}
+                self.quality_selector.reset(list(ladder.values()))
         s = self._session
         assert req.rid not in s.requests, f"duplicate rid {req.rid}"
         s.requests[req.rid] = req
         s.meters[req.rid] = 0.0
+        if self.quality_selector is not None:
+            s.variant_of[req.rid] = self.quality_selector.select(req).variant
         s.registry.counter("requests_submitted").inc()
         s.schedule(req)
 
@@ -1265,25 +1575,49 @@ class RealEngine:
                 if nxt is None:
                     break
                 rid, t_arr = nxt
+                # mixed-quality routing: the queue head only admits onto
+                # instances of its decided rung (head-of-line blocking on a
+                # variant-busy head is deliberate, as in the reference).
+                # Also keeps preempted swap images on their own variant.
+                want = s.variant_of.get(rid)
+                if want is not None and inst.ev.variant.name != want:
+                    break
                 sig = inst.admission_signature()
                 if s.admit_gate.get(id(inst)) == (rid, sig):
                     break                # nothing changed since last failure
                 req = s.requests[rid]
-                if not inst.can_admit(req.prompt_len, req.max_new_tokens):
+                swap = s.swapped.get(rid)
+                fits = (inst.can_resume(swap) if swap is not None
+                        else inst.can_admit(req.prompt_len,
+                                            req.max_new_tokens))
+                if not fits:
                     s.admit_gate[id(inst)] = (rid, sig)
                     break
                 s.admit_gate.pop(id(inst), None)
                 s.core.pop_next(now_rel)
                 t1 = time.perf_counter()
-                state, dt = inst.admit_next(rid, t_arr, req.prompt,
-                                            req.max_new_tokens,
-                                            priority=req.priority,
-                                            slo=req.slo,
-                                            deadline_s=req.deadline_s)
-                s.admit_t[rid] = t1
-                self.last_admit_order.append(rid)
-                if state.tokens and req.on_token is not None:
-                    req.on_token(rid, state.tokens[0])   # slotted first
+                if swap is not None:
+                    state, dt = inst.resume(swap)
+                    del s.swapped[rid]
+                    if s.tracer is not None:
+                        t_res = s.rel(time.perf_counter())
+                        sid = s.preempt_sids.pop(rid, None)
+                        if sid is not None:
+                            s.tracer.close_span(sid, t_res,
+                                                pages=swap.n_blocks)
+                        s.tracer.instant("swap_in", t_res, rid=rid)
+                else:
+                    state, dt = inst.admit_next(rid, t_arr, req.prompt,
+                                                req.max_new_tokens,
+                                                priority=req.priority,
+                                                slo=req.slo,
+                                                deadline_s=req.deadline_s)
+                    s.admit_t[rid] = t1
+                    self.last_admit_order.append(rid)
+                    if state.tokens and req.on_token is not None:
+                        req.on_token(rid, state.tokens[0])   # slotted first
+                    if s.tracer is not None:
+                        s.tracer.instant("admit", s.rel(t1), rid=rid)
                 if dt > 0:               # the slotted layout prefills here
                     self.profiler.observe("prefill_chunk", dt)
                 e_pf = inst.chips * PM.P_BUSY_W * dt   # prefill: busy power
@@ -1330,13 +1664,59 @@ class RealEngine:
             s.blocks_peak = max(s.blocks_peak, int(info["blocks_in_use"]))
             s.registry.gauge("occupied_rows").set(info["occupied"])
             s.registry.gauge("blocks_in_use").set(info["blocks_in_use"])
+            if s.tracer is not None:
+                self._trace_tick(s, inst, t_tick, info)
             for rid, tok in info["emitted"]:
                 cb = s.requests[rid].on_token
                 if cb is not None:
                     cb(rid, tok)
+            for swap in info["preempted"]:
+                req = s.requests[swap.rid]
+                s.swapped[swap.rid] = swap
+                s.preempt_total += 1
+                if s.tracer is not None:
+                    t_sw = s.rel(time.perf_counter())
+                    s.tracer.instant("swap_out", t_sw, rid=swap.rid,
+                                     pages=swap.n_blocks)
+                    s.preempt_sids[swap.rid] = s.tracer.open_span(
+                        "preempted", t_sw, rid=swap.rid)
+                s.core.requeue_front(swap.rid, swap.t_arrival,
+                                     priority=req.priority,
+                                     deadline_s=req.deadline_s,
+                                     slo=req.slo)
             for state in done:
                 completed.append(self._finish(state, inst))
         return completed
+
+    @staticmethod
+    def _trace_tick(s: _Session, inst, t_tick: float,
+                    info: Dict[str, object]) -> None:
+        """One tick on the trace: its prefill chunks back-to-back from the
+        tick start, then one ``decode_tick`` span per LANDED model step (a
+        fused dispatch lands k steps at once, so the span count equals the
+        session's ``decode_steps``) carrying the occupant set, then the
+        engine track's counters — arena/slot occupancy and the tick's power
+        under the model that charges the energy."""
+        tr = s.tracer
+        cursor = s.rel(t_tick)
+        for rid, dtc in info["prefill_rids"]:
+            tr.span("prefill_chunk", cursor, cursor + dtc, rid=rid)
+            cursor += dtc
+        if info["decode_steps"]:
+            dt_step = info["decode_s"] / info["decode_steps"]
+            for _ in range(info["decode_steps"]):
+                tr.span("decode_tick", cursor, cursor + dt_step,
+                        rids=info["decode_rids"], n=info["occupied"])
+                cursor += dt_step
+            p_w = PM.instance_power_w(inst.chips,
+                                      info["occupied"] / inst.capacity)
+        elif info["prefill_s"] > 0:
+            p_w = inst.chips * PM.P_BUSY_W
+        else:
+            p_w = inst.chips * PM.P_IDLE_W
+        tr.counter("blocks_in_use", cursor, info["blocks_in_use"])
+        tr.counter("occupied_rows", cursor, info["occupied"])
+        tr.counter("power_w", cursor, p_w)
 
     def drain(self) -> List[InferenceResponse]:
         """Run the session to completion; returns every response.  Closes
@@ -1397,7 +1777,7 @@ class RealEngine:
             t_arrival=state.t_arrival - s.t0, t_finish=t_fin - s.t0,
             queue_delay_s=s.admit_t[state.rid] - state.t_arrival,
             ttft_s=ttft, latency_s=t_fin - state.t_arrival,
-            energy_j=s.meters[state.rid], preemptions=0,
+            energy_j=s.meters[state.rid], preemptions=state.preempts,
             accuracy=inst.ev.variant.accuracy,
             variant=inst.ev.variant.name, deadline_s=req.deadline_s,
             held_s=hold[1] - hold[0] if hold is not None else 0.0,
@@ -1419,6 +1799,18 @@ class RealEngine:
         if hold is not None:
             reg.counter("holds_released").inc()
             reg.histogram("held_s").observe(resp.held_s)
+        if s.tracer is not None:
+            # the root lifecycle span, reconstructed now that the request's
+            # bounds are known; _finalize annotates the final joules/grams
+            # (the idle-floor share only exists at drain)
+            s.span_ids[state.rid] = s.tracer.span(
+                "request", state.t_arrival - s.t0, t_fin - s.t0,
+                rid=state.rid, slo=req.slo, n_tokens=resp.n_tokens,
+                queue_delay_s=resp.queue_delay_s,
+                preemptions=state.preempts)
+            if hold is not None:
+                s.tracer.span("hold", hold[0], hold[1], rid=state.rid,
+                              reason=hold[2])
         return resp
 
     def _finalize(self, s: _Session) -> None:
@@ -1434,6 +1826,9 @@ class RealEngine:
         for r in s.responses:
             r.energy_j += idle_share
             r.carbon_g = r.energy_j / 3.6e6 * self.ci_g_per_kwh
+            if s.tracer is not None and r.rid in s.span_ids:
+                s.tracer.annotate(s.span_ids[r.rid], energy_j=r.energy_j,
+                                  carbon_g=r.carbon_g)
         self.last_latencies = s.core.latencies
         self.last_responses = s.responses
         # session deltas of the instances' lifetime counters (instances
@@ -1441,6 +1836,9 @@ class RealEngine:
         delta = {stat: sum(getattr(i, name, 0) for i in self.instances)
                  - s.counters0[name]
                  for name, stat in _INSTANCE_COUNTERS.items()}
+        # partial swap-in: pages a full restore would have copied vs pages
+        # actually written back (the gap = tree-resident reuse)
+        saved = delta.pop("swapin_pages_total") - delta["swapin_pages_copied"]
         total_g = s.energy / 3.6e6 * self.ci_g_per_kwh
         # fold the session totals into the registry; ``_last_stats`` below
         # is a *view* over it
@@ -1448,6 +1846,8 @@ class RealEngine:
         reg.counter("energy_j").inc(s.energy)
         reg.counter("carbon_g").inc(total_g)
         reg.counter("decode_steps").inc(s.decode_steps)
+        reg.counter("preemptions").inc(s.preempt_total)
+        reg.counter("swapin_pages_saved").inc(saved)
         for stat, value in delta.items():
             reg.counter(stat).inc(value)
         reg.gauge("wall_s").set(wall)
@@ -1480,11 +1880,19 @@ class RealEngine:
             "ttft_p50_s": reg.histogram("ttft_s").percentile(50.0),
             "ttft_p95_s": reg.histogram("ttft_s").percentile(95.0),
             "blocks_peak": s.blocks_peak,
+            "preemptions": s.preempt_total,
+            "partial_swapin_pages_saved": saved,
             # decode-hot-path traffic: blocking host round-trips, explicit
             # H2D uploads (event-driven only under pipelining), and decode
             # dispatches (< decode_steps when fusion engaged)
             **delta,
         }
+        if self.telemetry is not None and self.telemetry.feed is not None:
+            # one exact segment per session: feed totals stay equal to the
+            # engine's charged joules/grams with no re-derivation
+            self.telemetry.feed.record_segment(self._feed_clock, wall,
+                                               s.energy, total_g)
+        self._feed_clock += wall
         self._session = None
 
     # --- bulk-prompt convenience ---------------------------------------------

@@ -207,14 +207,18 @@ def test_token_stream_callbacks_and_single_token_requests(family):
     assert eng.stats()["host_syncs"] >= 1
 
 
-@pytest.mark.parametrize("kw", [{"preemption": True},
-                                {"telemetry": object()},
-                                {"quality_selector": "greedy"},
+@pytest.mark.parametrize("kw", [{"preemption": True, "mesh": object()},
+                                {"telemetry": object(),
+                                 "roles": {"prefill": 1}},
+                                {"quality_selector": "greedy",
+                                 "mesh": object()},
                                 {"mesh": object()},
                                 {"roles": {"prefill": 1}}])
 def test_unported_engine_options_raise(family, kw):
+    """``mesh=`` and ``roles=`` stay refused, alone and beside the ported
+    preemption, telemetry and quality selector."""
     with pytest.raises(NotImplementedError):
-        ENG.RealEngine(family, device="cpu", **kw)
+        ENG.RealEngine(family, kv_layout="paged", device="cpu", **kw)
 
 
 def test_default_layout_builds_slotted_instances(family):
