@@ -60,11 +60,21 @@ Phases, each printing its result lines:
    bit for bit;
 10. mamba2 and zamba2 at SMOKE size on the card against the CPU: forward
    logits and greedy tokens;
-11. the ``kernels`` line: every ported kernel with its launches on the main
-   paths that run it (phases 3 and 9 for the paged kernels, phase 4 for the
-   contiguous decode and the f32 contiguous prefill, whose record is the
-   slotted serve's 1024-token shape, phase 7 for the scan, phase 8's
-   forward for the bf16 contiguous prefill, whose record is that
+11. Clover's fleet and trace simulator: (a) ``run_fleet`` with the real
+   backend at the full width of qwen3-1.7b (the ladder x0.25 / x0.5 / x1
+   in bf16, two regions over 2 h traces, 12 windows each, paged engines
+   under the carbon-forecast policy and the greedy quality selector),
+   reconfigured warm by each region's controller and probed every window,
+   with both paged kernels counted; (b) the same fleet at the reference's
+   defaults (SMOKE, slotted, f32, fifo; one region, 1 h) on the card
+   against the CPU with the same weights: equal configurations and
+   per-rid token streams; (c) ``repro_torch.launch.serve --mode sim
+   --hours 6``;
+12. the ``kernels`` line: every ported kernel with its launches on the main
+   paths that run it (phases 3, 9 and 11a for the paged kernels, phases 4
+   and 11b for the contiguous decode and the f32 contiguous prefill, whose
+   record is the slotted serve's 1024-token shape, phase 7 for the scan,
+   phase 8's forward for the bf16 contiguous prefill, whose record is that
    forward's shape).
 
 Any failed check raises, and the script exits non-zero without printing a
@@ -1700,6 +1710,337 @@ def phase_ssm_parity() -> None:
 
 
 # =============================================================================
+# phase 11: Clover's fleet and trace simulator on the port
+# =============================================================================
+FLEET_REGIONS = ("CISO-March", "ESO-March")
+# the full-width fleet's engines: 2 slots of 160 positions give each paged
+# instance an arena of 2 x 160 / 16 + 1 = 21 blocks of 16 (20 usable), so a
+# window's 4 probes of 64 + 16 tokens (5 pages each) fit on one instance
+FLEET_SLOTS, FLEET_MAX_LEN = 2, 160
+
+
+class _ProbeLog:
+    """Records, for every ``RealWindowServer`` of a fleet run, each
+    configuration it applies (in order) and each probe window: region
+    (its trace's name), window time, chips, served, tokens, and the
+    per-rid greedy tokens and rungs.  Installed around one run; the
+    methods are restored on exit."""
+
+    def __init__(self, BK):
+        self.cls = BK.RealWindowServer
+        self.configs, self.probes = [], []
+
+    def __enter__(self):
+        apply, probe = self.cls.apply_config, self.cls.probe_window
+        log = self
+
+        def apply_logged(server, g):
+            if server._configured_edges != g.edges:
+                log.configs.append((server.acct.trace.name, g.edges))
+            return apply(server, g)
+
+        def probe_logged(server, g, t=0.0):
+            m = probe(server, g, t)
+            entry = {"region": server.acct.trace.name, "t": t,
+                     "chips": g.total_chips}
+            if m is not None:
+                eng = server.engine
+                entry.update(
+                    served=int(m["served"]), tokens=int(m["tokens"]),
+                    outputs={rid: [int(x) for x in v]
+                             for rid, v in eng.last_outputs.items()},
+                    variants={r.rid: r.variant for r in eng.last_responses})
+            log.probes.append(entry)
+            return m
+        self.saved = apply, probe
+        self.cls.apply_config, self.cls.probe_window = apply_logged, \
+            probe_logged
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.apply_config, self.cls.probe_window = self.saved
+        return False
+
+    def served(self, region: str) -> list:
+        return [p for p in self.probes if p["region"] == region
+                and "served" in p]
+
+
+def _fleet_config(**kw):
+    """The full-width fleet's configuration: one block a region, 10-minute
+    windows, the paged engine under the carbon-forecast policy with the
+    greedy quality selector, half of each window's 4 probes deferrable,
+    probes of 64 prompt + 16 new tokens."""
+    from repro_torch.fleet import fleet_sim as FS
+    return FS.FleetConfig(
+        n_blocks=1, window_s=600.0, backend="real",
+        engine_kv_layout="paged", engine_policy="carbon_forecast",
+        engine_quality_selector="greedy", probe_deferrable_frac=0.5,
+        deferrable_frac=0.1, n_jobs=2, min_slack_s=1800.0,
+        max_slack_s=3600.0, probe_prompt_len=64, probe_new_tokens=16,
+        engine_slots=FLEET_SLOTS, engine_max_len=FLEET_MAX_LEN, **kw)
+
+
+def _fleet_run(family, cfg, traces):
+    """``run_fleet`` over ``traces`` with ``family`` as every region's
+    ladder, logged; returns (report, log, seconds)."""
+    from repro_torch.fleet import fleet_sim as FS
+    from repro_torch.serving import backends as BK
+    with _ProbeLog(BK) as log:
+        t0 = time.perf_counter()
+        rep = FS.run_fleet("efficientnet", traces, cfg,
+                           engine_family=family)
+        if next(family[0].params.parameters()).is_cuda:
+            import torch
+            torch.cuda.synchronize()
+        return rep, log, time.perf_counter() - t0
+
+
+def _check_fleet(tag: str, rep, log, cfg, n_windows: int) -> None:
+    """What every real-backend fleet run must show: every region probed
+    once a window, ``real_served`` = probes x windows not suspended, the
+    jobs' deadlines met, >= 2 warm reconfigurations, measured joules in
+    every region that served, and the rollup conserving energy and carbon
+    bit for bit."""
+    for name, r in rep.regions.items():
+        calls = [p for p in log.probes if p["region"] == name]
+        active = log.served(name)
+        _check(len(calls) == n_windows,
+               f"{tag}: {name} probed {len(calls)} times in {n_windows} "
+               f"windows")
+        _check(len(active) == sum(p["chips"] > 0 for p in calls),
+               f"{tag}: {name}: a window with chips served nothing")
+        _check(r.real_served == cfg.probe_requests * len(active)
+               == sum(p["served"] for p in active),
+               f"{tag}: {name} served {r.real_served} probes in "
+               f"{len(active)} windows of {cfg.probe_requests}")
+        for p in active:
+            _check(all(len(v) == cfg.probe_new_tokens
+                       for v in p["outputs"].values()),
+                   f"{tag}: {name} at {p['t']}: short token stream")
+        if r.real_served:
+            _check(r.real_energy_j > 0.0 and r.real_p95_s > 0.0,
+                   f"{tag}: {name} served without joules or latency")
+    _check(rep.deadlines_met, f"{tag}: deadline misses "
+           f"{rep.deadline_misses}")
+    n_reconf = sum(r.real_reconfigs for r in rep.regions.values())
+    _check(n_reconf >= 2 and n_reconf == len(log.configs),
+           f"{tag}: {n_reconf} real reconfigurations, {len(log.configs)} "
+           f"logged")
+    totals = rep.rollup.conservation()
+    _check(totals["energy_j"] == sum(r.energy_j
+                                     for r in rep.regions.values()),
+           f"{tag}: rollup energy {totals['energy_j']}")
+
+
+def phase_fleet() -> dict:
+    """Clover's carbon-aware fleet (``fleet.fleet_sim.run_fleet``) with the
+    real backend on the card at the full width of qwen3-1.7b: the ladder
+    x0.25 / x0.5 / x1 (7, 14, 28 layers) in bf16 from seed 0, shared by two
+    regions (CISO-March, ESO-March; 2 h traces, seed 3, 12 windows of 10
+    minutes), each with its own controller (CLOVER, reconfiguring its
+    paged ``RealEngine`` warm through ``Controller.maybe_reoptimize``), the
+    carbon-forecast scheduling policy and the greedy quality selector over
+    the region's forecaster.  Checks (``_check_fleet``) and the launches of
+    both paged kernels; returns those launches."""
+    import torch
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.core import carbon as CB
+    from repro_torch.core import catalog as CAT
+    from repro_torch.core import slices as SL
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.serving import engine as ENG
+    full = qwen3_1_7b.FULL
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    family = ENG.build_engine_family(full, fracs=(1.0, 0.5, 0.25), seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    # the reference's slice model prices memory at 4 bytes a parameter:
+    # every rung must still fit a 1-chip slice, or the optimizer could
+    # never partition the block
+    for ev in family:
+        _check(1 in CAT.feasible_slices(ev.variant),
+               f"fleet: {ev.variant.name} ({ev.variant.mem_gb:.2f} GB) "
+               f"fits no 1-chip slice")
+    cfg = _fleet_config()
+    # arena budget: every instance has its own f32 arena on the one card;
+    # at most 3 blocks x 16 one-chip instances a region
+    n_blocks = -(-FLEET_SLOTS * FLEET_MAX_LEN // 16) + 1
+    block_b = {ev.variant.name: 2 * 16 * full.n_kv_heads * full.d_head * 4
+               * ev.cfg.n_layers for ev in family}
+    worst = (len(FLEET_REGIONS) * cfg.resolved_max_blocks()
+             * SL.BLOCK_CHIPS * n_blocks * max(block_b.values()))
+    weights_b = sum(p.numel() * p.element_size() for ev in family
+                    for p in ev.params.parameters())
+    print(f"fleet: ladder "
+          + ", ".join(f"{ev.variant.name} {ev.cfg.n_layers} layers "
+                      f"{ev.variant.params_m:.0f} M params "
+                      f"({ev.variant.mem_gb:.2f} GB priced, slices "
+                      f"{CAT.feasible_slices(ev.variant)})"
+                      for ev in family)
+          + f"; built in {t_build:.1f} s, {weights_b / 2**30:.2f} GiB bf16; "
+          f"arena {n_blocks} blocks of 16 an instance ("
+          + ", ".join(f"{v} {n_blocks * b / 2**20:.1f} MiB"
+                      for v, b in block_b.items())
+          + f"), at most {worst / 2**30:.2f} GiB for "
+          f"{len(FLEET_REGIONS)} regions x {cfg.resolved_max_blocks()} "
+          f"blocks x {SL.BLOCK_CHIPS} x1 instances")
+    traces = {r: CB.make_trace(r, hours=2.0, seed=3) for r in FLEET_REGIONS}
+    n_windows = int(round(2.0 * 3600.0 / cfg.window_s))
+    PA.paged_decode_attention.launches = 0
+    FA.paged_prefill_attention.launches = 0
+    rep, log, secs = _fleet_run(family, cfg, traces)
+    launches = {"paged_decode_attention": PA.paged_decode_attention.launches,
+                "paged_prefill_attention":
+                    FA.paged_prefill_attention.launches}
+    _check_fleet("fleet", rep, log, cfg, n_windows)
+    _check(all(n > 0 for n in launches.values()),
+           f"fleet: a paged kernel was not launched: {launches}")
+    for name, r in rep.regions.items():
+        toks = sum(p["tokens"] for p in log.served(name))
+        rungs = sorted({v for p in log.served(name)
+                        for v in p["variants"].values()})
+        print(f"fleet: {name}: {r.real_served} probes served in "
+              f"{len(log.served(name))} of {n_windows} windows on {rungs}, "
+              f"real p95 {r.real_p95_s * 1e3:.1f} ms, "
+              f"{r.real_energy_j / max(toks, 1):.3f} J/token (reference "
+              f"power model), {r.real_reconfigs} warm reconfigurations in "
+              f"{r.real_reconfig_s:.2f} s, {r.n_invocations} invocations "
+              f"({r.n_predictive} predictive), final blocks "
+              f"{r.final_blocks}; fluid carbon {r.carbon_g:.1f} g, p95 "
+              f"{r.p95_s * 1e3:.2f} ms")
+    print(f"fleet: configurations applied: "
+          + "; ".join(f"{reg} {dict(e)}" for reg, e in log.configs))
+    print(f"fleet: {rep.real_served} probes, real p95 "
+          f"{rep.real_p95_s * 1e3:.1f} ms, deadlines met "
+          f"{rep.deadlines_met} ({rep.jobs_total} jobs), rollup "
+          f"conserved; launches {launches}; run {secs:.1f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del family, rep, log
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _stream_ties(tag: str, a: dict, b: dict, variants: dict, models: dict,
+                 prompts: dict) -> int:
+    """Two runs' per-rid greedy streams must be equal; a differing token is
+    allowed only at a near-tie of the CPU logits (as ``_equal_streams``).
+    Returns the number of near-tie divergences."""
+    import torch
+    _check(set(a) == set(b), f"{tag}: request sets differ")
+    ties = 0
+    for rid in sorted(b):
+        if a[rid] == b[rid]:
+            continue
+        step = next(i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
+                    if x != y)
+        lg = _greedy_logits(models[variants[rid]], prompts[rid],
+                            step + 1)[step]
+        top = torch.topk(lg, 2).values
+        gap = float(top[0] - top[1])
+        _check(gap <= 1e-4 * max(1.0, float(top[0].abs())),
+               f"{tag}: rid {rid} differs at step {step} with a top-2 "
+               f"logit gap of {gap:.3g} — not a near-tie")
+        ties += 1
+    return ties
+
+
+def phase_fleet_parity() -> dict:
+    """The fleet at the reference's real-backend defaults (SMOKE widths, 2
+    layers, f32, slotted engines, ``fifo``) for one region (CISO-March, 1
+    h, 6 windows), once with the ladder on the card (the contiguous
+    kernels) and once with the same weights on the CPU (plain versions):
+    the configurations applied, in order, must be equal, and so must the
+    per-rid greedy token streams, ``real_served``, the tokens and every
+    fluid field of the report.  Returns the contiguous kernels' launches
+    on the card."""
+    import numpy as np
+    from repro_torch.core import carbon as CB
+    from repro_torch.fleet import fleet_sim as FS
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serving import backends as BK
+    cfg = FS.FleetConfig(n_blocks=1, window_s=600.0, backend="real",
+                         deferrable_frac=0.1, n_jobs=2, min_slack_s=1800.0,
+                         max_slack_s=3600.0)
+    fam_cpu = BK.build_real_family(cfg.engine_arch, cfg.engine_layers,
+                                   seed=cfg.seed, device="cpu")
+    fam_gpu = BK.build_real_family(cfg.engine_arch, cfg.engine_layers,
+                                   seed=cfg.seed)
+    for g, c in zip(fam_gpu, fam_cpu):
+        g.params.load_state_dict(c.params.state_dict())
+    runs = {}
+    for dev, fam in (("cuda", fam_gpu), ("cpu", fam_cpu)):
+        traces = {"CISO-March": CB.make_trace("CISO-March", hours=1.0,
+                                              seed=3)}
+        if dev == "cuda":
+            DA.decode_attention.launches = 0
+            FA.flash_attention.launches = 0
+        runs[dev] = _fleet_run(fam, cfg, traces)
+        if dev == "cuda":
+            launches = {"decode_attention": DA.decode_attention.launches,
+                        "flash_attention_f32": FA.flash_attention.launches}
+        _check_fleet(f"fleet parity ({dev})", runs[dev][0], runs[dev][1],
+                     cfg, 6)
+    (rg, lg, sg), (rc, lc, sc) = runs["cuda"], runs["cpu"]
+    _check(lg.configs == lc.configs,
+           "fleet parity: configurations differ between card and CPU")
+    pg, pc = lg.served("CISO-March"), lc.served("CISO-March")
+    _check([(p["t"], p["served"], p["tokens"]) for p in pg]
+           == [(p["t"], p["served"], p["tokens"]) for p in pc],
+           "fleet parity: served or tokens differ between card and CPU")
+    vocab = fam_cpu[0].cfg.vocab_size
+    rng = np.random.default_rng(cfg.seed)
+    prompts = {rid: rng.integers(0, vocab, size=(cfg.probe_prompt_len,))
+               .astype(np.int32)
+               for rid in range(cfg.probe_requests * len(pc))}
+    models = {ev.variant.name: ev.params for ev in fam_cpu}
+    ties = 0
+    for a, b in zip(pg, pc):
+        _check(a["variants"] == b["variants"],
+               f"fleet parity: rungs differ at {a['t']}")
+        ties += _stream_ties(f"fleet parity at {a['t']}", a["outputs"],
+                             b["outputs"], b["variants"], models, prompts)
+    for f in ("carbon_g", "served_interactive", "served_deferrable",
+              "accuracy", "p95_s", "deadline_misses", "real_served"):
+        _check(getattr(rg, f) == getattr(rc, f),
+               f"fleet parity: {f} {getattr(rg, f)} vs {getattr(rc, f)}")
+    _check(all(n > 0 for n in launches.values()),
+           f"fleet parity: a contiguous kernel was not launched: {launches}")
+    print(f"fleet parity: SMOKE fleet (slotted, f32, fifo) on the card "
+          f"equals the CPU's: {len(lg.configs)} configurations in order, "
+          f"{rg.real_served} probes in {len(pg)} windows, "
+          f"{sum(p['tokens'] for p in pg)} tokens, per-rid streams equal "
+          f"({ties} near-tie divergences); card {sg:.1f} s, CPU {sc:.1f} s, "
+          f"real p95 card {rg.real_p95_s * 1e3:.1f} ms, CPU "
+          f"{rc.real_p95_s * 1e3:.1f} ms; launches {launches}")
+    return launches
+
+
+def phase_sim() -> None:
+    """``python -m repro_torch.launch.serve --mode sim --hours 6``: Clover
+    against BASE over a 6 h trace in the fluid simulator (no device); its
+    JSON must parse, with finite numbers and at least one invocation."""
+    import math
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "sim",
+         "--hours", "6"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    _check(out.returncode == 0, f"sim: exit {out.returncode}: "
+           f"{out.stderr[-2000:]}")
+    res = json.loads(out.stdout)
+    nums = [v for v in res.values() if isinstance(v, float)]
+    _check(len(nums) == 4 and all(math.isfinite(v) for v in nums)
+           and res["invocations"] >= 1, f"sim: {res}")
+    print(f"sim: --mode sim --hours 6 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(res)}")
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -1754,6 +2095,12 @@ def main() -> int:
     t9 = time.perf_counter()
     phase_ssm_parity()
     t10 = time.perf_counter()
+    fleet = phase_fleet()
+    t11 = time.perf_counter()
+    fleet_parity = phase_fleet_parity()
+    t12 = time.perf_counter()
+    phase_sim()
+    t13 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
@@ -1762,13 +2109,18 @@ def main() -> int:
     launches["flash_attention"] = hybrid["flash_attention"]
     for name, n in preempt.items():       # the paged kernels' two serves
         launches[name] += n
+    for name, n in fleet.items():         # and the full-width fleet's probes
+        launches[name] += n
+    for name, n in fleet_parity.items():  # the SMOKE fleet on the card
+        launches[name] += n
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "
           f"clover {t5 - t4:.1f} s, parity {t6 - t5:.1f} s, ssm "
           f"{t7 - t6:.1f} s, hybrid {t8 - t7:.1f} s, preempted serve "
-          f"{t9 - t8:.1f} s, ssm parity {t10 - t9:.1f} s, total "
-          f"{t10 - t0:.1f} s")
+          f"{t9 - t8:.1f} s, ssm parity {t10 - t9:.1f} s, fleet "
+          f"{t11 - t10:.1f} s, fleet parity {t12 - t11:.1f} s, sim "
+          f"{t13 - t12:.1f} s, total {t13 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

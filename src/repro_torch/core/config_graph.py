@@ -1,22 +1,29 @@
-"""Clover configuration graph (paper Definition 1) — the port's copy of the
-reference package's ``core/config_graph.py``, trimmed to what the engine
-and the annealer read: construction from edge weights, the edge list, the
-graph edit distance and the GED-bounded neighbourhood.
+"""Clover configuration graph (paper Definition 1) + graph edit distance —
+the port's copy of the reference package's ``core/config_graph.py``.
 
-A configuration graph is a weighted directed bipartite graph: variant
-vertices → slice-type vertices, integer edge weight = number of instances
-of that variant hosted on that slice type.  All (x^p, x^v) placements with
-identical edge weights collapse to one graph (canonical sorted edges).
-GED(g1, g2) = Σ |w1(e) − w2(e)| (variant swap = 2, slice move = 2).
+A configuration graph is a weighted directed bipartite graph: variant vertices
+→ slice-type vertices, integer edge weight = number of instances of that
+variant hosted on that slice type.  Properties the paper exploits — and that
+our tests assert:
+
+  * canonicalization: all (x^p, x^v) placements with identical edge weights
+    collapse to one graph (slice-type isolation ⇒ identical objective);
+  * GED(g1, g2) = Σ |w1(e) − w2(e)|  (variant swap = 2, slice move = 2);
+  * additivity: adding/removing serving blocks = edge-weight add/subtract
+    (the elastic-scaling path);
+  * feasibility: Σ instances·chips = blocks·16, every edge HBM-feasible.
+
+Implemented over plain dicts with a networkx export for interop (the paper
+implements the optimizer with networkx; our hot path avoids it).
 """
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from repro_torch.core import slices as SL
-from repro_torch.core.catalog import Variant
+from repro_torch.core.catalog import Variant, best_variant, feasible_slices
 
 Edge = Tuple[str, int]                 # (variant name, slice chips)
 
@@ -26,11 +33,20 @@ class ConfigGraph:
     family: str
     edges: Tuple[Tuple[Edge, int], ...]      # sorted ((variant, chips), weight)
 
+    # --- constructors --------------------------------------------------------
     @staticmethod
     def from_dict(family: str, weights: Dict[Edge, int]) -> "ConfigGraph":
         items = tuple(sorted((e, int(w)) for e, w in weights.items() if w > 0))
         return ConfigGraph(family, items)
 
+    @staticmethod
+    def uniform(family: str, variant: str, chips_per_slice: int,
+                n_blocks: int) -> "ConfigGraph":
+        per_block = SL.BLOCK_CHIPS // chips_per_slice
+        return ConfigGraph.from_dict(
+            family, {(variant, chips_per_slice): per_block * n_blocks})
+
+    # --- views ----------------------------------------------------------------
     def weights(self) -> Dict[Edge, int]:
         return dict(self.edges)
 
@@ -41,6 +57,47 @@ class ConfigGraph:
     @property
     def total_chips(self) -> int:
         return sum(e[1] * w for e, w in self.edges)
+
+    def instances(self) -> List[Edge]:
+        out: List[Edge] = []
+        for e, w in self.edges:
+            out.extend([e] * w)
+        return out
+
+    # --- algebra (paper §4.2: additivity) ----------------------------------------
+    def add(self, other: "ConfigGraph") -> "ConfigGraph":
+        w = self.weights()
+        for e, dw in other.edges:
+            w[e] = w.get(e, 0) + dw
+        return ConfigGraph.from_dict(self.family, w)
+
+    def subtract(self, other: "ConfigGraph") -> "ConfigGraph":
+        w = self.weights()
+        for e, dw in other.edges:
+            w[e] = w.get(e, 0) - dw
+            if w[e] < 0:
+                raise ValueError(f"negative weight on {e}")
+        return ConfigGraph.from_dict(self.family, w)
+
+    # --- validity ------------------------------------------------------------------
+    def is_valid(self, n_blocks: int, variants: Sequence[Variant]) -> bool:
+        if self.total_chips != n_blocks * SL.BLOCK_CHIPS:
+            return False
+        by_name = {v.name: v for v in variants}
+        for (vname, chips), w in self.edges:
+            v = by_name.get(vname)
+            if v is None or chips not in SL.SLICE_SIZES:
+                return False
+            if not SL.fits(v.mem_gb, chips):
+                return False                      # OOM edge (paper §4.2)
+        return True
+
+    def to_networkx(self):
+        import networkx as nx
+        g = nx.DiGraph()
+        for (vname, chips), w in self.edges:
+            g.add_edge(f"variant:{vname}", f"slice:{SL.slice_name(chips)}", weight=w)
+        return g
 
 
 def ged(a: ConfigGraph, b: ConfigGraph) -> int:
@@ -54,8 +111,7 @@ def ged(a: ConfigGraph, b: ConfigGraph) -> int:
 # =============================================================================
 # neighborhood (GED ≤ 4 — the paper's threshold)
 # =============================================================================
-def _repaint_moves(g: ConfigGraph, variants: Sequence[Variant]
-                   ) -> List[ConfigGraph]:
+def _repaint_moves(g: ConfigGraph, variants: Sequence[Variant]) -> List[ConfigGraph]:
     """Swap one instance's variant (GED 2)."""
     out = []
     w = g.weights()
@@ -70,9 +126,9 @@ def _repaint_moves(g: ConfigGraph, variants: Sequence[Variant]
     return out
 
 
-def _split_moves(g: ConfigGraph, variants: Sequence[Variant]
-                 ) -> List[ConfigGraph]:
-    """Split one slice 2k → k + k, keeping the variant (GED 3)."""
+def _split_moves(g: ConfigGraph, variants: Sequence[Variant]) -> List[ConfigGraph]:
+    """Split one slice 2k → k + k, keeping the variant (GED 3) or repainting
+    one half (GED ≤ 4)."""
     out = []
     w = g.weights()
     by_name = {v.name: v for v in variants}
@@ -89,8 +145,7 @@ def _split_moves(g: ConfigGraph, variants: Sequence[Variant]
     return out
 
 
-def _merge_moves(g: ConfigGraph, variants: Sequence[Variant]
-                 ) -> List[ConfigGraph]:
+def _merge_moves(g: ConfigGraph, variants: Sequence[Variant]) -> List[ConfigGraph]:
     """Merge two k-slices into one 2k-slice (GED 3)."""
     out = []
     w = g.weights()
@@ -141,3 +196,32 @@ def sample_neighbor(g: ConfigGraph, variants: Sequence[Variant],
     if not ns:
         return g
     return rng.choice(ns)
+
+
+def random_config(family: str, variants: Sequence[Variant], n_blocks: int,
+                  rng: random.Random) -> ConfigGraph:
+    """Uniformly random valid configuration (used by BLOVER's random search:
+    random partition per block, random feasible variant per slice)."""
+    weights: Dict[Edge, int] = {}
+    for _ in range(n_blocks):
+        part = rng.choice(SL.partition_catalog())
+        for chips in part:
+            feas = [v for v in variants if SL.fits(v.mem_gb, chips)]
+            if not feas:       # no variant fits a 1c slice → upgrade to 2c pairs
+                continue
+            v = rng.choice(feas)
+            e = (v.name, chips)
+            weights[e] = weights.get(e, 0) + 1
+    g = ConfigGraph.from_dict(family, weights)
+    # repair chip count if some slices were dropped for infeasibility
+    deficit = n_blocks * SL.BLOCK_CHIPS - g.total_chips
+    if deficit > 0:
+        big = best_variant(variants)
+        size = max(s for s in SL.SLICE_SIZES
+                   if s <= deficit and SL.fits(big.mem_gb, s))
+        w = g.weights()
+        while deficit >= size:
+            w[(big.name, size)] = w.get((big.name, size), 0) + 1
+            deficit -= size
+        g = ConfigGraph.from_dict(family, w)
+    return g

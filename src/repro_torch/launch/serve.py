@@ -1,27 +1,51 @@
-"""Clover serving driver on the port: Clover's real-execution control loop.
+"""Clover serving entry point on the port: the full carbon-aware serving loop.
 
 Modes:
+  --mode sim    48 h trace simulation for any (--family, --scheme) pair —
+                the paper's evaluation rig (``serving/simulator.py``).  It
+                touches no tensor (numpy and the standard library only), so
+                it needs no device; it prints one JSON object, the scheme's
+                savings against BASE on the same trace.
   --mode real   real execution of a reduced LM quality ladder (SMOKE widths,
                 8 layers, f32) through the port's slotted serving engine:
                 measured wall latencies and energies feed Clover's
                 simulated annealing over configuration graphs.  Runs on the
                 GPU unless ``--device cpu``.
-  --mode sim    the 48 h trace simulation — not ported yet (raises
-                ``NotImplementedError``).
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sim --hours 6
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
 def run_sim(args) -> int:
-    raise NotImplementedError("--mode sim (the trace simulator) is not "
-                              "ported yet; use --mode real")
+    from repro_torch.core import carbon as CB
+    from repro_torch.serving import simulator as SIM
+    tr = CB.make_trace(args.region, hours=args.hours)
+    rep = SIM.run_trace(args.scheme, args.family, tr,
+                        SIM.SimConfig(n_blocks=args.blocks, lam=args.lam))
+    base = SIM.run_trace("BASE", args.family, tr,
+                         SIM.SimConfig(n_blocks=args.blocks, lam=args.lam))
+    out = {
+        "scheme": args.scheme,
+        "family": args.family,
+        "region": args.region,
+        "carbon_saving_pct": (1 - rep.carbon_per_req_g()
+                              / base.carbon_per_req_g()) * 100,
+        "accuracy_delta_pct": (rep.accuracy - base.accuracy)
+                              / base.accuracy * 100,
+        "p95_vs_sla": rep.p95_latency_s / rep.sla_target_s,
+        "opt_time_pct": rep.opt_time_frac * 100,
+        "invocations": rep.n_invocations,
+    }
+    print(json.dumps(out, indent=1))
+    return 0
 
 
 def run_real(args) -> int:
@@ -88,8 +112,12 @@ def run_real(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("sim", "real"), default="sim")
+    ap.add_argument("--family", default="efficientnet")
     ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--scheme", default="CLOVER")
     ap.add_argument("--region", default="CISO-March")
+    ap.add_argument("--hours", type=float, default=48.0)
+    ap.add_argument("--blocks", type=int, default=4)
     ap.add_argument("--lam", type=float, default=0.1)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--device", default=None,

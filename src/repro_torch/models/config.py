@@ -158,3 +158,33 @@ class ModelConfig:
             # decoder cross-attention adds another attn block per layer
             total_layers += self.n_layers * attn
         return total_layers + enc + emb + head + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed top-k + shared experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, dh, H, K = self.d_model, self.d_head, self.n_heads, self.n_kv_heads
+        attn = d * dh * H + 2 * d * dh * K + dh * H * d
+        dff = self.d_expert_ff
+        active_moe = (self.top_k + self.n_shared_experts) * 3 * d * dff + d * self.n_experts
+        per_layer = attn + active_moe + 2 * d
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        return self.n_layers * per_layer + emb + head + d
+
+    def flops_per_token(self, seq_len: int = 0, decode: bool = False) -> float:
+        """Approximate forward FLOPs/token: 2*N_active + attention term."""
+        base = 2.0 * self.active_param_count()
+        if self.family == "ssm":
+            return base + 2.0 * self.n_layers * self.n_ssm_heads * self.ssm_head_dim * self.ssm_state * 4
+        attn_layers = self.n_layers if self.family != "hybrid" else self.n_layers // max(self.attn_every, 1)
+        ctx = seq_len if decode else seq_len / 2.0  # causal average
+        if self.local_global_ratio and self.sliding_window:
+            r = self.local_global_ratio
+            local = attn_layers * r // (r + 1)
+            glob = attn_layers - local
+            ctx_local = min(ctx, self.sliding_window)
+            attn_f = 4.0 * (local * ctx_local + glob * ctx) * self.n_heads * self.d_head
+        else:
+            attn_f = 4.0 * attn_layers * ctx * self.n_heads * self.d_head
+        return base + attn_f

@@ -1,21 +1,24 @@
 """Observability: the metrics registry and phase profiler, the request
-trace and the streaming carbon feed (copies of the reference's
-``obs/metrics.py``, ``obs/profile.py``, ``obs/trace.py`` and
-``obs/carbon_feed.py``), and the :class:`Telemetry` bundle a serving
-engine carries."""
+trace, the streaming carbon feed and the fleet rollup (copies of the
+reference's ``obs/metrics.py``, ``obs/profile.py``, ``obs/trace.py``,
+``obs/carbon_feed.py`` and ``obs/aggregate.py``), and the
+:class:`Telemetry` bundle a serving backend carries."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from repro_torch.obs.aggregate import LABEL_KEYS, FleetRollup, \
+    StreamingHistogram
 from repro_torch.obs.carbon_feed import CarbonFeed, CarbonSnapshot
 from repro_torch.obs.metrics import CATALOG, MetricsRegistry
 from repro_torch.obs.profile import PHASES, PhaseProfiler
 from repro_torch.obs.trace import TraceRecorder, validate_chrome_events, \
     validate_trace
 
-__all__ = ["CATALOG", "CarbonFeed", "CarbonSnapshot", "MetricsRegistry",
-           "PHASES", "PhaseProfiler", "Telemetry", "TraceRecorder",
+__all__ = ["CATALOG", "CarbonFeed", "CarbonSnapshot", "FleetRollup",
+           "LABEL_KEYS", "MetricsRegistry", "PHASES", "PhaseProfiler",
+           "StreamingHistogram", "Telemetry", "TraceRecorder",
            "validate_chrome_events", "validate_trace"]
 
 
@@ -28,7 +31,8 @@ class Telemetry:
     loop reuses them across serve sessions so traces concatenate and the
     feed streams continuously.  ``registry`` is *per session* on the real
     engine (each serve session opens a fresh standard registry and
-    ``stats()`` reads the last one)."""
+    ``stats()`` reads the last one); the fluid backend keeps one registry
+    for its life."""
 
     registry: MetricsRegistry = None
     tracer: Optional[TraceRecorder] = None

@@ -24,8 +24,8 @@ from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Set, \
 __all__ = ["CATALOG", "CORE_METRICS", "Counter", "Gauge", "Histogram",
            "LABEL_KEYS", "MetricsRegistry", "nearest_rank_percentile"]
 
-# the canonical label schema (the reference keeps it in ``obs/aggregate.py``):
-# every labeled child series and every registry-level constant label uses
+# the canonical label schema (re-exported by ``obs/aggregate.py``, where the
+# reference keeps it): every labeled child series and every registry-level constant label uses
 # keys from this set
 LABEL_KEYS = ("region", "slo_class", "kv_layout", "phase", "role")
 
@@ -176,14 +176,21 @@ class MetricsRegistry:
     live in a separate table so :meth:`names` — the cross-backend parity
     contract — still returns exactly the unlabeled catalog.
 
-    The reference's ``streaming=True`` histograms belong to its fleet
-    rollup, which the port has not reached; every histogram here is exact.
+    ``streaming=True`` swaps histograms for bounded-memory mergeable
+    :class:`~repro_torch.obs.aggregate.StreamingHistogram` instances (exact
+    below ``max_raw_samples`` observations, log-bucket sketch above) —
+    the fleet-rollup configuration.
     """
 
     def __init__(self, backend: str = "backend",
-                 labels: Optional[Mapping[str, str]] = None):
+                 labels: Optional[Mapping[str, str]] = None,
+                 streaming: bool = False, max_raw_samples: int = 4096,
+                 alpha: float = 0.01):
         self.backend = backend
         self.labels: Dict[str, str] = dict(labels or {})
+        self.streaming = streaming
+        self.max_raw_samples = max_raw_samples
+        self.alpha = alpha
         self._metrics: Dict[str, object] = {}
         # (name, ((k, v), ...)) → child metric; kept out of _metrics so
         # names() stays exactly the catalog
@@ -192,18 +199,24 @@ class MetricsRegistry:
 
     @classmethod
     def standard(cls, backend: str = "backend",
-                 labels: Optional[Mapping[str, str]] = None
-                 ) -> "MetricsRegistry":
+                 labels: Optional[Mapping[str, str]] = None,
+                 streaming: bool = False, max_raw_samples: int = 4096,
+                 alpha: float = 0.01) -> "MetricsRegistry":
         """A registry with the whole :data:`CATALOG` pre-registered — the
         constructor every serving backend uses, so metric-name sets are
         identical across backends by construction."""
-        reg = cls(backend, labels=labels)
+        reg = cls(backend, labels=labels, streaming=streaming,
+                  max_raw_samples=max_raw_samples, alpha=alpha)
         for name, kind in CATALOG.items():
             reg._register(name, kind)
         return reg
 
     # --- get-or-create -------------------------------------------------------
     def _make(self, name: str, kind: str):
+        if kind == "histogram" and self.streaming:
+            from repro_torch.obs.aggregate import StreamingHistogram
+            return StreamingHistogram(name, max_raw=self.max_raw_samples,
+                                      alpha=self.alpha)
         ctor = {"counter": Counter, "gauge": Gauge,
                 "histogram": Histogram}[kind]
         return ctor(name)

@@ -30,7 +30,10 @@ def test_importing_every_port_module_leaves_jax_out():
                 "repro_torch.kernels.decode_attention",
                 "repro_torch.launch.serve", "repro_torch.core.annealing",
                 "repro_torch.core.carbon", "repro_torch.core.objective",
-                "repro_torch.configs"):
+                "repro_torch.configs", "repro_torch.fleet.fleet_sim",
+                "repro_torch.serving.simulator",
+                "repro_torch.serving.backends",
+                "repro_torch.core.controller", "repro_torch.obs.aggregate"):
         assert mod in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

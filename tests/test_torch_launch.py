@@ -4,6 +4,7 @@ the annealer against the reference's on the same inputs (equal values,
 and the same graphs visited under the same ``random.Random(0)`` and
 evaluator), the config registry, and ``repro_torch.launch.serve --mode
 real`` on the CPU."""
+import json
 import random
 
 import numpy as np
@@ -152,6 +153,10 @@ def test_run_real_on_cpu_anneals_over_the_slotted_engine(monkeypatch,
     assert len(set(configured)) >= 2          # it did reconfigure
 
 
-def test_sim_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        SERVE.main(["--mode", "sim"])
+def test_sim_mode_is_not_ported(capsys):
+    """``--mode sim`` is ported now (tests/test_torch_sim.py holds its
+    JSON to the reference's): it runs without a device and prints the
+    scheme's savings against BASE."""
+    assert SERVE.main(["--mode", "sim", "--hours", "2"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["scheme"] == "CLOVER" and out["invocations"] >= 1
