@@ -64,8 +64,9 @@ Phases, each printing its result lines:
    backend at the full width of qwen3-1.7b (the ladder x0.25 / x0.5 / x1
    in bf16, two regions over 2 h traces, 12 windows each, paged engines
    under the carbon-forecast policy and the greedy quality selector),
-   reconfigured warm by each region's controller and probed every window,
-   with both paged kernels counted; (b) the same fleet at the reference's
+   reconfigured warm by each region's controller onto mixed ladders and
+   probed every window, with more than one rung served, the selector's
+   dirty-grid downshift taken and both paged kernels counted; (b) the same fleet at the reference's
    defaults (SMOKE, slotted, f32, fifo; one region, 1 h) on the card
    against the CPU with the same weights: equal configurations and
    per-rid token streams; (c) ``repro_torch.launch.serve --mode sim
@@ -1723,8 +1724,9 @@ class _ProbeLog:
     """Records, for every ``RealWindowServer`` of a fleet run, each
     configuration it applies (in order) and each probe window: region
     (its trace's name), window time, chips, served, tokens, and the
-    per-rid greedy tokens and rungs.  Installed around one run; the
-    methods are restored on exit."""
+    per-rid greedy tokens, rungs, selector reasons and policy holds (the
+    seconds a held probe waited).  Installed around one run; the methods
+    are restored on exit."""
 
     def __init__(self, BK):
         self.cls = BK.RealWindowServer
@@ -1749,7 +1751,12 @@ class _ProbeLog:
                     served=int(m["served"]), tokens=int(m["tokens"]),
                     outputs={rid: [int(x) for x in v]
                              for rid, v in eng.last_outputs.items()},
-                    variants={r.rid: r.variant for r in eng.last_responses})
+                    variants={r.rid: r.variant for r in eng.last_responses},
+                    reasons={rid: why for rid, _, why in
+                             (eng.quality_selector.decision_sequence()
+                              if eng.quality_selector is not None else ())},
+                    held={r.rid: r.held_s for r in eng.last_responses
+                          if r.release_reason is not None})
             log.probes.append(entry)
             return m
         self.saved = apply, probe
@@ -1770,7 +1777,14 @@ def _fleet_config(**kw):
     """The full-width fleet's configuration: one block a region, 10-minute
     windows, the paged engine under the carbon-forecast policy with the
     greedy quality selector, half of each window's 4 probes deferrable,
-    probes of 64 prompt + 16 new tokens."""
+    probes of 64 prompt + 16 new tokens.  ``lam=1.0`` weighs carbon enough
+    that the controllers mix all three rungs (at the default 0.1 they keep
+    x1 everywhere); the 200 g clean-grid threshold lies between the two
+    traces (CISO-March ~285-305 g, ESO-March ~130-170 g), so the selector
+    downshifts CISO-March's deferrable probes and leaves ESO-March's on
+    the best rung configured.  Both outcomes depend only on the traces
+    and the variants' records, not on timing (found on the CPU with these
+    records over SMOKE models)."""
     from repro_torch.fleet import fleet_sim as FS
     return FS.FleetConfig(
         n_blocks=1, window_s=600.0, backend="real",
@@ -1778,7 +1792,8 @@ def _fleet_config(**kw):
         engine_quality_selector="greedy", probe_deferrable_frac=0.5,
         deferrable_frac=0.1, n_jobs=2, min_slack_s=1800.0,
         max_slack_s=3600.0, probe_prompt_len=64, probe_new_tokens=16,
-        engine_slots=FLEET_SLOTS, engine_max_len=FLEET_MAX_LEN, **kw)
+        engine_slots=FLEET_SLOTS, engine_max_len=FLEET_MAX_LEN, lam=1.0,
+        engine_ci_threshold_g=200.0, **kw)
 
 
 def _fleet_run(family, cfg, traces):
@@ -1841,8 +1856,12 @@ def phase_fleet() -> dict:
     minutes), each with its own controller (CLOVER, reconfiguring its
     paged ``RealEngine`` warm through ``Controller.maybe_reoptimize``), the
     carbon-forecast scheduling policy and the greedy quality selector over
-    the region's forecaster.  Checks (``_check_fleet``) and the launches of
-    both paged kernels; returns those launches."""
+    the region's forecaster.  Checks (``_check_fleet``), that probes were
+    served on more than one rung and at least one was downshifted by the
+    selector, and the launches of both paged kernels; returns those
+    launches.  The carbon policy's holds are counted, not checked: a 2 h
+    trace gives the forecaster too little history to forecast a valley in
+    the windows served, so it releases every probe at once."""
     import torch
     from repro_torch.configs import qwen3_1_7b
     from repro_torch.core import carbon as CB
@@ -1898,12 +1917,28 @@ def phase_fleet() -> dict:
     _check_fleet("fleet", rep, log, cfg, n_windows)
     _check(all(n > 0 for n in launches.values()),
            f"fleet: a paged kernel was not launched: {launches}")
+    served = [p for p in log.probes if "served" in p]
+    _check(len({v for p in served for v in p["variants"].values()}) >= 2,
+           "fleet: every probe was served on one rung")
+    n_down = sum(why == "downshift" for p in served
+                 for why in p["reasons"].values())
+    _check(n_down >= 1, "fleet: the selector downshifted no probe")
     for name, r in rep.regions.items():
         toks = sum(p["tokens"] for p in log.served(name))
-        rungs = sorted({v for p in log.served(name)
-                        for v in p["variants"].values()})
+        rungs = {}
+        for p in log.served(name):
+            for v in p["variants"].values():
+                rungs[v] = rungs.get(v, 0) + 1
+        why = {}
+        for p in log.served(name):
+            for w in p["reasons"].values():
+                why[w] = why.get(w, 0) + 1
+        held = [h for p in log.served(name) for h in p["held"].values()]
         print(f"fleet: {name}: {r.real_served} probes served in "
-              f"{len(log.served(name))} of {n_windows} windows on {rungs}, "
+              f"{len(log.served(name))} of {n_windows} windows, by rung "
+              f"{dict(sorted(rungs.items()))}, selector {why}, "
+              f"{sum(h > 0 for h in held)} held "
+              f"({max(held, default=0.0):.3f} s at most), "
               f"real p95 {r.real_p95_s * 1e3:.1f} ms, "
               f"{r.real_energy_j / max(toks, 1):.3f} J/token (reference "
               f"power model), {r.real_reconfigs} warm reconfigurations in "

@@ -660,13 +660,14 @@ def _plan_slots(regions: Sequence[_Region], t: float, horizon_end: float,
 
 
 def run_fleet(family: str, traces: Dict[str, CB.CarbonTrace],
-              cfg: FleetConfig = FleetConfig(), engine_family=None,
-              device=None) -> FleetReport:
+              cfg: FleetConfig = FleetConfig(),
+              engine_family=None) -> FleetReport:
     """Run the fleet over ``traces``.  With ``backend="real"`` every region
     serves its probes through a ``RealEngine`` over one shared ladder:
-    ``engine_family`` when given (any width, on any device), else the
-    reference's reduced SMOKE ladder from ``build_real_family`` on
-    ``device`` (the GPU by default).  The fluid backend ignores both."""
+    ``engine_family`` when given (any width, on any device; pass
+    ``build_real_family(..., device="cpu")`` for the CPU), else the
+    reference's reduced SMOKE ladder from ``build_real_family`` on the GPU.
+    The fluid backend ignores it."""
     if cfg.backend != "real":
         engine_family = None
     elif engine_family is None:
@@ -675,7 +676,7 @@ def run_fleet(family: str, traces: Dict[str, CB.CarbonTrace],
         # parameters)
         from repro_torch.serving import backends as BK
         engine_family = BK.build_real_family(
-            cfg.engine_arch, cfg.engine_layers, seed=cfg.seed, device=device)
+            cfg.engine_arch, cfg.engine_layers, seed=cfg.seed)
     regions = [_Region(name, tr, family, cfg, engine_family)
                for name, tr in traces.items()]
     by_name = {r.name: r for r in regions}

@@ -153,7 +153,7 @@ def test_run_real_on_cpu_anneals_over_the_slotted_engine(monkeypatch,
     assert len(set(configured)) >= 2          # it did reconfigure
 
 
-def test_sim_mode_is_not_ported(capsys):
+def test_sim_mode_runs_without_a_device(capsys):
     """``--mode sim`` is ported now (tests/test_torch_sim.py holds its
     JSON to the reference's): it runs without a device and prints the
     scheme's savings against BASE."""
