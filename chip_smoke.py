@@ -23,7 +23,14 @@ Phases, each printing its result lines:
    batch 4 over 160 positions) and the prefill at zamba2 SMOKE's widths
    (4 heads of 16); and the SSD scan at mamba2's and zamba2's full
    widths, f32 and bf16, batch 1-4, 2048 and 4096 positions, and mamba2
-   at 1 x 32768 (32-column P slices).  Each case prints its time, the
+   at 1 x 32768 (32-column P slices); and the dense family's shapes
+   (``DENSE_ATTN``): both decodes at batch 8 over rows of 1-2048
+   positions at gemma3-27b's widths (32 heads of 128 over 16 KV heads)
+   with its window of 1024 and without, at glm4-9b's (32 over 2: a group
+   of 16 rows, two row-chunks) with and without a window, at qwen2-0.5b's
+   (14 heads of 64 over 2), and the paged prefill of a 128-token chunk at
+   n_past 1280 and the contiguous flash over 1400 tokens at those widths,
+   f32 and bf16.  Each case prints its time, the
    plain version's, one ``scaled_dot_product_attention`` call as a
    yardstick (none computes the scan), and the least time the card could
    take (for f32 work multiplied as split bf16, also at the CUDA cores'
@@ -71,12 +78,25 @@ Phases, each printing its result lines:
    against the CPU with the same weights: equal configurations and
    per-rid token streams; (c) ``repro_torch.launch.serve --mode sim
    --hours 6``;
-12. the ``kernels`` line: every ported kernel with its launches on the main
-   paths that run it (phases 3, 9 and 11a for the paged kernels, phases 4
-   and 11b for the contiguous decode and the f32 contiguous prefill, whose
-   record is the slotted serve's 1024-token shape, phase 7 for the scan,
-   phase 8's forward for the bf16 contiguous prefill, whose record is that
-   forward's shape).
+12. the rest of the dense family at full width, bf16: gemma3-27b (62
+   layers, 52 of them local with a window of 1024) through the paged
+   engine serving 4 requests of 1040-1400 prompt tokens (a shared
+   256-token prefix) and 24 new, both paged kernels counted with their
+   windowed launches; the profiles of one fused decode dispatch and one
+   128-token prefill chunk; the chunked paged prefill of a 1400-token
+   prompt held to ``registry.forward`` (the contiguous flash) within
+   ``DENSE_PREFILL_TOL``, and the same with the local layers' window
+   dropped rejected by it; then a short paged serve of glm4-9b and of
+   qwen2-0.5b;
+13. the dense family's SMOKE configs (and glm4's with a group of 16) on
+   the card against the CPU: both engines' greedy streams, the forward
+   and ``decode_step``'s greedy tokens;
+14. the ``kernels`` line: every ported kernel with its launches on the main
+   paths that run it (phases 3, 9, 11a and 12 for the paged kernels,
+   phases 4, 11b and 13 for the contiguous decode and the f32 contiguous
+   prefill, whose record is the slotted serve's 1024-token shape, phase 7
+   for the scan, phase 8's and phase 12's forwards for the bf16
+   contiguous prefill, whose record is phase 8's forward shape).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is ``{"ok": true, "device": {...}}``.
@@ -233,12 +253,13 @@ def _prefill_case(n_past: int, dtype, seed: int, C: int = 32,
     return q, ka, va, torch.as_tensor(table, device=dev), pos
 
 
-def _sdpa_decode(q, ka, va, tables, lengths):
+def _sdpa_decode(q, ka, va, tables, lengths, window: int = 0):
     """Yardstick: one scaled_dot_product_attention call on the gathered
-    K/V (gather outside the timed call) with a per-row length mask."""
+    K/V (gather outside the timed call) with a per-row length (and
+    window) mask."""
     from repro_torch.kernels.ref import gather_paged_kv
     kc, vc = gather_paged_kv(ka, va, tables)
-    return _sdpa_contig_decode(q, kc, vc, lengths)
+    return _sdpa_contig_decode(q, kc, vc, lengths, window)
 
 
 def _sdpa_prefill(q, ka, va, table, pos, window: int = 0):
@@ -291,14 +312,18 @@ def _flash_case(sq: int, dtype, seed: int, K: int = 8, g: int = 2,
     return q, k, v
 
 
-def _sdpa_contig_decode(q, kc, vc, lengths):
+def _sdpa_contig_decode(q, kc, vc, lengths, window: int = 0):
     import torch
     import torch.nn.functional as F
     kq = kc.transpose(1, 2).contiguous()              # (b, K, S, dh)
     vq = vc.transpose(1, 2).contiguous()
     qq = q[:, :, None, :]                              # (b, H, 1, dh)
-    mask = (torch.arange(kc.shape[1], device=q.device)[None, :]
-            < lengths.reshape(-1, 1))[:, None, None, :]
+    pos = torch.arange(kc.shape[1], device=q.device)[None, :]
+    ln = lengths.reshape(-1, 1)
+    mask = pos < ln
+    if window > 0:
+        mask &= pos >= ln - window
+    mask = mask[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=mask,
                                                   enable_gqa=True)
 
@@ -323,6 +348,14 @@ def _sdpa_flash(q, k, v, window: int):
 ZAMBA2_ATTN = dict(K=32, g=1, dh=80)
 # zamba2 SMOKE's: 4 heads of 16 over 4 KV heads
 ZAMBA2_SMOKE_ATTN = dict(K=4, g=1, dh=16)
+# the dense family's attention: gemma3-27b 32 heads of 128 over 16 KV heads
+# (window 1024 on its local layers), glm4-9b 32 over 2 (g = 16), qwen2-0.5b
+# 14 heads of 64 over 2 (g = 7); decode rows shorter and longer than
+# gemma3's window, one at the table's 2048
+DENSE_ATTN = {"gemma3": dict(K=16, g=2, dh=128),
+              "glm4": dict(K=2, g=16, dh=128),
+              "qwen2": dict(K=2, g=7, dh=64)}
+DENSE_LENGTHS = (2048, 1400, 1025, 1024, 1000, 300, 17, 1)
 
 
 def phase_kernels() -> dict:
@@ -391,7 +424,29 @@ def phase_kernels() -> dict:
              + [("prefill", n, bf16) for n in (0, 224)]
              + [("prefill", n, d, dict(true_c=c)) for d in (f32, bf16)
                 for n, c in ((0, 5), (992, 7))]
-             + [("prefill", 992, d, dict(window=256)) for d in (f32, bf16)])
+             + [("prefill", 992, d, dict(window=256)) for d in (f32, bf16)]
+             # the dense family's shapes (DENSE_ATTN): gemma3's decodes at
+             # batch 8 over rows of up to 2048 positions, shorter and
+             # longer than its window of 1024 (local) and without it
+             # (global); glm4's group of 16 rows (two row-chunks), with
+             # and without a window; qwen2's group of 7 of dh 64; the paged
+             # prefill of a 128-token chunk at n_past 1280 and the
+             # contiguous flash over a 1400-token prompt at gemma3's
+             # (window 1024 and none), glm4's and qwen2's widths
+             + [(kind, 8, d, dict(DENSE_ATTN[m], window=w,
+                                  lengths=DENSE_LENGTHS))
+                for d in (f32, bf16)
+                for kind in ("decode", "contig_decode")
+                for m, w in (("gemma3", 1024), ("gemma3", 0),
+                             ("glm4", 0), ("glm4", 1024), ("qwen2", 0))]
+             + [("prefill", 1280, d, dict(DENSE_ATTN[m], C=128, nb=129,
+                                          window=w))
+                for d in (f32, bf16)
+                for m, w in (("gemma3", 1024), ("gemma3", 0), ("glm4", 0),
+                             ("qwen2", 0))]
+             + [("flash", (1400, w), d, DENSE_ATTN[m]) for d in (f32, bf16)
+                for m, w in (("gemma3", 1024), ("gemma3", 0), ("glm4", 0),
+                             ("qwen2", 0))])
     # the case whose numbers each record of the kernels line carries
     headlines = {("decode", 8, "float32", ()): "paged_decode_attention",
                  ("prefill", 992, "float32", ()): "paged_prefill_attention",
@@ -406,36 +461,47 @@ def phase_kernels() -> dict:
         key = (kind, arg, dname, tuple(sorted(shape.items())))
         elt = torch.tensor([], dtype=dtype).element_size()
         if kind == "decode":
+            window = shape.pop("window", 0)
             args = _decode_case(arg, dtype, seed=i, **shape)
-            kern = lambda a=args: PA.paged_decode_attention(*a)
-            plain = lambda a=args: REF.paged_decode_attention_ref(*a)
-            lib = _sdpa_decode(*args)
+            kern = lambda a=args, w=window: PA.paged_decode_attention(
+                *a, window=w)
+            plain = lambda a=args, w=window: REF.paged_decode_attention_ref(
+                *a, window=w)
+            lib = _sdpa_decode(*args, window)
             q, ka, va, tables, lengths = args
             H, dh = q.shape[1], q.shape[2]
-            K = ka.shape[2]
+            K, bs = ka.shape[2], ka.shape[1]
             ln = lengths.long().cpu()
-            pages = (-(-ln // ka.shape[1])).sum().item()
-            n_bytes = (2 * q.numel() * elt + 2 * int(ln.sum()) * K * dh * elt
+            lo = (ln - window).clamp(min=0) if window > 0 else 0 * ln
+            seen = int((ln - lo).sum())        # the visible positions
+            pages = (-(-ln // bs) - lo // bs).sum().item()
+            n_bytes = (2 * q.numel() * elt + 2 * seen * K * dh * elt
                        + 4 * (pages + len(ln)))
-            n_ops = 4 * int(ln.sum()) * H * dh
+            n_ops = 4 * seen * H * dh
             name, label = "paged_decode_attention", f"b={arg}"
-            if shape:
-                label += f" lengths {tuple(int(x) for x in ln)}"
+            if shape or window:
+                label += (f" H={H} K={K} dh={dh} window={window} lengths "
+                          f"{tuple(int(x) for x in ln)}")
         elif kind == "contig_decode":
+            window = shape.pop("window", 0)
             args = _contig_decode_case(arg, dtype, seed=i, **shape)
-            kern = lambda a=args: DA.decode_attention(*a)
-            plain = lambda a=args: REF.decode_attention_ref(*a)
-            lib = _sdpa_contig_decode(*args)
+            kern = lambda a=args, w=window: DA.decode_attention(*a, window=w)
+            plain = lambda a=args, w=window: REF.decode_attention_ref(
+                *a, window=w)
+            lib = _sdpa_contig_decode(*args, window)
             q, kc, vc, lengths = args
             H, dh, K = q.shape[1], q.shape[2], kc.shape[2]
-            ln = lengths.long().cpu().clamp(max=kc.shape[1]).expand(arg)
-            n_bytes = (2 * q.numel() * elt + 2 * int(ln.sum()) * K * dh * elt
+            ln = lengths.long().cpu().expand(arg)
+            lo = (ln - window).clamp(min=0) if window > 0 else 0 * ln
+            seen = int((ln.clamp(max=kc.shape[1]) - lo).clamp(min=0).sum())
+            n_bytes = (2 * q.numel() * elt + 2 * seen * K * dh * elt
                        + lengths.numel() * 4)
-            n_ops = 4 * int(ln.sum()) * H * dh
+            n_ops = 4 * seen * H * dh
             name, label = "decode_attention", f"b={arg}"
-            if shape:
+            if shape or window:
                 given = tuple(int(x) for x in lengths.reshape(-1).cpu())
-                label += (f" S={kc.shape[1]} H={H} dh={dh} lengths "
+                label += (f" S={kc.shape[1]} H={H} K={K} dh={dh} window="
+                          f"{window} lengths "
                           f"{'shared ' if lengths.dim() == 0 else ''}"
                           f"{given if lengths.dim() else given[0]}")
             if bool((ln == 0).any()):
@@ -490,6 +556,8 @@ def phase_kernels() -> dict:
             name, label = "paged_prefill_attention", f"n_past={arg}"
             if shape or window:
                 label += f" true_c={shape.get('true_c', C)} window={window}"
+            if K != 8:
+                label += f" C={C} H={H} K={K} dh={dh}"
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -2076,6 +2144,377 @@ def phase_sim() -> None:
 
 
 # =============================================================================
+# phase 12: the rest of the dense family (gemma3-27b, glm4-9b, qwen2-0.5b)
+# =============================================================================
+# arena of the gemma3 serve: 400 blocks of 16 positions (6.5 GB in f32 at
+# gemma3's 62 layers x 16 KV heads x 128): the 4 requests' 4,836 positions
+# (303 blocks without the shared prefix) with headroom
+DENSE_BLOCKS = 400
+# largest rms difference allowed between the chunked paged prefill's
+# logits and registry.forward's over the last 200 positions of a
+# 1400-token prompt (1200..1399, where gemma3's window of 1024 hides the
+# first 176-375 keys from a local layer), as a fraction of the rms of what
+# the layers add to the forward's logits (as REPLAY_TOL reads it).
+# Readings on the H100 (two calls, the same to four digits): 0.0346, the
+# floor of a bf16 comparison through 62 random layers (the forward's K/V
+# are bf16, the chunked prefill's arena f32); with the local layers'
+# window dropped from the chunked prefill 0.0790 (0.0723 over 1024..1399,
+# 0.0824 at the last position alone).  The limit sits 1.45x above the
+# floor and 1.58x below the dropped window's reading.
+DENSE_PREFILL_TOL = 5e-2
+DENSE_CHECK_FROM = 1200
+
+
+def _dense_prompts(vocab: int, seed: int = 7):
+    """4 prompts of 1040-1400 tokens, all past gemma3's window of 1024,
+    sharing a 256-token prefix."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, size=256).astype(np.int32)
+    prompts = []
+    for n in (1040, 1400, 1200, 1100):
+        p = rng.integers(0, vocab, size=n).astype(np.int32)
+        p[:256] = shared
+        prompts.append(p)
+    return prompts
+
+
+def _paged_counts() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    return {"paged_decode_attention": PA.paged_decode_attention,
+            "paged_prefill_attention": FA.paged_prefill_attention}
+
+
+def _dense_serve(tag: str, cfg, prompts, n_new: int, max_seqs: int,
+                 **engine_kw):
+    """One paged engine of ``cfg`` at full width (bf16 weights from seed 0,
+    f32 arena) serving ``prompts``, ``max_seqs`` rows at a time (fewer
+    than the prompts: a later one reuses the first ones' shared prefix
+    from the prefix cache): the phase 3 checks, and both paged kernels'
+    launches (all, and with a window) during the serve.  Returns (engine,
+    stats, launches, windowed launches)."""
+    import torch
+    from repro_torch.core.config_graph import ConfigGraph
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving.api import serve_prompts
+    t0 = time.perf_counter()
+    family = ENG.build_engine_family(cfg, fracs=(1.0,), seed=0)
+    eng = ENG.RealEngine(family, max_len=2048, kv_layout="paged",
+                         block_size=16, max_seqs=max_seqs, **engine_kw)
+    t_cfg = eng.configure(ConfigGraph.from_dict(cfg.name, {("x1", 1): 1}))
+    torch.cuda.synchronize()
+    print(f"{tag}: family + arena {time.perf_counter() - t0 - t_cfg:.1f} s, "
+          f"configure (warmup) {t_cfg:.1f} s, "
+          f"{family[0].variant.params_m:.1f} M params")
+    for fn in _paged_counts().values():
+        fn.launches = fn.windowed_launches = 0
+    m = serve_prompts(eng, prompts, n_new=n_new)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in _paged_counts().items()}
+    windowed = {k: fn.windowed_launches for k, fn in _paged_counts().items()}
+    resps = eng.last_responses
+    _check(m["served"] == len(prompts) == len(resps),
+           f"{tag}: served {m['served']} of {len(prompts)}")
+    for r in resps:
+        _check(len(r.tokens) == n_new,
+               f"{tag}: rid {r.rid}: {len(r.tokens)} tokens")
+        _check(bool(((r.tokens >= 0) & (r.tokens < cfg.padded_vocab)).all()),
+               f"{tag}: rid {r.rid}: token ids out of range")
+    _check(m["prefix_hit_tokens"] > 0, f"{tag}: no prefix-cache hit")
+    total_j = sum(r.energy_j for r in resps)
+    _check(abs(total_j - m["energy_j"]) <= 1e-9 * m["energy_j"],
+           f"{tag}: per-request joules {total_j} != session {m['energy_j']}")
+    _check(all(n > 0 for n in launches.values()),
+           f"{tag}: a kernel was not launched on the main path: {launches}")
+    _check(m["host_syncs"] == 0, f"{tag}: {m['host_syncs']} host syncs")
+    _check(m["compile_retraces"] == 0, f"{tag}: shape missed by warmup")
+    print(f"{tag}: {m['served']} requests, {m['tokens']} tokens in "
+          f"{m['wall_s']:.2f} s = {m['tokens_per_s']:.1f} tok/s; TTFT p50 "
+          f"{m['ttft_p50_s'] * 1e3:.1f} ms p95 {m['ttft_p95_s'] * 1e3:.1f} "
+          f"ms; decode steps {m['decode_steps']} in "
+          f"{m['decode_dispatches']} dispatches; prefill chunks "
+          f"{m['prefill_chunks']}; prefix hits {m['prefix_hit_tokens']} "
+          f"tokens; host_syncs {m['host_syncs']}; {m['j_per_token']:.3f} "
+          f"J/token (reference power model); launches {launches}, with a "
+          f"window {windowed}")
+    return eng, m, launches, windowed
+
+
+def _chunked_prefill_logits(model, prompt, chunk: int):
+    """Logits of every position of ``prompt`` through chunked paged prefill
+    (``registry.prefill_paged``, chunks of ``chunk`` tokens) into an f32
+    arena of its own, as the engine prefills."""
+    import torch
+    from repro_torch.models import registry as R
+    n, bs = len(prompt), 16
+    span = -(-n // bs)
+    arena = R.make_block_arena(model.cfg, span + 1, bs, dtype=torch.float32)
+    table = torch.arange(1, span + 1, dtype=torch.int32, device="cuda")
+    toks = torch.as_tensor(prompt, device="cuda")
+    out = []
+    for start in range(0, n, chunk):
+        true_c = min(chunk, n - start)
+        piece = torch.zeros((1, chunk), dtype=torch.int32, device="cuda")
+        piece[0, :true_c] = toks[start:start + true_c]
+        out.append(R.prefill_paged(model, {"tokens": piece}, arena, table,
+                                   start, true_c)[0, :true_c])
+    del arena
+    return torch.cat(out)
+
+
+def _prefill_vs_forward(model, prompt, chunk: int) -> dict:
+    """Hold the chunked paged prefill's logits at the positions from
+    ``DENSE_CHECK_FROM`` against ``registry.forward``'s (contiguous flash)
+    over the same prompt, relative to what the layers add to them; then
+    again with the
+    local layers' window dropped from the chunked prefill (their rotary
+    base kept), which must fail ``DENSE_PREFILL_TOL``.  Returns the
+    readings."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    start = DENSE_CHECK_FROM
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    FA.flash_attention.launches = FA.flash_attention.windowed_launches = 0
+    ref = R.forward(model, {"tokens": toks}, cfg)[0][0, start:].float()
+    n_flash = (FA.flash_attention.launches,
+               FA.flash_attention.windowed_launches)
+    with torch.no_grad():     # the logits of the embedding alone
+        base = model.logits(L.embedding_apply(model.embed,
+                                              toks[:, start:]))[0].float()
+    layers = (ref - base).norm()
+
+    def reading(got):
+        return ((got[start:].float() - ref).norm() / layers).item()
+
+    kept = reading(_chunked_prefill_logits(model, prompt, chunk))
+    pattern = T.layer_pattern
+    T.layer_pattern = lambda c: (0 * pattern(c)[0], pattern(c)[1])
+    try:
+        dropped = reading(_chunked_prefill_logits(model, prompt, chunk))
+    finally:
+        T.layer_pattern = pattern
+    return {"kept": kept, "dropped": dropped, "flash": n_flash}
+
+
+def phase_dense() -> dict:
+    """The rest of the dense family at full width, bf16 weights: gemma3-27b
+    (62 layers, d 5376, 32 heads over 16 KV heads, 52 local layers of
+    window 1024 and 10 global) through the paged engine (``DENSE_BLOCKS``
+    of f32 arena, chunks of 128 tokens) serving 4 requests of 1040-1400
+    prompt tokens and 24 new; the profiles of one fused 8-step decode
+    dispatch and one prefill chunk; the chunked prefill of a 1400-token
+    prompt held to ``registry.forward`` (``DENSE_PREFILL_TOL``), and the
+    same with the window dropped rejected; then a short paged serve of
+    glm4-9b (g = 16) and of qwen2-0.5b.  Returns the paged kernels'
+    launches over the three serves and the forward's flash launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import gemma3_27b, glm4_9b, qwen2_0_5b
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    cfg = gemma3_27b.FULL
+    n_local = int((T.layer_pattern(cfg)[0] > 0).sum())
+    torch.cuda.reset_peak_memory_stats()
+    prompts = _dense_prompts(cfg.vocab_size)
+    eng, m, launches, windowed = _dense_serve(
+        "dense gemma3-27b", cfg, prompts, 24, 3, n_blocks=DENSE_BLOCKS,
+        chunk_blocks=8)
+    L = cfg.n_layers
+    for name in launches:
+        _check(launches[name] % L == 0 and windowed[name] * L
+               == launches[name] * n_local,
+               f"dense gemma3-27b: {windowed[name]} of {launches[name]} "
+               f"{name} launches with a window, expected {n_local} of "
+               f"every {L}")
+    print(f"dense gemma3-27b: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # one fused 8-step decode dispatch of 4 rows, 1400 positions of
+    # context each (inactive rows: every write goes to the junk block), and
+    # one 128-token prefill chunk at n_past 1280: wall, host enqueue,
+    # device time (torch.profiler)
+    inst = eng.instances[0]
+    B, ctx = 4, 1400
+    pages = -(-ctx // inst.block_size)
+    tables = np.zeros((B, inst.n_pages), np.int32)
+    tables[:, :pages] = 1 + np.arange(B * pages).reshape(B, pages) % (
+        DENSE_BLOCKS - 1)
+    args = [torch.as_tensor(a, device=inst.device) for a in
+            (np.zeros((B, 1), np.int32), tables,
+             np.full((B,), ctx, np.int32), np.zeros((B,), bool))]
+
+    def dispatch():
+        return R.decode_paged_multi(inst.params, inst.arena,
+                                    {"tokens": args[0]}, *args[1:], 8)[0]
+
+    dispatch()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dispatch()
+    t_enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t
+    device = _device_profile(dispatch, 8, t_wall, {
+        "attention kernel (split and merge)":
+            lambda key: "decode_split_kernel" in key and "PagedKV" in key})
+    print(f"dense gemma3-27b decode step (batch {B}, {ctx} tokens of "
+          f"context): wall {t_wall / 8 * 1e3:.2f} ms, host enqueue "
+          f"{t_enqueue / 8 * 1e3:.2f} ms, {device}")
+    n_past, C = 1280, inst.chunk_tokens
+    span = 128
+    table = torch.as_tensor(1 + np.arange(span) % (DENSE_BLOCKS - 1),
+                            dtype=torch.int32, device=inst.device)
+    chunk = torch.as_tensor(prompts[1][None, n_past:n_past + C],
+                            device=inst.device)
+
+    def prefill_chunk():
+        return R.prefill_paged(inst.params, {"tokens": chunk}, inst.arena,
+                               table, n_past, C)
+
+    prefill_chunk()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg = prefill_chunk()
+    t_enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t
+    _check(bool(torch.isfinite(lg).all()), "dense: non-finite prefill logits")
+    device = _device_profile(prefill_chunk, 1, t_wall, {
+        "prefill attention kernels (split and merge)":
+            lambda key: "paged_prefill" in key})
+    print(f"dense gemma3-27b prefill chunk ({C} tokens at n_past {n_past}): "
+          f"wall {t_wall * 1e3:.2f} ms, host enqueue {t_enqueue * 1e3:.2f} "
+          f"ms, {device}")
+    model = eng.family["x1"].params
+    del eng, inst, args, lg
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    r = _prefill_vs_forward(model, prompts[1], C)
+    _check(r["flash"] == (L, n_local),
+           f"dense: forward flash launches (all, windowed) {r['flash']}, "
+           f"expected ({L}, {n_local})")
+    _check(r["kept"] <= DENSE_PREFILL_TOL,
+           f"dense: chunked paged prefill differs from the forward by "
+           f"{r['kept']:.4g} of the layers' part (rms), beyond "
+           f"{DENSE_PREFILL_TOL}")
+    _check(r["dropped"] > DENSE_PREFILL_TOL,
+           f"dense: with the local layers' window dropped the chunked "
+           f"prefill still reads {r['dropped']:.4g}, inside "
+           f"{DENSE_PREFILL_TOL}: the check does not see the window")
+    print(f"dense gemma3-27b: chunked paged prefill of {len(prompts[1])} "
+          f"tokens against registry.forward at positions "
+          f"{DENSE_CHECK_FROM}..: rms diff {r['kept']:.4g} of the layers' "
+          f"part (tol {DENSE_PREFILL_TOL}); with the window dropped "
+          f"{r['dropped']:.4g} ({time.perf_counter() - t:.1f} s)")
+    del model
+    torch.cuda.empty_cache()
+    launches["flash_attention"] = r["flash"][0]
+    # glm4-9b (32 heads over 2 KV heads: two row-chunks a group) and
+    # qwen2-0.5b (14 over 2, dh 64): a short paged serve each
+    short = [_serve_prompts(glm4_9b.FULL.vocab_size)[i] for i in (1, 0, 2, 3)]
+    for tag, c in (("dense glm4-9b", glm4_9b.FULL),
+                   ("dense qwen2-0.5b", qwen2_0_5b.FULL)):
+        torch.cuda.reset_peak_memory_stats()
+        eng, _, more, _ = _dense_serve(tag, c, short, 16, 3, n_blocks=160,
+                                       chunk_blocks=8)
+        print(f"{tag}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for name, n in more.items():
+            launches[name] += n
+        del eng
+        torch.cuda.empty_cache()
+    return launches
+
+
+# =============================================================================
+# phase 13: the dense family's SMOKE configs on the card against the CPU
+# =============================================================================
+def phase_dense_parity() -> dict:
+    """The dense family's SMOKE configs (gemma3, glm4, qwen2, and glm4 with
+    16 query heads over one KV head: the decode kernels' two row-chunks)
+    on the card against the CPU with the same weights: the paged and the
+    slotted engines' greedy streams, and ``make_cache`` / ``decode_step``
+    greedy tokens after a replayed prompt, equal (a differing token must
+    be a near-tie of the CPU's logits), the forward's logits within
+    ``SMOKE_TOL``.  Returns the contiguous kernels' launches on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.config_graph import ConfigGraph
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import registry as R
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving.api import serve_prompts
+    variants = [(a, {}) for a in ("gemma3-27b", "glm4-9b", "qwen2-0.5b")]
+    variants.append(("glm4-9b", dict(n_heads=16, n_kv_heads=1, d_head=16)))
+    counts = {"decode_attention": 0, "flash_attention_f32": 0}
+    for arch, kw in variants:
+        cfg = get_smoke_config(arch).with_(**kw)
+        tag = f"dense parity {arch}{' g=16' if kw else ''}"
+        fam_cpu = ENG.build_engine_family(cfg, fracs=(1.0,), seed=3,
+                                          device="cpu")
+        fam_gpu = ENG.build_engine_family(cfg, fracs=(1.0,), seed=3)
+        fam_gpu[0].params.load_state_dict(fam_cpu[0].params.state_dict())
+        prompts = _mixed_prompts(cfg.vocab_size)
+        model = fam_cpu[0].params
+        ties = {}
+        for layout in ("paged", "slotted"):
+            outs = {}
+            for fam, dev in ((fam_gpu, None), (fam_cpu, "cpu")):
+                eng = ENG.RealEngine(fam, n_slots=2, max_len=64, block_size=8,
+                                     max_seqs=6, device=dev,
+                                     kv_layout=layout)
+                eng.configure(ConfigGraph.from_dict(cfg.name,
+                                                    {("x1", 1): 1}))
+                DA.decode_attention.launches = FA.flash_attention.launches = 0
+                serve_prompts(eng, prompts, n_new=12)
+                if dev is None:       # the card's serve, configure excluded
+                    counts["decode_attention"] += DA.decode_attention.launches
+                    counts["flash_attention_f32"] += (
+                        FA.flash_attention.launches)
+                outs[dev or "cuda"] = dict(eng.last_outputs)
+            ties[layout] = _equal_streams(f"{tag} {layout}", outs["cuda"],
+                                          outs["cpu"], model, prompts)
+        # the generic entry points: forward logits, then greedy decode
+        toks = np.random.default_rng(9).integers(
+            0, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+        lg_g = R.forward(fam_gpu[0].params, {"tokens": torch.as_tensor(
+            toks, device="cuda")}, model.cfg)[0].float().cpu()
+        lg_c = R.forward(model, {"tokens": torch.as_tensor(toks)},
+                         model.cfg)[0]
+        err = (lg_g - lg_c).abs().max().item()
+        _check(torch.allclose(lg_g, lg_c, atol=SMOKE_TOL, rtol=SMOKE_TOL),
+               f"{tag}: forward logits differ by {err:.3g}")
+        DA.decode_attention.launches = 0
+        gen_g, _ = _replay_greedy(fam_gpu[0].params, toks[:, :12], 12)
+        counts["decode_attention"] += DA.decode_attention.launches
+        gen_c, lg_steps = _replay_greedy(model, toks[:, :12], 12)
+        ties["decode_step"] = 0
+        for row in range(gen_c.shape[0]):
+            diff = (gen_g[row] != gen_c[row]).nonzero()
+            if len(diff) == 0:
+                continue
+            step = int(diff[0])
+            top = torch.topk(lg_steps[step][row], 2).values
+            gap = float(top[0] - top[1])
+            _check(gap <= 1e-4 * max(1.0, float(top[0].abs())),
+                   f"{tag}: decode_step row {row} differs at step {step} "
+                   f"with a top-2 logit gap of {gap:.3g} — not a near-tie")
+            ties["decode_step"] += 1
+        print(f"{tag}: on {len(prompts)} requests x 12 tokens the paged and "
+              f"slotted engines on the card equal the CPU's, and the "
+              f"decode_step greedy tokens of 2 rows x 12 (near-tie "
+              f"divergences {ties}); forward max |diff| {err:.3g} (tol "
+              f"{SMOKE_TOL})")
+    return counts
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -2136,6 +2575,10 @@ def main() -> int:
     t12 = time.perf_counter()
     phase_sim()
     t13 = time.perf_counter()
+    dense = phase_dense()
+    t14 = time.perf_counter()
+    dense_parity = phase_dense_parity()
+    t15 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
@@ -2148,6 +2591,10 @@ def main() -> int:
         launches[name] += n
     for name, n in fleet_parity.items():  # the SMOKE fleet on the card
         launches[name] += n
+    # the dense family's serves and gemma3's forward, and its SMOKE
+    # engines and decode steps on the card
+    for name, n in list(dense.items()) + list(dense_parity.items()):
+        launches[name] += n
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "
@@ -2155,7 +2602,8 @@ def main() -> int:
           f"{t7 - t6:.1f} s, hybrid {t8 - t7:.1f} s, preempted serve "
           f"{t9 - t8:.1f} s, ssm parity {t10 - t9:.1f} s, fleet "
           f"{t11 - t10:.1f} s, fleet parity {t12 - t11:.1f} s, sim "
-          f"{t13 - t12:.1f} s, total {t13 - t0:.1f} s")
+          f"{t13 - t12:.1f} s, dense {t14 - t13:.1f} s, dense parity "
+          f"{t15 - t14:.1f} s, total {t15 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

@@ -4,10 +4,13 @@ headline shapes, for the source tree given — to compare two versions of
 the kernels on one card in one call.
 
     PYTHONPATH=src:. python3 scripts/attention_times.py [--src DIR] [--label L]
+        [--dense]
 
 Needs one GPU.  ``--src`` is the ``src`` directory whose ``repro_torch``
 is timed (default: this checkout's); its kernels build into that tree's own
-``build/repro_torch_ext/``.  The inputs are chip_smoke's (``_decode_case``,
+``build/repro_torch_ext/``.  ``--dense`` adds the decodes at the dense
+family's widths (``chip_smoke.DENSE_ATTN``: gemma3 with its window of 1024
+and without, glm4's group of 16; kernels that take ``window``).  The inputs are chip_smoke's (``_decode_case``,
 ``_prefill_case``, ``_contig_decode_case``, ``_flash_case``, seeded, made
 once per case) and each kernel is timed by ``chip_smoke._time_ms`` behind
 a device spin.  It prints one line ``{"label": ..., "device": ..., "ms":
@@ -28,6 +31,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--dense", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as CS          # its kernel imports are inside functions
@@ -51,6 +55,9 @@ def main() -> int:
             lambda: CS._decode_case(8, f32, seed=1, lengths=300)),
         "paged_decode b=8 bf16": (PA.paged_decode_attention,
                                   lambda: CS._decode_case(8, bf16, seed=1)),
+        "paged_decode b=8 x 300 bf16": (
+            PA.paged_decode_attention,
+            lambda: CS._decode_case(8, bf16, seed=1, lengths=300)),
         "paged_prefill n_past=992 f32": (
             FA.paged_prefill_attention,
             lambda: CS._prefill_case(992, f32, seed=2)),
@@ -80,10 +87,26 @@ def main() -> int:
             lambda: CS._flash_case(4096, bf16, seed=6, b=4,
                                    **CS.ZAMBA2_ATTN)),
     }
+    windows = {}
+    if args.dense:
+        for m, w in (("gemma3", 1024), ("gemma3", 0), ("glm4", 0)):
+            shape = dict(CS.DENSE_ATTN[m], lengths=CS.DENSE_LENGTHS)
+            for d in (f32, bf16):
+                dn = "f32" if d == f32 else "bf16"
+                for kind, kernel, case in (
+                        ("paged_decode", PA.paged_decode_attention,
+                         CS._decode_case),
+                        ("decode", DA.decode_attention,
+                         CS._contig_decode_case)):
+                    name = f"{kind} {m} window={w} {dn}"
+                    cases[name] = (kernel, lambda c=case, d=d, s=shape:
+                                   c(8, d, seed=7, **s))
+                    windows[name] = w
     ms = {}
     for name, (kernel, make) in cases.items():
         inputs = make()
-        ms[name] = CS._time_ms(lambda: kernel(*inputs))
+        kw = {"window": windows[name]} if name in windows else {}
+        ms[name] = CS._time_ms(lambda: kernel(*inputs, **kw))
         del inputs
         torch.cuda.empty_cache()
     print(json.dumps({"label": args.label,

@@ -43,7 +43,7 @@ extern "C" __attribute__((visibility("default"))) int run_decode(
     float sm_scale, void* stream) {
   return (int)repro_torch::launch_paged_decode(
       bf16, q, k, v, tables, lengths, out, part, counters, b, H, K, dh, bs,
-      n_pages, min_pages, n_split, ctas, sm_scale, (cudaStream_t)stream);
+      n_pages, min_pages, n_split, ctas, sm_scale, 0, (cudaStream_t)stream);
 }
 """
 # variant -> the kernel's compile-time settings (csrc/paged_attention.cu)

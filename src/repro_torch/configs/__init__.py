@@ -1,7 +1,9 @@
 """Architecture config registry — ``--arch <id>`` resolution for the
-architectures the port runs: ``qwen3-1.7b`` (dense, served by the engines),
-``mamba2-2.7b`` (SSM) and ``zamba2-2.7b`` (hybrid), each with ``FULL`` and
-``SMOKE`` (for the CPU tests).  The reference's other architectures raise
+architectures the port runs: the dense family ``qwen3-1.7b``,
+``qwen2-0.5b``, ``glm4-9b`` and ``gemma3-27b`` (served by the engines and
+the generic entry points), ``mamba2-2.7b`` (SSM) and ``zamba2-2.7b``
+(hybrid), each with ``FULL`` and ``SMOKE`` (for the CPU tests).  The
+reference's other architectures (MoE, the VLM, enc-dec) raise
 ``NotImplementedError`` until a later slice ports their families."""
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "glm4-9b": "glm4_9b",
+    "gemma3-27b": "gemma3_27b",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-2.7b": "zamba2_2_7b",
 }
@@ -19,9 +24,8 @@ _MODULES: Dict[str, str] = {
 ARCHS: List[str] = list(_MODULES)
 
 # the reference's architectures whose families the port does not serve yet
-_NOT_PORTED = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "glm4-9b",
-               "gemma3-27b", "qwen2-0.5b", "seamless-m4t-large-v2",
-               "qwen2-vl-7b")
+_NOT_PORTED = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b",
+               "seamless-m4t-large-v2", "qwen2-vl-7b")
 
 
 def _module(name: str):

@@ -25,9 +25,11 @@ SOURCES = ("binding.cpp", "paged_attention.cu", "paged_prefill.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
 
 # limits of the split-KV decode body (csrc/decode_split.cuh, the paged and
-# the contiguous decode): up to 8 query rows (the g heads of a group) per
-# CTA, dh <= 128
+# the contiguous decode): up to 8 query rows per CTA (kDecMaxRows: a group
+# of g heads runs as cdiv(g, 8) row-chunks), groups of up to 16 heads,
+# dh <= 128
 MAX_ROWS = 8
+MAX_DECODE_GROUP = 16
 MAX_HEAD_DIM = 128
 # the contiguous flash kernel (csrc/flash_attention.cu) and the paged
 # prefill kernel (csrc/paged_prefill.cu): kFaRows / kPfRows query rows per
@@ -101,7 +103,8 @@ def on_one_cuda_device(name: str, tensors: Sequence[torch.Tensor]) -> None:
 
 def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, int_args: Sequence[torch.Tensor], *,
-                 max_group: int = MAX_ROWS, vec16: bool = False) -> None:
+                 max_group: int = MAX_DECODE_GROUP,
+                 vec16: bool = False) -> None:
     """Raise ``ValueError`` unless every tensor is a contiguous CUDA tensor
     on q's device, q, k and v share a type the kernels take (f32 or bf16),
     k and v are (n, positions, K, dh) with q's head dim, the index

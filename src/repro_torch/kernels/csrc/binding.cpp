@@ -23,14 +23,14 @@ void paged_decode(const torch::Tensor& q, const torch::Tensor& k_arena,
                   const torch::Tensor& lengths, torch::Tensor out,
                   torch::Tensor part, torch::Tensor counters,
                   int64_t min_pages, int64_t n_split, int64_t ctas,
-                  double sm_scale) {
+                  double sm_scale, int64_t window) {
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(repro_torch::launch_paged_decode(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k_arena.data_ptr(),
       v_arena.data_ptr(), tables.data_ptr<int>(), lengths.data_ptr<int>(),
       out.data_ptr(), scratch(part), counters.data_ptr<int>(), q.size(0),
       q.size(1), k_arena.size(2), q.size(2), k_arena.size(1), tables.size(1),
-      min_pages, n_split, ctas, static_cast<float>(sm_scale),
+      min_pages, n_split, ctas, static_cast<float>(sm_scale), window,
       at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -55,14 +55,14 @@ void decode(const torch::Tensor& q, const torch::Tensor& k_cache,
             const torch::Tensor& v_cache, const torch::Tensor& lengths,
             torch::Tensor out, torch::Tensor part, torch::Tensor counters,
             int64_t min_pages, int64_t n_split, int64_t ctas,
-            double sm_scale) {
+            double sm_scale, int64_t window) {
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(repro_torch::launch_decode(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k_cache.data_ptr(),
       v_cache.data_ptr(), lengths.data_ptr<int>(), lengths.dim() == 0 ? 0 : 1,
       out.data_ptr(), scratch(part), counters.data_ptr<int>(), q.size(0),
       q.size(1), k_cache.size(2), q.size(2), k_cache.size(1), min_pages,
-      n_split, ctas, static_cast<float>(sm_scale),
+      n_split, ctas, static_cast<float>(sm_scale), window,
       at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

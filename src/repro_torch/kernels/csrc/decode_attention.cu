@@ -32,15 +32,17 @@ cudaError_t launch_decode(bool bf16, const void* q, const void* k_cache,
                           int len_stride, void* out, float* part,
                           int* counters, int b, int H, int K, int dh, int S,
                           int min_pages, int n_split, int ctas,
-                          float sm_scale, cudaStream_t stream) {
+                          float sm_scale, int window, cudaStream_t stream) {
   // one instantiation per form of the lengths: per row, or shared
   if (len_stride)
     return launch_decode_body<ContigKV<1>>(
         bf16, q, k_cache, v_cache, nullptr, lengths, out, part, counters, b,
-        H, K, dh, kContigPage, S, min_pages, n_split, ctas, sm_scale, stream);
+        H, K, dh, kContigPage, S, min_pages, n_split, ctas, sm_scale, window,
+        stream);
   return launch_decode_body<ContigKV<0>>(
       bf16, q, k_cache, v_cache, nullptr, lengths, out, part, counters, b, H,
-      K, dh, kContigPage, S, min_pages, n_split, ctas, sm_scale, stream);
+      K, dh, kContigPage, S, min_pages, n_split, ctas, sm_scale, window,
+      stream);
 }
 
 }  // namespace repro_torch

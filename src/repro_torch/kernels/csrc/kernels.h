@@ -15,17 +15,18 @@ namespace repro_torch {
 // shared-memory limit, or of n_split above kMaxSplits.
 //
 // Decode: q (b, H, dh); arenas (n_blocks, bs, K, dh); tables (b, n_pages)
-// i32; lengths (b,) i32; out (b, H, dh).  Groups: b * K, of g = H / K <= 8
-// rows; splits balanced over `ctas` CTAs in all.  counters: b * K ints, 0
-// before the launch and after it, used by no launch that may overlap this
-// one.
+// i32; lengths (b,) i32; out (b, H, dh); window > 0 keeps the positions >=
+// length - window.  Groups: b * K * decode_chunks(g), of decode_rows(g) <=
+// 8 of the g = H / K rows (decode_split.cuh); splits balanced over `ctas`
+// CTAs in all.  counters: one int a group, 0 before the launch and after
+// it, used by no launch that may overlap this one.
 cudaError_t launch_paged_decode(bool bf16, const void* q, const void* k_arena,
                                 const void* v_arena, const int* tables,
                                 const int* lengths, void* out, float* part,
                                 int* counters, int b, int H, int K, int dh,
                                 int bs, int n_pages, int min_pages,
                                 int n_split, int ctas, float sm_scale,
-                                cudaStream_t stream);
+                                int window, cudaStream_t stream);
 
 // Chunked prefill: q (C, H, dh); arenas (n_blocks, bs, K, dh); table
 // (span,) i32; positions (C,) i32; out (C, H, dh); tq queries per 64-row
@@ -42,14 +43,14 @@ cudaError_t launch_paged_prefill(bool bf16, const void* q, const void* k_arena,
 // Contiguous decode, the same split-KV body as the paged decode: q (b, H,
 // dh); caches (b, S, K, dh), read as pages of 16 positions; lengths (b,)
 // i32 (len_stride 1) or one value for every row (len_stride 0); out (b, H,
-// dh).  Splits, scratch and counters as for the paged decode, planned over
-// cdiv(S, 16) pages.
+// dh); window as for the paged decode.  Splits, scratch and counters as
+// for the paged decode, planned over cdiv(S, 16) pages.
 cudaError_t launch_decode(bool bf16, const void* q, const void* k_cache,
                           const void* v_cache, const int* lengths,
                           int len_stride, void* out, float* part,
                           int* counters, int b, int H, int K, int dh, int S,
                           int min_pages, int n_split, int ctas,
-                          float sm_scale, cudaStream_t stream);
+                          float sm_scale, int window, cudaStream_t stream);
 
 // Contiguous flash attention, one tensor-core body for both types: q (b,
 // sq, H, dh); k, v (b, skv, K, dh); out (b, sq, H, dh); tq queries per CTA;

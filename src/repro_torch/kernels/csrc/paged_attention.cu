@@ -22,11 +22,11 @@ cudaError_t launch_paged_decode(bool bf16, const void* q, const void* k_arena,
                                 int* counters, int b, int H, int K, int dh,
                                 int bs, int n_pages, int min_pages,
                                 int n_split, int ctas, float sm_scale,
-                                cudaStream_t stream) {
+                                int window, cudaStream_t stream) {
   return launch_decode_body<PagedKV>(bf16, q, k_arena, v_arena, tables,
                                      lengths, out, part, counters, b, H, K, dh,
                                      bs, n_pages * bs, min_pages, n_split,
-                                     ctas, sm_scale, stream);
+                                     ctas, sm_scale, window, stream);
 }
 
 }  // namespace repro_torch

@@ -5,19 +5,25 @@ reference's Pallas TPU kernel
 
 One new token per batch row attends over the first ``lengths[i]``
 positions of its own row of the slotted cache (one layer's (b, S, K, dh)
-slice of the (L, n_slots, max_len, K, dh) cache), or of the hybrid decode
-step's cache at one shared position.  The kernel is the split-KV body of
-the paged decode (``csrc/decode_split.cuh``) with a contiguous address: the
-row is read as pages of :data:`CONTIG_PAGE` positions at ``(row·S +
-pos)·K·dh``, the arena's position stride with the identity for a block
-table.  The grid is (n_split, K, b), planned on the host from S alone by
+slice of the (L, n_slots, max_len, K, dh) cache), or of the generic decode
+step's cache at one shared position — over the last ``window`` of them
+when ``window > 0`` (gemma3's local layers).  The kernel is the split-KV
+body of the paged decode (``csrc/decode_split.cuh``) with a contiguous
+address: the row is read as pages of :data:`CONTIG_PAGE` positions at
+``(row·S + pos)·K·dh``, the arena's position stride with the identity for
+a block table.  The grid is (n_split, K · chunks, b) (a group of g > 8
+heads runs as row-chunks,
+:func:`~repro_torch.kernels.paged_attention.decode_chunks`), planned on
+the host from S alone by
 :func:`~repro_torch.kernels.paged_attention.split_plan` over
 ``cdiv(S, 16)`` pages — never from the lengths, so the slotted step stays
-free of host syncs; on the device each row cuts its own valid pages below
-``min(length, S)`` into runs, splits past them return at once, K/V are
-staged by ``cp.async`` 16 bytes a thread, and the CTA that arrives last at
-a (row, KV head) merges the splits' partials (``csrc/split_kv.cuh``).  So
-the cache tail is never read and S need not be a multiple of any block
+free of host syncs; on the device each row cuts the pages of its visible
+range (below ``min(length, S)``, from ``length - window`` with a window)
+into runs, splits past them return at once, K/V are staged by
+``cp.async`` 16 bytes a thread, and the CTA that arrives last at a (row,
+KV head, chunk) merges the splits' partials (``csrc/split_kv.cuh``).  So
+the cache tail and the positions before a window are never read and S
+need not be a multiple of any block
 (the Pallas kernel walks every 256-position block and asserts ``S % 256 ==
 0``).
 
@@ -37,7 +43,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import DECODE_CTAS_PER_SM, \
-    partial_floats, split_plan
+    decode_chunks, partial_floats, split_plan
 from repro_torch.kernels.ref import decode_attention_ref
 
 __all__ = ["decode_attention", "decode_attention_ref", "CONTIG_PAGE"]
@@ -49,13 +55,15 @@ CONTIG_PAGE = 16
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                     sm_scale: Optional[float] = None) -> torch.Tensor:
+                     sm_scale: Optional[float] = None,
+                     window: int = 0) -> torch.Tensor:
     """q: (b, H, dh); caches: (b, S, K, dh), q's type (f32 or bf16), any S;
     lengths: () i32 shared by every row or (b,) i32 per row, **each >= 1**
     (a row of length 0 comes back zero; a length above S sees the whole
-    row).  dh a multiple of 8, g = H / K at most 8, tensors 16-byte
-    aligned.  Scores are q·k * sm_scale (default dh**-0.5).  CUDA tensors
-    only; returns (b, H, dh) in q's type."""
+    row); ``window`` > 0 keeps the positions ``>= length - window``.  dh a
+    multiple of 8, g = H / K at most 16, tensors 16-byte aligned.  Scores
+    are q·k * sm_scale (default dh**-0.5).  CUDA tensors only; returns (b,
+    H, dh) in q's type."""
     _build.check_inputs("decode_attention", q, k_cache, v_cache, (lengths,),
                         vec16=True)
     b = q.shape[0]
@@ -67,18 +75,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(lengths.shape)}")
     _, H, dh = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
+    chunks, rows = decode_chunks(H // K)
+    groups = b * K * chunks
     n_split, min_pages, ctas = split_plan(
-        -(-S // CONTIG_PAGE), CONTIG_PAGE, b * K, _build.sm_count(q.device),
+        -(-S // CONTIG_PAGE), CONTIG_PAGE, groups, _build.sm_count(q.device),
         DECODE_CTAS_PER_SM[q.dtype])
     out = torch.empty_like(q)
-    g = H // K
-    part = torch.empty((b * K * n_split * partial_floats(g + g % 2, dh)
+    part = torch.empty((groups * n_split * partial_floats(rows + rows % 2, dh)
                         if n_split > 1 else 0,), dtype=torch.float32,
                        device=q.device)
     scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
     _build.extension().decode(q, k_cache, v_cache, lengths, out, part,
-                              _build.counters(q.device, b * K), min_pages,
-                              n_split, ctas, scale)
+                              _build.counters(q.device, groups), min_pages,
+                              n_split, ctas, scale, int(window))
     decode_attention.launches += 1
     return out
 

@@ -52,7 +52,8 @@ The plain PyTorch versions are :func:`~repro_torch.kernels.ref.
 flash_attention_ref` and :func:`~repro_torch.kernels.ref.
 paged_prefill_attention_ref`; ``kernels/ops.py`` sends CPU tensors there
 and CUDA tensors here.  ``flash_attention.launches`` and
-``paged_prefill_attention.launches`` count launches.
+``paged_prefill_attention.launches`` count launches, and their
+``windowed_launches`` those with a window.
 """
 from __future__ import annotations
 
@@ -102,10 +103,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.extension().flash(q, k, v, out, tq, bool(causal), int(window),
                              scale)
     flash_attention.launches += 1
+    flash_attention.windowed_launches += int(window > 0)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.windowed_launches = 0    # of them, with a window
 
 
 def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,
@@ -142,7 +145,9 @@ def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,
                                      out, part, tq, min_pages, n_split, scale,
                                      int(window))
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.windowed_launches += int(window > 0)
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.windowed_launches = 0    # of them, with a window

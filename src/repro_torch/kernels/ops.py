@@ -42,29 +42,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                     sm_scale: Optional[float] = None) -> torch.Tensor:
+                     sm_scale: Optional[float] = None,
+                     window: int = 0) -> torch.Tensor:
     """Contiguous flash-decode: q (b, H, dh) over caches (b, S, K, dh) for
-    the first lengths[i] >= 1 positions of each row (lengths () or (b,))."""
+    the first lengths[i] >= 1 positions of each row (lengths () or (b,)),
+    the last ``window`` of them when window > 0."""
     if _on_cuda("decode_attention", q):
         return _dec.decode_attention(q, k_cache, v_cache, lengths,
-                                     sm_scale=sm_scale)
+                                     sm_scale=sm_scale, window=window)
     return _ref.decode_attention_ref(q, k_cache, v_cache, lengths,
-                                     sm_scale=sm_scale)
+                                     sm_scale=sm_scale, window=window)
 
 
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,
                            v_arena: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor, *,
-                           sm_scale: Optional[float] = None) -> torch.Tensor:
+                           sm_scale: Optional[float] = None,
+                           window: int = 0) -> torch.Tensor:
     """Paged flash-decode: q (b, H, dh) over arenas (n_blocks, bs, K, dh)
     through block_tables (b, n_pages) for the first lengths[i] >= 1
-    positions of each row."""
+    positions of each row, the last ``window`` of them when window > 0."""
     if _on_cuda("paged_decode_attention", q):
         return _paged.paged_decode_attention(q, k_arena, v_arena,
                                              block_tables, lengths,
-                                             sm_scale=sm_scale)
+                                             sm_scale=sm_scale,
+                                             window=window)
     return _ref.paged_decode_attention_ref(q, k_arena, v_arena, block_tables,
-                                           lengths, sm_scale=sm_scale)
+                                           lengths, sm_scale=sm_scale,
+                                           window=window)
 
 
 def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,
@@ -73,7 +78,8 @@ def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,
                             sm_scale: Optional[float] = None,
                             window: int = 0) -> torch.Tensor:
     """Paged chunked-prefill attention: q (C, H, dh) at absolute positions
-    (C,) over the arenas through table (span,), causal."""
+    (C,) over the arenas through table (span,), causal, within ``window``
+    positions when window > 0."""
     if _on_cuda("paged_prefill_attention", q):
         return _fa.paged_prefill_attention(q, k_arena, v_arena, table,
                                            positions, sm_scale=sm_scale,

@@ -65,21 +65,34 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, sq, H, dh).to(q.dtype)
 
 
+def _decode_mask(n_pos: int, lengths, window: int,
+                 device: torch.device) -> torch.Tensor:
+    """(rows, n_pos) visible positions of a decode: ``pos < length``, and
+    ``pos >= length - window`` when window > 0 (the reference model path's
+    ``decode_attention_ref`` mask ``pos > length - 1 - window``)."""
+    ln = torch.as_tensor(lengths, device=device).reshape(-1, 1)
+    pos = torch.arange(n_pos, device=device)[None, :]
+    mask = pos < ln
+    if window > 0:
+        mask &= pos >= ln - window
+    return mask
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lengths, *,
-                         sm_scale: Optional[float] = None
-                         ) -> torch.Tensor:
+                         sm_scale: Optional[float] = None,
+                         window: int = 0) -> torch.Tensor:
     """One-position attention over a contiguous KV cache.  q: (b, H, dh);
     caches: (b, S, K, dh); lengths: () shared valid prefix, or (b,) per-row
     valid prefixes (the slotted continuous-batching decode) — positions
     ``pos < lengths[i]`` are visible, so a length above S sees the whole
-    cache.  Scores are q·k * sm_scale (default dh**-0.5) in f32.  Returns
-    (b, H, dh) in q's type."""
+    cache; with ``window`` > 0 only those ``>= lengths[i] - window``.
+    Scores are q·k * sm_scale (default dh**-0.5) in f32.  Returns (b, H,
+    dh) in q's type."""
     b, H, dh = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     scale = dh ** -0.5 if sm_scale is None else sm_scale
-    ln = torch.as_tensor(lengths, device=q.device).reshape(-1, 1)
-    mask = (torch.arange(S, device=q.device)[None, :] < ln)
+    mask = _decode_mask(S, lengths, window, q.device)
     o = _attend(q.reshape(b, 1, K, H // K, dh), k_cache, v_cache,
                 mask[:, None, None, None, :], scale)
     return o.reshape(b, H, dh).to(q.dtype)
@@ -89,20 +102,21 @@ def paged_decode_attention_ref(q: torch.Tensor, k_arena: torch.Tensor,
                                v_arena: torch.Tensor,
                                block_tables: torch.Tensor,
                                lengths: torch.Tensor, *,
-                               sm_scale: Optional[float] = None
-                               ) -> torch.Tensor:
+                               sm_scale: Optional[float] = None,
+                               window: int = 0) -> torch.Tensor:
     """One-position attention over a PAGED KV cache.  q: (b, H, dh);
     arenas: (n_blocks, block_size, K, dh); block_tables: (b, n_pages) i32;
-    lengths: (b,) valid token counts.  Scores are q·k * sm_scale (default
-    dh**-0.5), scaled after the dot in f32.  Returns (b, H, dh) in q's
-    type."""
+    lengths: (b,) valid token counts; with ``window`` > 0 only the
+    positions ``>= lengths[i] - window`` are seen.  Scores are q·k *
+    sm_scale (default dh**-0.5), scaled after the dot in f32.  Returns (b,
+    H, dh) in q's type."""
     b, H, dh = q.shape
     K = k_arena.shape[2]
     scale = dh ** -0.5 if sm_scale is None else sm_scale
     kc, vc = gather_paged_kv(k_arena, v_arena, block_tables)
-    pos = torch.arange(kc.shape[1], device=q.device)
-    mask = (pos[None, :] < lengths.reshape(-1, 1))[:, None, None, None, :]
-    o = _attend(q.reshape(b, 1, K, H // K, dh), kc, vc, mask, scale)
+    mask = _decode_mask(kc.shape[1], lengths, window, q.device)
+    o = _attend(q.reshape(b, 1, K, H // K, dh), kc, vc,
+                mask[:, None, None, None, :], scale)
     return o.reshape(b, H, dh).to(q.dtype)
 
 

@@ -155,8 +155,7 @@ def _scaled_q(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      *, causal: bool, window: Optional[int] = None
-                      ) -> torch.Tensor:
+                      *, causal: bool, window: int = 0) -> torch.Tensor:
     """Full-sequence attention (the reference's ``blocked_attention`` with
     ``q_offset=0``): q (b, sq, H, dh) against k, v (b, skv, K, dh), GQA by
     head grouping, causal on positions from 0, and a sliding window when
@@ -164,24 +163,25 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     memory; the kernel's tiles do that here.  Returns (b, sq, H, dh) in
     q's type."""
     o = ops.flash_attention(_scaled_q(q, k), k, v, causal=causal,
-                            window=window if window and window > 0 else 0,
-                            sm_scale=1.0)
+                            window=max(window, 0), sm_scale=1.0)
     return o.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, lengths) -> torch.Tensor:
+                     v_cache: torch.Tensor, lengths, *,
+                     window: int = 0) -> torch.Tensor:
     """Single-position attention against a contiguous KV cache (the model
     path of the reference's ``layers.decode_attention_ref``).  q: (b, 1, H,
     dh); caches (b, S, K, dh); lengths () shared or (b,) per row, the new
-    token's position being ``lengths - 1``.  Returns (b, 1, H, dh)."""
+    token's position being ``lengths - 1``; with ``window`` > 0 only the
+    positions ``>= lengths - window`` are seen.  Returns (b, 1, H, dh)."""
     o = ops.decode_attention(_scaled_q(q[:, 0], k_cache), k_cache, v_cache,
-                             lengths, sm_scale=1.0)
+                             lengths, sm_scale=1.0, window=window)
     return o.to(q.dtype)[:, None]
 
 
 def attention_prefill_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
-                            causal: bool = True, window: Optional[int] = None
+                            causal: bool = True, window: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Full-sequence attention that also returns the rotated K/V, so one
@@ -194,20 +194,22 @@ def attention_prefill_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
     return attn.wo(o.reshape(b, s, cfg.n_heads * cfg.d_head)), k, v
 
 
-def attention_apply(attn: Attention, x: torch.Tensor, cos, sin
-                    ) -> torch.Tensor:
-    """Full-sequence causal self-attention (the hybrid's forward).  x: (b,
-    s, d) -> (b, s, d)."""
-    return attention_prefill_apply(attn, x, cos, sin)[0]
+def attention_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
+                    window: int = 0) -> torch.Tensor:
+    """Full-sequence causal self-attention (the forward), with a sliding
+    window when ``window`` > 0.  x: (b, s, d) -> (b, s, d)."""
+    return attention_prefill_apply(attn, x, cos, sin, window=window)[0]
 
 
 def attention_decode_apply(attn: Attention, x: torch.Tensor, cos, sin,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
-                           pos: torch.Tensor) -> torch.Tensor:
+                           pos: torch.Tensor, *, window: int = 0
+                           ) -> torch.Tensor:
     """One-token decode at the position ``pos`` (() int32) shared by every
     row: the new K/V land at ``pos`` — clamped into the cache, as the
     reference's ``dynamic_update_slice`` clamps — and the token attends
-    over the first ``pos + 1`` positions.  x: (b, 1, d); caches (b, S, K,
+    over the first ``pos + 1`` positions (the last ``window`` of them when
+    ``window`` > 0).  x: (b, 1, d); caches (b, S, K,
     dh), written IN PLACE (the reference returns new ones).  Returns out
     (b, 1, d)."""
     cfg = attn.cfg
@@ -215,7 +217,7 @@ def attention_decode_apply(attn: Attention, x: torch.Tensor, cos, sin,
     at = pos.clamp(max=cache_k.shape[1] - 1).long().reshape(1)
     cache_k.index_copy_(1, at, k.to(cache_k.dtype))
     cache_v.index_copy_(1, at, v.to(cache_v.dtype))
-    o = decode_attention(q, cache_k, cache_v, pos + 1)
+    o = decode_attention(q, cache_k, cache_v, pos + 1, window=window)
     return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
 
 
@@ -232,12 +234,13 @@ def slot_write_index(lengths: torch.Tensor, S: int):
 
 def attention_decode_slots_apply(attn: Attention, x: torch.Tensor, cos, sin,
                                  cache_k: torch.Tensor, cache_v: torch.Tensor,
-                                 lengths: torch.Tensor, write
-                                 ) -> torch.Tensor:
+                                 lengths: torch.Tensor, write, *,
+                                 window: int = 0) -> torch.Tensor:
     """One continuous-batching decode step over a slotted cache: each row
     writes its new K/V at its own position ``lengths[i]`` (dropped when
     that is past the cache, ``write`` from :func:`slot_write_index`) and
-    attends over its own first ``lengths[i] + 1`` positions.  x: (b, 1, d);
+    attends over its own first ``lengths[i] + 1`` positions (the last
+    ``window`` of them when ``window`` > 0).  x: (b, 1, d);
     caches (b, S, K, dh), written IN PLACE (the reference returns new
     ones); lengths (b,) i32.  Returns out (b, 1, d)."""
     cfg = attn.cfg
@@ -246,7 +249,7 @@ def attention_decode_slots_apply(attn: Attention, x: torch.Tensor, cos, sin,
     for cache, new in ((cache_k, k), (cache_v, v)):
         cache.index_put_((rows, pos), torch.where(
             keep, new[:, 0].to(cache.dtype), cache[rows, pos]))
-    o = decode_attention(q, cache_k, cache_v, lengths + 1)
+    o = decode_attention(q, cache_k, cache_v, lengths + 1, window=window)
     return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
 
 
@@ -255,11 +258,13 @@ def attention_decode_paged_apply(attn: Attention, x: torch.Tensor,
                                  arena_v: torch.Tensor, tables: torch.Tensor,
                                  lengths: torch.Tensor,
                                  write_bid: torch.Tensor,
-                                 write_off: torch.Tensor) -> torch.Tensor:
+                                 write_off: torch.Tensor, *,
+                                 window: int = 0) -> torch.Tensor:
     """One paged continuous-batching decode step: each row writes its new
     K/V into arena block ``write_bid[i]`` at offset ``write_off[i]`` (the
     junk block 0 for inactive rows) and attends over its own block table's
-    first ``lengths[i] + 1`` positions.  x: (b, 1, d); arenas (n_blocks, bs,
+    first ``lengths[i] + 1`` positions (the last ``window`` of them when
+    ``window`` > 0).  x: (b, 1, d); arenas (n_blocks, bs,
     K, dh), written IN PLACE (the reference donates them to XLA instead);
     tables (b, n_pages) i32; lengths (b,) i32.  Returns out (b, 1, d)."""
     cfg = attn.cfg
@@ -268,7 +273,8 @@ def attention_decode_paged_apply(attn: Attention, x: torch.Tensor,
     arena_k.index_put_((write_bid, write_off), k[:, 0].to(arena_k.dtype))
     arena_v.index_put_((write_bid, write_off), v[:, 0].to(arena_v.dtype))
     o = ops.paged_decode_attention(_scaled_q(q[:, 0], arena_k), arena_k,
-                                   arena_v, tables, lengths + 1, sm_scale=1.0)
+                                   arena_v, tables, lengths + 1, sm_scale=1.0,
+                                   window=window)
     return attn.wo(o.to(q.dtype).reshape(b, 1, cfg.n_heads * cfg.d_head))
 
 
@@ -277,12 +283,14 @@ def attention_prefill_paged_apply(attn: Attention, x: torch.Tensor,
                                   arena_v: torch.Tensor, table: torch.Tensor,
                                   positions: torch.Tensor,
                                   write_bid: torch.Tensor,
-                                  write_off: torch.Tensor) -> torch.Tensor:
+                                  write_off: torch.Tensor, *,
+                                  window: int = 0) -> torch.Tensor:
     """One chunk of chunked prefill for a single sequence against the paged
     arena: the chunk's rotated K/V land in their arena slots IN PLACE (junk
     block 0 for the padded tail), then the chunk's queries attend causally
     over the table — cached prefix blocks included, so a prefix-cache hit
-    never replays shared tokens.  x: (1, C, d); table (span,) i32;
+    never replays shared tokens — within ``window`` positions when
+    ``window`` > 0.  x: (1, C, d); table (span,) i32;
     positions (C,) i32 absolute positions.  Returns out (1, C, d)."""
     cfg = attn.cfg
     q, k, v = attn.project_qkv(x, cos, sin)
@@ -290,7 +298,8 @@ def attention_prefill_paged_apply(attn: Attention, x: torch.Tensor,
     arena_k.index_put_((write_bid, write_off), k[0].to(arena_k.dtype))
     arena_v.index_put_((write_bid, write_off), v[0].to(arena_v.dtype))
     o = ops.paged_prefill_attention(_scaled_q(q[0], arena_k), arena_k,
-                                    arena_v, table, positions, sm_scale=1.0)
+                                    arena_v, table, positions, sm_scale=1.0,
+                                    window=window)
     return attn.wo(o.to(q.dtype).reshape(1, C, cfg.n_heads * cfg.d_head))
 
 

@@ -9,10 +9,10 @@ of ``attn_every`` Mamba2 layers reuses.  Entry points:
 
   * :func:`init_lm`, :func:`init_slot_cache`, :func:`init_block_arena` —
     weights, the slotted cache and the arena;
-  * :func:`forward_lm` — the full-sequence forward (SSM, hybrid);
+  * :func:`forward_lm` — the full-sequence forward;
   * :func:`init_kv_cache` and :func:`decode_step_lm` — the generic decode
-    state (SSM conv histories and states, the hybrid's KV caches) and one
-    decode step at a position shared by every row;
+    state (KV caches, SSM conv histories and states) and one decode step
+    at a position shared by every row;
   * :func:`prefill_kv_lm` — one-pass prefill that returns every layer's
     K/V for a slotted cache;
   * :func:`decode_slots_lm` — one batched decode step over all slots;
@@ -21,15 +21,21 @@ of ``attn_every`` Mamba2 layers reuses.  Entry points:
   * :func:`decode_paged_multi_lm` — ``n_steps`` fused greedy steps whose
     token feedback stays on the device (a Python loop, no host sync).
 
-Caches and the arena are written in place.  Sliding windows, M-RoPE, MoE
-and enc-dec are not ported (:func:`check_supported` raises); the SSM and
-hybrid families run through the generic entry points only — the slot
-cache, the arena and the engines refuse them, as the reference's do.
+Every dense entry point takes each layer's sliding window and rotary
+tables from :func:`layer_pattern` (gemma3: ``local_global_ratio`` local
+layers of window ``sliding_window`` and rotary base ``rope_theta``, then
+one global layer of full attention and ``global_rope_theta``), as the
+reference scans them through its layer stack.  Caches and the arena are
+written in place.  M-RoPE, MoE, enc-dec and the append-buffer decode are
+not ported (:func:`check_supported` raises); the SSM and hybrid families
+run through the generic entry points only — the slot cache, the arena and
+the engines refuse them, as the reference's do.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -43,19 +49,17 @@ SlotCache = Dict[str, torch.Tensor]
 KVCache = Dict[str, object]
 
 # the families of the generic entry points (forward_lm, init_kv_cache,
-# decode_step_lm) so far; the dense family runs through the engines' slotted
-# and paged entry points
-GENERIC_FAMILIES = ("ssm", "hybrid")
+# decode_step_lm)
+GENERIC_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig, families=("dense",)) -> None:
     """Raise ``NotImplementedError`` for what a later slice ports: a family
-    outside ``families``, MoE, enc-dec, sliding windows, M-RoPE."""
+    outside ``families``, MoE, enc-dec, M-RoPE, the append-buffer
+    decode."""
     reasons = []
     if cfg.family not in families or cfg.is_moe or cfg.n_enc_layers:
         reasons.append(f"family {cfg.family!r}")
-    if cfg.sliding_window or cfg.local_global_ratio:
-        reasons.append("sliding-window attention")
     if cfg.mrope_sections:
         reasons.append("M-RoPE")
     if cfg.decode_window:
@@ -68,11 +72,43 @@ def check_supported(cfg: ModelConfig, families=("dense",)) -> None:
                          f"into groups of attn_every={cfg.attn_every}")
 
 
+def layer_pattern(cfg: ModelConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """(windows (L,) int32, is_global (L,) bool) on the host.  With
+    ``local_global_ratio`` r > 0 (gemma3) every (r + 1)-th layer is global
+    (window 0, full attention) and the others local (``sliding_window``);
+    otherwise every layer is global and has the config's window (0 for
+    none).  A depth-reduced rung recomputes it from its own ``n_layers``."""
+    n = cfg.n_layers
+    if cfg.local_global_ratio > 0:
+        r = cfg.local_global_ratio
+        is_global = np.array([(i % (r + 1)) == r for i in range(n)])
+        windows = np.where(is_global, 0, cfg.sliding_window).astype(np.int32)
+    else:
+        is_global = np.ones((n,), dtype=bool)
+        windows = np.full((n,), cfg.sliding_window, dtype=np.int32)
+    return windows, is_global
+
+
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
-    """(cos, sin) for ``positions`` at the config's rotary width and theta
-    (the supported family has one theta for every layer)."""
-    return L.rope_table(positions, int(cfg.d_head * cfg.partial_rotary),
-                        cfg.rope_theta)
+    """((cos_l, sin_l), (cos_g, sin_g)) for ``positions`` at the config's
+    rotary width: the local layers' tables at ``rope_theta`` and the global
+    layers' at ``global_rope_theta`` (the same tables for a config without
+    a local/global pattern)."""
+    d_rot = int(cfg.d_head * cfg.partial_rotary)
+    local = L.rope_table(positions, d_rot, cfg.rope_theta)
+    if cfg.local_global_ratio > 0:
+        return local, L.rope_table(positions, d_rot, cfg.global_rope_theta)
+    return local, local
+
+
+def _layer_specs(cfg: ModelConfig, positions: torch.Tensor
+                 ) -> List[Tuple[int, Tuple[torch.Tensor, torch.Tensor]]]:
+    """(window, (cos, sin)) of every layer: :func:`layer_pattern` with the
+    rotary tables of the layer's kind at ``positions``."""
+    windows, is_global = layer_pattern(cfg)
+    local, glob = _rope_tables(cfg, positions)
+    return [(int(w), glob if g else local)
+            for w, g in zip(windows, is_global)]
 
 
 # =============================================================================
@@ -137,7 +173,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: Optional[torch.device] = None) -> LM:
     """Random weights from ``seed`` (a ``torch.Generator`` on the device),
     with the reference's init distributions."""
-    check_supported(cfg, ("dense",) + GENERIC_FAMILIES)
+    check_supported(cfg, GENERIC_FAMILIES)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -171,25 +207,35 @@ def _mlp_residual(layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
 def forward_lm(model: LM, tokens: torch.Tensor, *,
                return_hidden: bool = False) -> torch.Tensor:
     """tokens: (b, s) int -> logits (b, s, V_padded); ``return_hidden``
-    returns the final-normed hidden states (b, s, d) instead.  ``s`` must
-    be a multiple of ``ssm_chunk``.  The hybrid runs each group of
+    returns the final-normed hidden states (b, s, d) instead.  Dense: each
+    layer's causal attention with its window and rotary tables
+    (:func:`layer_pattern`), then its MLP.  SSM and hybrid: ``s`` must be
+    a multiple of ``ssm_chunk``; the hybrid runs each group of
     ``attn_every`` Mamba2 layers, then the shared attention (causal) and
     MLP.  No decode state is returned, as in the reference: a generation
     replays the prompt through :func:`decode_step_lm`."""
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
     x = L.embedding_apply(model.embed, tokens)
-    sh = model.shared
-    if sh is not None:
-        cos, sin = _rope_tables(cfg, torch.arange(
-            tokens.shape[1], dtype=torch.int32, device=tokens.device))
-    per = cfg.attn_every if sh is not None else cfg.n_layers
-    for g0 in range(0, cfg.n_layers, per):
-        for layer in model.layers[g0:g0 + per]:
-            x = x + S.mamba2_apply(layer.mamba, layer.ln(x))
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    if cfg.family == "dense":
+        for layer, (w, (cos, sin)) in zip(model.layers,
+                                          _layer_specs(cfg, positions)):
+            x = x + L.attention_apply(layer.attn, layer.ln1(x), cos, sin,
+                                      window=w)
+            x = _mlp_residual(layer, x)
+    else:
+        sh = model.shared
         if sh is not None:
-            x = x + L.attention_apply(sh.attn, sh.ln1(x), cos, sin)
-            x = x + sh.mlp(sh.ln2(x))
+            cos, sin = _rope_tables(cfg, positions)[0]
+        per = cfg.attn_every if sh is not None else cfg.n_layers
+        for g0 in range(0, cfg.n_layers, per):
+            for layer in model.layers[g0:g0 + per]:
+                x = x + S.mamba2_apply(layer.mamba, layer.ln(x))
+            if sh is not None:
+                x = x + L.attention_apply(sh.attn, sh.ln1(x), cos, sin)
+                x = x + sh.mlp(sh.ln2(x))
     if return_hidden:
         return model.final_norm(x)
     return model.logits(x)
@@ -198,19 +244,23 @@ def forward_lm(model: LM, tokens: torch.Tensor, *,
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Optional[torch.device] = None) -> KVCache:
-    """Decode state, in the reference's layout: ``{"ssm": {conv_x, conv_B,
-    conv_C, state}}``, one layer's ``models/ssm.py`` ``init_ssm_cache``
-    stacked on L; for the hybrid also ``"k"``, ``"v"`` (G, b, max_len, K,
-    dh), one per application of the shared block (G = L / attn_every);
-    and ``"pos"`` () int32, the next position."""
+    """Decode state, in the reference's layout: dense ``"k"``, ``"v"`` (L,
+    b, max_len, K, dh); SSM ``{"ssm": {conv_x, conv_B, conv_C, state}}``,
+    one layer's ``models/ssm.py`` ``init_ssm_cache`` stacked on L; the
+    hybrid both, its ``"k"``, ``"v"`` (G, b, max_len, K, dh) one per
+    application of the shared block (G = L / attn_every); and ``"pos"``
+    () int32, the next position."""
     check_supported(cfg, GENERIC_FAMILIES)
     dev = resolve_device(device)
-    layer = S.init_ssm_cache(cfg, batch, dtype, dev)
-    cache: KVCache = {"ssm": {key: buf.new_zeros((cfg.n_layers, *buf.shape))
-                              for key, buf in layer.items()}}
-    if cfg.family == "hybrid":
-        shape = (cfg.n_layers // cfg.attn_every, batch, max_len,
-                 cfg.n_kv_heads, cfg.d_head)
+    cache: KVCache = {}
+    if cfg.family != "dense":
+        layer = S.init_ssm_cache(cfg, batch, dtype, dev)
+        cache["ssm"] = {key: buf.new_zeros((cfg.n_layers, *buf.shape))
+                        for key, buf in layer.items()}
+    if cfg.family != "ssm":
+        n_kv = (cfg.n_layers if cfg.family == "dense"
+                else cfg.n_layers // cfg.attn_every)
+        shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.d_head)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
     cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
@@ -228,19 +278,27 @@ def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor
     check_supported(cfg, GENERIC_FAMILIES)
     pos = cache["pos"]
     x = L.embedding_apply(model.embed, tokens)
-    sh = model.shared
-    if sh is not None:
-        cos, sin = _rope_tables(cfg, pos[None])
-    for li, layer in enumerate(model.layers):
-        x = x + S.mamba2_decode_step(
-            layer.mamba, layer.ln(x),
-            {key: buf[li] for key, buf in cache["ssm"].items()})
-        if sh is not None and (li + 1) % cfg.attn_every == 0:
-            g = li // cfg.attn_every
+    if cfg.family == "dense":
+        for li, (layer, (w, (cos, sin))) in enumerate(zip(
+                model.layers, _layer_specs(cfg, pos[None]))):
             x = x + L.attention_decode_apply(
-                sh.attn, sh.ln1(x), cos, sin, cache["k"][g], cache["v"][g],
-                pos)
-            x = x + sh.mlp(sh.ln2(x))
+                layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
+                cache["v"][li], pos, window=w)
+            x = _mlp_residual(layer, x)
+    else:
+        sh = model.shared
+        if sh is not None:
+            cos, sin = _rope_tables(cfg, pos[None])[0]
+        for li, layer in enumerate(model.layers):
+            x = x + S.mamba2_decode_step(
+                layer.mamba, layer.ln(x),
+                {key: buf[li] for key, buf in cache["ssm"].items()})
+            if sh is not None and (li + 1) % cfg.attn_every == 0:
+                g = li // cfg.attn_every
+                x = x + L.attention_decode_apply(
+                    sh.attn, sh.ln1(x), cos, sin, cache["k"][g],
+                    cache["v"][g], pos)
+                x = x + sh.mlp(sh.ln2(x))
     cache["pos"] = pos + 1
     return model.logits(x)[:, 0, :], cache
 
@@ -285,12 +343,12 @@ def prefill_kv_lm(model: LM, tokens: torch.Tensor
     assert supports_slots(cfg), f"prefill-kv unsupported for {cfg.family}"
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
-    cos, sin = _rope_tables(cfg, positions)
     x = L.embedding_apply(model.embed, tokens)
     ks, vs = [], []
-    for layer in model.layers:
+    for layer, (w, (cos, sin)) in zip(model.layers,
+                                      _layer_specs(cfg, positions)):
         a, k, v = L.attention_prefill_apply(layer.attn, layer.ln1(x), cos,
-                                            sin, causal=True)
+                                            sin, causal=True, window=w)
         x = _mlp_residual(layer, x + a)
         ks.append(k)
         vs.append(v)
@@ -311,13 +369,13 @@ def decode_slots_lm(model: LM, cache: SlotCache, tokens: torch.Tensor,
     (n_slots, V_padded), cache)."""
     cfg = model.cfg
     lengths = cache["lengths"]
-    cos, sin = _rope_tables(cfg, lengths[:, None])
     write = L.slot_write_index(lengths, cache["k"].shape[2])
     x = L.embedding_apply(model.embed, tokens)
-    for li, layer in enumerate(model.layers):
+    for li, (layer, (w, (cos, sin))) in enumerate(zip(
+            model.layers, _layer_specs(cfg, lengths[:, None]))):
         x = x + L.attention_decode_slots_apply(
             layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
-            cache["v"][li], lengths, write)
+            cache["v"][li], lengths, write, window=w)
         x = _mlp_residual(layer, x)
     cache["lengths"] = lengths + active.to(torch.int32)
     return model.logits(x)[:, 0, :], cache
@@ -345,16 +403,17 @@ def prefill_paged_lm(model: LM, tokens: torch.Tensor, arena: Arena,
     span = table.shape[0]
     positions = torch.arange(C, dtype=torch.int32,
                              device=tokens.device) + n_past
-    cos, sin = _rope_tables(cfg, positions)
     valid = positions < n_past + true_c
     page = (positions // bs).clamp(0, span - 1).long()
     write_bid = torch.where(valid, table[page], 0).long()
     write_off = (positions % bs).long()
     x = L.embedding_apply(model.embed, tokens)
-    for li, layer in enumerate(model.layers):
+    for li, (layer, (w, (cos, sin))) in enumerate(zip(
+            model.layers, _layer_specs(cfg, positions))):
         x = x + L.attention_prefill_paged_apply(
             layer.attn, layer.ln1(x), cos, sin, arena["k"][li],
-            arena["v"][li], table, positions, write_bid, write_off)
+            arena["v"][li], table, positions, write_bid, write_off,
+            window=w)
         x = _mlp_residual(layer, x)
     return model.logits(x)
 
@@ -372,16 +431,17 @@ def decode_paged_lm(model: LM, arena: Arena, tokens: torch.Tensor,
     cfg = model.cfg
     bs = arena["k"].shape[2]
     n_pages = tables.shape[1]
-    cos, sin = _rope_tables(cfg, lengths[:, None])
     page = (lengths // bs).clamp(0, n_pages - 1).long()
     write_bid = torch.where(active, tables.gather(1, page[:, None])[:, 0],
                             0).long()
     write_off = torch.where(active, lengths % bs, 0).long()
     x = L.embedding_apply(model.embed, tokens)
-    for li, layer in enumerate(model.layers):
+    for li, (layer, (w, (cos, sin))) in enumerate(zip(
+            model.layers, _layer_specs(cfg, lengths[:, None]))):
         x = x + L.attention_decode_paged_apply(
             layer.attn, layer.ln1(x), cos, sin, arena["k"][li],
-            arena["v"][li], tables, lengths, write_bid, write_off)
+            arena["v"][li], tables, lengths, write_bid, write_off,
+            window=w)
         x = _mlp_residual(layer, x)
     return model.logits(x)[:, 0, :]
 

@@ -33,7 +33,10 @@ def test_importing_every_port_module_leaves_jax_out():
                 "repro_torch.configs", "repro_torch.fleet.fleet_sim",
                 "repro_torch.serving.simulator",
                 "repro_torch.serving.backends",
-                "repro_torch.core.controller", "repro_torch.obs.aggregate"):
+                "repro_torch.core.controller", "repro_torch.obs.aggregate",
+                "repro_torch.configs.gemma3_27b",
+                "repro_torch.configs.glm4_9b",
+                "repro_torch.configs.qwen2_0_5b"):
         assert mod in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -122,7 +122,7 @@ def test_config_registry():
     assert get_smoke_config("qwen3-1.7b") == qwen3_1_7b.SMOKE
     assert get_config("qwen3-1.7b") == qwen3_1_7b.FULL
     with pytest.raises(NotImplementedError):
-        get_config("glm4-9b")
+        get_config("qwen3-moe-30b-a3b")
     assert get_smoke_config("mamba2-2.7b") == mamba2_2_7b.SMOKE
     with pytest.raises(NotImplementedError):
         get_smoke_config("qwen2-vl-7b")

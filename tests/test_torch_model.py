@@ -167,13 +167,15 @@ def test_decode_paged_multi_matches_single_steps(params):
 
 
 def test_unported_configs_raise():
-    """Families and options no slice has ported raise at init; the arena
-    also refuses the SSM family, which the reference's ``supports_paged``
-    excludes."""
+    """Families and options no slice has ported raise at init: MoE,
+    M-RoPE, the append-buffer decode, enc-dec; the arena also refuses the
+    SSM family, which the reference's ``supports_paged`` excludes.  (Sliding
+    windows and the local/global pattern are ported:
+    ``tests/test_torch_dense_archs.py``.)"""
     for kw, init_kw in (
             ({"family": "moe", "n_experts": 4, "top_k": 2}, None),
-            ({"sliding_window": 8}, None),
-            ({"sliding_window": 8, "local_global_ratio": 5}, None),
+            ({"mrope_sections": (2, 3, 3)}, None),
+            ({"decode_window": 8}, None),
             ({"family": "ssm"}, {"n_enc_layers": 2})):
         with pytest.raises(NotImplementedError):
             RT.init_params(CFG_T.with_(**(init_kw or kw)), device="cpu")

@@ -245,15 +245,24 @@ def test_forward_on_cpu_launches_nothing_and_checks_its_arguments(pair):
                    model.cfg, train=True)
 
 
-def test_generic_entry_points_refuse_the_dense_family():
-    """The dense family's generic forward and decode are not ported yet
-    (the engines' slotted and paged entry points serve it)."""
-    model = RT.init_params(get_smoke_config("qwen3-1.7b"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        RT.forward(model, {"tokens": torch.zeros(1, 8, dtype=torch.long)},
-                   model.cfg)
-    with pytest.raises(NotImplementedError):
-        RT.make_cache(model, model.cfg, 1, 8, device="cpu")
+def test_generic_entry_points_refuse_unported_dense_options():
+    """The generic forward and decode serve the dense family
+    (``tests/test_torch_dense_archs.py``) but refuse what stays unported of
+    its configurations: the append-buffer decode and M-RoPE (qwen2-vl) on
+    dense weights, and MoE and enc-dec, which no model is built for."""
+    for kw in ({"decode_window": 8}, {"mrope_sections": (2, 3, 3)}):
+        model = RT.init_params(get_smoke_config("qwen3-1.7b"), device="cpu")
+        model.cfg = model.cfg.with_(**kw)
+        with pytest.raises(NotImplementedError):
+            RT.forward(model, {"tokens": torch.zeros(1, 8, dtype=torch.long)},
+                       model.cfg)
+        with pytest.raises(NotImplementedError):
+            RT.make_cache(model, model.cfg, 1, 8, device="cpu")
+    for kw in ({"family": "moe", "n_experts": 4, "top_k": 2},
+               {"n_enc_layers": 2}):
+        with pytest.raises(NotImplementedError):
+            RT.init_params(get_smoke_config("qwen3-1.7b").with_(**kw),
+                           device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
