@@ -30,7 +30,9 @@ Phases, each printing its result lines:
    of 16 rows, two row-chunks) with and without a window, at qwen2-0.5b's
    (14 heads of 64 over 2), and the paged prefill of a 128-token chunk at
    n_past 1280 and the contiguous flash over 1400 tokens at those widths,
-   f32 and bf16.  Each case prints its time, the
+   f32 and bf16; and the same four cases at the MoE family's widths
+   (``MOE_ATTN``: qwen3-moe-30b-a3b's 32 heads of 128 over 4 KV heads,
+   qwen2-moe-a2.7b's 16 over 16).  Each case prints its time, the
    plain version's, one ``scaled_dot_product_attention`` call as a
    yardstick (none computes the scan), and the least time the card could
    take (for f32 work multiplied as split bf16, also at the CUDA cores'
@@ -91,18 +93,36 @@ Phases, each printing its result lines:
 13. the dense family's SMOKE configs (and glm4's with a group of 16) on
    the card against the CPU: both engines' greedy streams, the forward
    and ``decode_step``'s greedy tokens;
-14. the ``kernels`` line: every ported kernel with its launches on the main
-   paths that run it (phases 3, 9, 11a and 12 for the paged kernels,
-   phases 4, 11b and 13 for the contiguous decode and the f32 contiguous
-   prefill, whose record is the slotted serve's 1024-token shape, phase 7
-   for the scan, phase 8's and phase 12's forwards for the bf16
-   contiguous prefill, whose record is phase 8's forward shape).
+14. the MoE family at full width, bf16: (a) qwen3-moe-30b-a3b (48 layers,
+   128 experts top-8, 30.5 B params) through the paged engine serving 6
+   requests of 300-1400 prompt tokens (a shared 256-token prefix) and 32
+   new, 4 rows at a time (decode drop-free, prefill chunks dropping pairs),
+   with the phase 12 checks, its peak memory and the profiles of one fused
+   decode dispatch and one prefill chunk (the MoE pieces' and attention's
+   shares of the device time, beside the step's weight-bytes bound); (b)
+   its chunked paged prefill of a 1400-token prompt held to
+   ``registry.forward`` at a drop-free capacity within
+   ``MOE_PREFILL_TOL``, the same with unnormalised gates rejected, and the
+   reading at the config's own capacity printed; (c) qwen2-moe-a2.7b (64
+   padded experts, 4 shared, g = 1) through the paged engine with decode
+   groups of 8 rows (C = 4); (d) both SMOKE configs and qwen3-moe SMOKE
+   with top-1 routing (decode rows compete) on the card against the CPU,
+   strictly: both engines' streams, the forward's logits and aux, and
+   ``decode_step``'s greedy tokens;
+15. the ``kernels`` line: every ported kernel with its launches on the main
+   paths that run it (phases 3, 9, 11a, 12 and 14 for the paged kernels,
+   phases 4, 11b, 13 and 14d for the contiguous decode and the f32
+   contiguous prefill, whose record is the slotted serve's 1024-token
+   shape, phase 7 for the scan, phase 8's, phase 12's and phase 14b's
+   forwards for the bf16 contiguous prefill, whose record is phase 8's
+   forward shape).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -356,6 +376,10 @@ DENSE_ATTN = {"gemma3": dict(K=16, g=2, dh=128),
               "glm4": dict(K=2, g=16, dh=128),
               "qwen2": dict(K=2, g=7, dh=64)}
 DENSE_LENGTHS = (2048, 1400, 1025, 1024, 1000, 300, 17, 1)
+# the MoE family's attention: qwen3-moe-30b-a3b 32 heads of 128 over 4 KV
+# heads (g = 8), qwen2-moe-a2.7b 16 over 16 (g = 1)
+MOE_ATTN = {"qwen3-moe": dict(K=4, g=8, dh=128),
+            "qwen2-moe": dict(K=16, g=1, dh=128)}
 
 
 def phase_kernels() -> dict:
@@ -375,7 +399,9 @@ def phase_kernels() -> dict:
     gives them: prefill of 4 prompts of 4096 tokens, decode at batch 4
     over 160 positions; the tensor-core prefill also at the slotted
     serve's other buckets (64, 256 tokens; f32), a ragged 1000 tokens,
-    with a window, and at zamba2 SMOKE's head dim 16, in both types."""
+    with a window, and at zamba2 SMOKE's head dim 16, in both types; and
+    the dense and MoE families' attention shapes (``DENSE_ATTN``,
+    ``MOE_ATTN``)."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
@@ -446,7 +472,18 @@ def phase_kernels() -> dict:
                              ("qwen2", 0))]
              + [("flash", (1400, w), d, DENSE_ATTN[m]) for d in (f32, bf16)
                 for m, w in (("gemma3", 1024), ("gemma3", 0), ("glm4", 0),
-                             ("qwen2", 0))])
+                             ("qwen2", 0))]
+             # the MoE family's shapes (MOE_ATTN): both decodes at batch 8
+             # over rows of 1-2048 positions, the paged prefill of a
+             # 128-token chunk at n_past 1280 and the contiguous flash over
+             # 1400 tokens, at qwen3-moe's and qwen2-moe's widths
+             + [(kind, 8, d, dict(MOE_ATTN[m], lengths=DENSE_LENGTHS))
+                for d in (f32, bf16) for kind in ("decode", "contig_decode")
+                for m in MOE_ATTN]
+             + [("prefill", 1280, d, dict(MOE_ATTN[m], C=128, nb=129))
+                for d in (f32, bf16) for m in MOE_ATTN]
+             + [("flash", (1400, 0), d, MOE_ATTN[m]) for d in (f32, bf16)
+                for m in MOE_ATTN])
     # the case whose numbers each record of the kernels line carries
     headlines = {("decode", 8, "float32", ()): "paged_decode_attention",
                  ("prefill", 992, "float32", ()): "paged_prefill_attention",
@@ -696,21 +733,39 @@ def phase_ssd_kernels() -> dict:
     return records
 
 
-def _device_profile(fn, steps: int, t_wall: float, parts: dict) -> str:
+def _device_profile(fn, steps: int, t_wall: float, parts: dict,
+                    ranges: dict = None) -> str:
     """Device time per step of ``fn`` (which runs ``steps`` decode steps,
     or one forward) from torch.profiler: the sum over device events
     (kernels, copies, fills), each counted once — the CPU op that launched
     a kernel carries its time too, so CPU events are left out — with the
     time of the kernels each predicate of ``parts`` picks (by label), the
     number of device events, the idle share against the wall time
-    ``t_wall`` of ``fn``, and the five largest events by name."""
+    ``t_wall`` of ``fn``, and the five largest events by name.  ``ranges``
+    maps a label to (module, function name): while profiling, each such
+    function runs inside a ``record_function`` range of that label, and
+    the device time of the kernels launched inside it is reported too."""
+    import contextlib
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(label, fn_):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn_(*args, **kw)
+        return call
+
+    ranges = ranges or {}
+    with contextlib.ExitStack() as undo:
+        for label, (mod, name) in ranges.items():
+            orig = getattr(mod, name)
+            setattr(mod, name, ranged(label, orig))
+            undo.callback(setattr, mod, name, orig)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in dev)
@@ -723,6 +778,12 @@ def _device_profile(fn, steps: int, t_wall: float, parts: dict) -> str:
     part_s = ", ".join(f"{label} {part_ms(pick):.3f} ms = "
                        f"{part_ms(pick) * steps * 1e3 / busy_us:.3f} of busy"
                        for label, pick in parts.items())
+    if ranges:
+        events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        for label in ranges:
+            us = sum(e.device_time_total for e in events if e.name == label)
+            part_s += (f", {label} {us / steps / 1e3:.3f} ms = "
+                       f"{us / busy_us:.3f} of busy")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     top_s = "; ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f}"
                       f" ms in {e.count / steps:g}" for e in top)
@@ -2165,16 +2226,19 @@ DENSE_PREFILL_TOL = 5e-2
 DENSE_CHECK_FROM = 1200
 
 
-def _dense_prompts(vocab: int, seed: int = 7):
-    """4 prompts of 1040-1400 tokens, all past gemma3's window of 1024,
-    sharing a 256-token prefix."""
+def _dense_prompts(vocab: int, seed: int = 7,
+                   lengths=(1040, 1400, 1200, 1100)):
+    """Prompts of ``lengths`` tokens (by default 4 of 1040-1400, all past
+    gemma3's window of 1024), those longer than 256 sharing a 256-token
+    prefix."""
     import numpy as np
     rng = np.random.default_rng(seed)
     shared = rng.integers(0, vocab, size=256).astype(np.int32)
     prompts = []
-    for n in (1040, 1400, 1200, 1100):
+    for n in lengths:
         p = rng.integers(0, vocab, size=n).astype(np.int32)
-        p[:256] = shared
+        if n > 256:
+            p[:256] = shared
         prompts.append(p)
     return prompts
 
@@ -2263,21 +2327,35 @@ def _chunked_prefill_logits(model, prompt, chunk: int):
     return torch.cat(out)
 
 
-def _prefill_vs_forward(model, prompt, chunk: int) -> dict:
+def _window_dropped():
+    """The local layers' window dropped (their rotary base kept)."""
+    import contextlib
+    from repro_torch.models import transformer as T
+
+    @contextlib.contextmanager
+    def patch():
+        pattern = T.layer_pattern
+        T.layer_pattern = lambda c: (0 * pattern(c)[0], pattern(c)[1])
+        try:
+            yield
+        finally:
+            T.layer_pattern = pattern
+    return patch()
+
+
+def _prefill_vs_forward(model, prompt, chunk: int, variants: dict,
+                        start: int) -> dict:
     """Hold the chunked paged prefill's logits at the positions from
-    ``DENSE_CHECK_FROM`` against ``registry.forward``'s (contiguous flash)
-    over the same prompt, relative to what the layers add to them; then
-    again with the
-    local layers' window dropped from the chunked prefill (their rotary
-    base kept), which must fail ``DENSE_PREFILL_TOL``.  Returns the
-    readings."""
+    ``start`` against ``registry.forward``'s (contiguous flash) over the
+    same prompt, relative to what the layers add to them, once under each
+    context of ``variants`` (label -> a function returning a context
+    manager in which the chunked prefill runs).  Returns the readings and
+    the forward's flash launches (all, windowed)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import layers as L
     from repro_torch.models import registry as R
-    from repro_torch.models import transformer as T
     cfg = model.cfg
-    start = DENSE_CHECK_FROM
     toks = torch.as_tensor(prompt[None], device="cuda")
     FA.flash_attention.launches = FA.flash_attention.windowed_launches = 0
     ref = R.forward(model, {"tokens": toks}, cfg)[0][0, start:].float()
@@ -2291,14 +2369,74 @@ def _prefill_vs_forward(model, prompt, chunk: int) -> dict:
     def reading(got):
         return ((got[start:].float() - ref).norm() / layers).item()
 
-    kept = reading(_chunked_prefill_logits(model, prompt, chunk))
-    pattern = T.layer_pattern
-    T.layer_pattern = lambda c: (0 * pattern(c)[0], pattern(c)[1])
-    try:
-        dropped = reading(_chunked_prefill_logits(model, prompt, chunk))
-    finally:
-        T.layer_pattern = pattern
-    return {"kept": kept, "dropped": dropped, "flash": n_flash}
+    out = {"flash": n_flash}
+    for label, variant in variants.items():
+        with variant():
+            out[label] = reading(_chunked_prefill_logits(model, prompt,
+                                                         chunk))
+    return out
+
+
+def _paged_profiles(tag: str, eng, prompt, n_blocks: int,
+                    ranges: dict = None) -> None:
+    """Profiles of one fused 8-step decode dispatch (4 rows, 1400
+    positions of context, inactive: every write goes to the junk block) and
+    one 128-token prefill chunk at n_past 1280 of ``prompt`` on the first
+    instance of the paged engine ``eng``: wall, host enqueue, device busy,
+    the attention kernels' share (and ``_device_profile``'s ``ranges``),
+    beside the step's weight-bytes bound (every parameter but the
+    embedding table read once at 3.35 TB/s)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as R
+    inst = eng.instances[0]
+    model = inst.params
+    w_bytes = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n != "embed")
+    bound_ms = w_bytes / HBM_BYTES_S * 1e3
+    B, ctx = 4, 1400
+    pages = -(-ctx // inst.block_size)
+    tables = np.zeros((B, inst.n_pages), np.int32)
+    tables[:, :pages] = 1 + np.arange(B * pages).reshape(B, pages) % (
+        n_blocks - 1)
+    args = [torch.as_tensor(a, device=inst.device) for a in
+            (np.zeros((B, 1), np.int32), tables,
+             np.full((B,), ctx, np.int32), np.zeros((B,), bool))]
+
+    def dispatch():
+        return R.decode_paged_multi(model, inst.arena, {"tokens": args[0]},
+                                    *args[1:], 8)[0]
+
+    n_past, C = 1280, inst.chunk_tokens
+    table = torch.as_tensor(1 + np.arange(128) % (n_blocks - 1),
+                            dtype=torch.int32, device=inst.device)
+    chunk = torch.as_tensor(prompt[None, n_past:n_past + C],
+                            device=inst.device)
+
+    def prefill_chunk():
+        return R.prefill_paged(model, {"tokens": chunk}, inst.arena, table,
+                               n_past, C)
+
+    for what, fn, steps, kernel in (
+            (f"decode step (batch {B}, {ctx} tokens of context)", dispatch,
+             8, lambda key: "decode_split_kernel" in key and "PagedKV" in key),
+            (f"prefill chunk ({C} tokens at n_past {n_past})", prefill_chunk,
+             1, lambda key: "paged_prefill" in key)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        t_enqueue = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t
+        if out.is_floating_point():
+            _check(bool(torch.isfinite(out).all()), f"{tag}: non-finite "
+                   f"logits of the {what}")
+        device = _device_profile(fn, steps, t_wall,
+                                 {"attention kernels": kernel}, ranges)
+        print(f"{tag} {what}: wall {t_wall / steps * 1e3:.2f} ms, host "
+              f"enqueue {t_enqueue / steps * 1e3:.2f} ms, weight-bytes "
+              f"bound {bound_ms:.2f} ms ({w_bytes / 1e9:.2f} GB), {device}")
 
 
 def phase_dense() -> dict:
@@ -2312,10 +2450,8 @@ def phase_dense() -> dict:
     same with the window dropped rejected; then a short paged serve of
     glm4-9b (g = 16) and of qwen2-0.5b.  Returns the paged kernels'
     launches over the three serves and the forward's flash launches."""
-    import numpy as np
     import torch
     from repro_torch.configs import gemma3_27b, glm4_9b, qwen2_0_5b
-    from repro_torch.models import registry as R
     from repro_torch.models import transformer as T
     cfg = gemma3_27b.FULL
     n_local = int((T.layer_pattern(cfg)[0] > 0).sum())
@@ -2333,67 +2469,14 @@ def phase_dense() -> dict:
                f"every {L}")
     print(f"dense gemma3-27b: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    # one fused 8-step decode dispatch of 4 rows, 1400 positions of
-    # context each (inactive rows: every write goes to the junk block), and
-    # one 128-token prefill chunk at n_past 1280: wall, host enqueue,
-    # device time (torch.profiler)
-    inst = eng.instances[0]
-    B, ctx = 4, 1400
-    pages = -(-ctx // inst.block_size)
-    tables = np.zeros((B, inst.n_pages), np.int32)
-    tables[:, :pages] = 1 + np.arange(B * pages).reshape(B, pages) % (
-        DENSE_BLOCKS - 1)
-    args = [torch.as_tensor(a, device=inst.device) for a in
-            (np.zeros((B, 1), np.int32), tables,
-             np.full((B,), ctx, np.int32), np.zeros((B,), bool))]
-
-    def dispatch():
-        return R.decode_paged_multi(inst.params, inst.arena,
-                                    {"tokens": args[0]}, *args[1:], 8)[0]
-
-    dispatch()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    dispatch()
-    t_enqueue = time.perf_counter() - t
-    torch.cuda.synchronize()
-    t_wall = time.perf_counter() - t
-    device = _device_profile(dispatch, 8, t_wall, {
-        "attention kernel (split and merge)":
-            lambda key: "decode_split_kernel" in key and "PagedKV" in key})
-    print(f"dense gemma3-27b decode step (batch {B}, {ctx} tokens of "
-          f"context): wall {t_wall / 8 * 1e3:.2f} ms, host enqueue "
-          f"{t_enqueue / 8 * 1e3:.2f} ms, {device}")
-    n_past, C = 1280, inst.chunk_tokens
-    span = 128
-    table = torch.as_tensor(1 + np.arange(span) % (DENSE_BLOCKS - 1),
-                            dtype=torch.int32, device=inst.device)
-    chunk = torch.as_tensor(prompts[1][None, n_past:n_past + C],
-                            device=inst.device)
-
-    def prefill_chunk():
-        return R.prefill_paged(inst.params, {"tokens": chunk}, inst.arena,
-                               table, n_past, C)
-
-    prefill_chunk()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    lg = prefill_chunk()
-    t_enqueue = time.perf_counter() - t
-    torch.cuda.synchronize()
-    t_wall = time.perf_counter() - t
-    _check(bool(torch.isfinite(lg).all()), "dense: non-finite prefill logits")
-    device = _device_profile(prefill_chunk, 1, t_wall, {
-        "prefill attention kernels (split and merge)":
-            lambda key: "paged_prefill" in key})
-    print(f"dense gemma3-27b prefill chunk ({C} tokens at n_past {n_past}): "
-          f"wall {t_wall * 1e3:.2f} ms, host enqueue {t_enqueue * 1e3:.2f} "
-          f"ms, {device}")
+    _paged_profiles("dense gemma3-27b", eng, prompts[1], DENSE_BLOCKS)
     model = eng.family["x1"].params
-    del eng, inst, args, lg
+    del eng
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    r = _prefill_vs_forward(model, prompts[1], C)
+    r = _prefill_vs_forward(model, prompts[1], 128,
+                            {"kept": contextlib.nullcontext,
+                             "dropped": _window_dropped}, DENSE_CHECK_FROM)
     _check(r["flash"] == (L, n_local),
            f"dense: forward flash launches (all, windowed) {r['flash']}, "
            f"expected ({L}, {n_local})")
@@ -2441,6 +2524,22 @@ def phase_dense_parity() -> dict:
     greedy tokens after a replayed prompt, equal (a differing token must
     be a near-tie of the CPU's logits), the forward's logits within
     ``SMOKE_TOL``.  Returns the contiguous kernels' launches on the card."""
+    variants = [(a, a, {}) for a in ("gemma3-27b", "glm4-9b", "qwen2-0.5b")]
+    variants.append(("glm4-9b g=16", "glm4-9b",
+                     dict(n_heads=16, n_kv_heads=1, d_head=16)))
+    return _smoke_parity("dense parity", variants, strict=False)
+
+
+def _smoke_parity(prefix: str, variants, strict: bool) -> dict:
+    """SMOKE ``variants`` ((label, arch, overrides)) on the card against
+    the CPU with the same weights: both engines' greedy streams equal, the
+    forward's logits and aux within ``SMOKE_TOL``, and ``decode_step``'s
+    greedy tokens of 2 rows x 12 after a 12-token replay equal (a differing
+    token must be a near-tie of the CPU's logits at that step, which ran
+    the same batch).  With ``strict`` an engine stream must be equal token
+    for token: the near-tie oracle serves one request alone, which for an
+    MoE model is another batch, so it would not say what the engine's
+    logits were.  Returns the contiguous kernels' launches on the card."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -2450,12 +2549,10 @@ def phase_dense_parity() -> dict:
     from repro_torch.models import registry as R
     from repro_torch.serving import engine as ENG
     from repro_torch.serving.api import serve_prompts
-    variants = [(a, {}) for a in ("gemma3-27b", "glm4-9b", "qwen2-0.5b")]
-    variants.append(("glm4-9b", dict(n_heads=16, n_kv_heads=1, d_head=16)))
     counts = {"decode_attention": 0, "flash_attention_f32": 0}
-    for arch, kw in variants:
+    for label, arch, kw in variants:
         cfg = get_smoke_config(arch).with_(**kw)
-        tag = f"dense parity {arch}{' g=16' if kw else ''}"
+        tag = f"{prefix} {label}"
         fam_cpu = ENG.build_engine_family(cfg, fracs=(1.0,), seed=3,
                                           device="cpu")
         fam_gpu = ENG.build_engine_family(cfg, fracs=(1.0,), seed=3)
@@ -2478,18 +2575,32 @@ def phase_dense_parity() -> dict:
                     counts["flash_attention_f32"] += (
                         FA.flash_attention.launches)
                 outs[dev or "cuda"] = dict(eng.last_outputs)
-            ties[layout] = _equal_streams(f"{tag} {layout}", outs["cuda"],
-                                          outs["cpu"], model, prompts)
+            if strict:
+                _check(set(outs["cuda"]) == set(outs["cpu"]),
+                       f"{tag} {layout}: request sets differ")
+                for rid, toks in outs["cpu"].items():
+                    _check((outs["cuda"][rid] == toks).all(),
+                           f"{tag} {layout}: rid {rid} differs: "
+                           f"{outs['cuda'][rid]} on the card, {toks} on "
+                           f"the CPU")
+            else:
+                ties[layout] = _equal_streams(f"{tag} {layout}",
+                                              outs["cuda"], outs["cpu"],
+                                              model, prompts)
         # the generic entry points: forward logits, then greedy decode
         toks = np.random.default_rng(9).integers(
             0, cfg.vocab_size, size=(2, 24)).astype(np.int32)
-        lg_g = R.forward(fam_gpu[0].params, {"tokens": torch.as_tensor(
-            toks, device="cuda")}, model.cfg)[0].float().cpu()
-        lg_c = R.forward(model, {"tokens": torch.as_tensor(toks)},
-                         model.cfg)[0]
+        lg_g, aux_g = R.forward(fam_gpu[0].params, {"tokens": torch.as_tensor(
+            toks, device="cuda")}, model.cfg)
+        lg_g = lg_g.float().cpu()
+        lg_c, aux_c = R.forward(model, {"tokens": torch.as_tensor(toks)},
+                                model.cfg)
         err = (lg_g - lg_c).abs().max().item()
         _check(torch.allclose(lg_g, lg_c, atol=SMOKE_TOL, rtol=SMOKE_TOL),
                f"{tag}: forward logits differ by {err:.3g}")
+        _check(abs(float(aux_g) - float(aux_c)) <= SMOKE_TOL * max(
+            1.0, abs(float(aux_c))), f"{tag}: forward aux {float(aux_g)} "
+               f"on the card, {float(aux_c)} on the CPU")
         DA.decode_attention.launches = 0
         gen_g, _ = _replay_greedy(fam_gpu[0].params, toks[:, :12], 12)
         counts["decode_attention"] += DA.decode_attention.launches
@@ -2510,8 +2621,182 @@ def phase_dense_parity() -> dict:
               f"slotted engines on the card equal the CPU's, and the "
               f"decode_step greedy tokens of 2 rows x 12 (near-tie "
               f"divergences {ties}); forward max |diff| {err:.3g} (tol "
-              f"{SMOKE_TOL})")
+              f"{SMOKE_TOL}), aux {float(aux_g):.6g} / {float(aux_c):.6g}")
     return counts
+
+
+# =============================================================================
+# phase 14: the MoE family (qwen3-moe-30b-a3b, qwen2-moe-a2.7b)
+# =============================================================================
+# qwen3-moe's serve: 6 prompts of 300-1400 tokens sharing a 256-token
+# prefix, 4 rows at a time (decode groups of at most 4 rows: drop-free, C =
+# gsz; prefill chunks of 128 tokens: C = 10 of 128, pairs drop); an f32
+# arena of 400 blocks of 16 positions (1.26 GB at 48 layers x 4 KV heads x
+# 128)
+MOE_LENGTHS = (300, 1400, 700, 1000, 450, 1200)
+MOE_BLOCKS = 400
+# largest rms difference allowed between the chunked paged prefill's
+# logits and registry.forward's over a 1400-token prompt (every position),
+# both at a drop-free capacity, as a fraction of the rms of what the layers
+# add to the forward's logits (as DENSE_PREFILL_TOL reads it).  Readings
+# on the H100 (scripts/moe_prefill_sensitivity.py and two calls of this
+# phase): 0.0902, the floor of a bf16 comparison through 48 random MoE
+# layers, where a rounding moves a token's router off a near-tie and it
+# takes another expert (0.07% of the tokens at the first layer, ~10% at
+# the last; f32 at 2 layers reads 4.6e-6 with no token moved); with
+# unnormalised gates 0.667; the chunked prefill at the config's own
+# capacity, where chunk groups drop pairs, 0.236.  The limit sits 1.66x
+# above the floor and 4.4x below the unnormalised gates.
+MOE_PREFILL_TOL = 0.15
+# qwen2-moe's serve: 10 prompts of 64-512 tokens, 8 rows at a time: a
+# decode group of 8 rows has C = 4 of 8 (not drop-free)
+MOE2_LENGTHS = (300, 64, 512, 128, 400, 256, 96, 480, 350, 200)
+MOE2_BLOCKS = 240
+
+
+def _moe_ranges() -> dict:
+    """The MoE layer's pieces, for ``_device_profile``'s ranges."""
+    from repro_torch.models import moe as M
+    return {"moe (all)": (M, "moe_apply"), "router": (M, "_route"),
+            "dispatch": (M, "_dispatch"), "expert products": (M, "_experts"),
+            "combine": (M, "_combine")}
+
+
+def _unnormalised_gates():
+    """A wrong MoE: the top-k probabilities used as gates without their
+    renormalisation."""
+    from repro_torch.models import moe as M
+
+    @contextlib.contextmanager
+    def patch():
+        route = M._route
+
+        def wrong(p, x, cfg):
+            probs, _, idx = route(p, x, cfg)
+            return probs, probs.gather(-1, idx), idx
+        M._route = wrong
+        try:
+            yield
+        finally:
+            M._route = route
+    return patch()
+
+
+def phase_moe() -> dict:
+    """The MoE family at full width, bf16 weights from seed 0.  (a)
+    qwen3-moe-30b-a3b (48 layers, 128 experts top-8, 32 heads over 4)
+    through the paged engine (``MOE_BLOCKS`` of f32 arena, chunks of 128
+    tokens, 4 rows) serving 6 requests of 300-1400 prompt tokens and 32
+    new, with the ``_dense_serve`` checks; peak memory; the profiles of one
+    fused decode dispatch and one prefill chunk.  (b) The chunked prefill
+    of a 1400-token prompt held to ``registry.forward`` at a drop-free
+    capacity (``MOE_PREFILL_TOL``), the same with unnormalised gates
+    rejected, and the reading at the config's own capacity printed.  (c)
+    qwen2-moe-a2.7b (60 routed experts padded to 64, 4 shared, g = 1)
+    through the paged engine with 8 rows, whose decode groups drop.
+    Returns the paged kernels' launches over the two serves and the
+    forward's flash launches."""
+    import torch
+    from repro_torch.configs import qwen2_moe_a2_7b, qwen3_moe_30b_a3b
+    from repro_torch.models import registry as R
+    cfg = qwen3_moe_30b_a3b.FULL
+    tag = "moe qwen3-moe-30b-a3b"
+    torch.cuda.reset_peak_memory_stats()
+    prompts = _dense_prompts(cfg.vocab_size, lengths=MOE_LENGTHS)
+    eng, _, launches, _ = _dense_serve(tag, cfg, prompts, 32, 4,
+                                       n_blocks=MOE_BLOCKS, chunk_blocks=8)
+    print(f"{tag}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _paged_profiles(tag, eng, prompts[1], MOE_BLOCKS, _moe_ranges())
+    model = eng.family["x1"].params
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) the chunked prefill against the forward, both drop-free
+    f = cfg.padded_experts / cfg.top_k
+    free = cfg.with_(capacity_factor=f)
+
+    @contextlib.contextmanager
+    def own_capacity():
+        model.cfg = cfg
+        try:
+            yield
+        finally:
+            model.cfg = free
+
+    t = time.perf_counter()
+    model.cfg = free
+    try:
+        r = _prefill_vs_forward(model, prompts[1], 128,
+                                {"kept": contextlib.nullcontext,
+                                 "unnormalised": _unnormalised_gates,
+                                 "own capacity": own_capacity}, 0)
+    finally:
+        model.cfg = cfg
+    print(f"{tag}: chunked paged prefill of {len(prompts[1])} tokens against "
+          f"registry.forward, both at capacity_factor {f:g} (drop-free): rms "
+          f"diff {r['kept']:.4g} of the layers' part (tol "
+          f"{MOE_PREFILL_TOL}); with unnormalised gates "
+          f"{r['unnormalised']:.4g}; the chunked prefill at the config's own "
+          f"capacity (pairs drop) {r['own capacity']:.4g}, not checked "
+          f"({time.perf_counter() - t:.1f} s)")
+    _check(r["flash"] == (cfg.n_layers, 0),
+           f"moe: forward flash launches (all, windowed) {r['flash']}")
+    _check(r["kept"] <= MOE_PREFILL_TOL,
+           f"moe: chunked paged prefill differs from the forward by "
+           f"{r['kept']:.4g} of the layers' part (rms), beyond "
+           f"{MOE_PREFILL_TOL}")
+    _check(r["unnormalised"] > MOE_PREFILL_TOL,
+           f"moe: with unnormalised gates the chunked prefill still reads "
+           f"{r['unnormalised']:.4g}, inside {MOE_PREFILL_TOL}: the check "
+           f"does not see the gates")
+    del model
+    torch.cuda.empty_cache()
+    launches["flash_attention"] = r["flash"][0]
+
+    # (c) qwen2-moe-a2.7b: 8 rows, decode groups of 8 with C = 4
+    cfg2 = qwen2_moe_a2_7b.FULL
+    tag = "moe qwen2-moe-a2.7b"
+    torch.cuda.reset_peak_memory_stats()
+    calls = []                   # (rows, active) of every fused dispatch
+    multi = R.decode_paged_multi
+
+    def counting(params, arena, batch, tables, lengths, active, n_steps):
+        calls.append((batch["tokens"].shape[0], active))
+        return multi(params, arena, batch, tables, lengths, active, n_steps)
+
+    R.decode_paged_multi = counting
+    try:
+        eng, _, more, _ = _dense_serve(
+            tag, cfg2, _dense_prompts(cfg2.vocab_size, lengths=MOE2_LENGTHS),
+            16, 8, n_blocks=MOE2_BLOCKS, chunk_blocks=8)
+    finally:
+        R.decode_paged_multi = multi
+    # the serve's dispatches (warmup's have no active row), by row bucket
+    rows = [b for b, active in calls if bool(active.any())]
+    by_rows = {b: rows.count(b) for b in sorted(set(rows))}
+    _check(8 in by_rows, f"{tag}: no decode dispatch of 8 rows: {by_rows}")
+    print(f"{tag}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the serve's "
+          f"decode dispatches by rows {by_rows} (8 rows: C = 4)")
+    for name, n in more.items():
+        launches[name] += n
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_parity() -> dict:
+    """(d) The MoE family's SMOKE configs, and qwen3-moe SMOKE with top-1
+    routing (a decode capacity of half the group: rows compete), on the
+    card against the CPU with the same weights, strictly: both engines'
+    streams equal token for token, the forward's logits and aux within
+    ``SMOKE_TOL``, ``decode_step``'s greedy tokens equal.  Returns the
+    contiguous kernels' launches on the card."""
+    variants = [(a, a, {}) for a in ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b")]
+    variants.append(("qwen3-moe-30b-a3b top-1", "qwen3-moe-30b-a3b",
+                     {"top_k": 1}))
+    return _smoke_parity("moe parity", variants, strict=True)
 
 
 # =============================================================================
@@ -2579,6 +2864,12 @@ def main() -> int:
     t14 = time.perf_counter()
     dense_parity = phase_dense_parity()
     t15 = time.perf_counter()
+    # free what earlier phases cached before the largest model
+    torch.cuda.empty_cache()
+    moe = phase_moe()
+    t16 = time.perf_counter()
+    moe_parity = phase_moe_parity()
+    t17 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
@@ -2591,9 +2882,10 @@ def main() -> int:
         launches[name] += n
     for name, n in fleet_parity.items():  # the SMOKE fleet on the card
         launches[name] += n
-    # the dense family's serves and gemma3's forward, and its SMOKE
+    # the dense and MoE families' serves and forwards, and their SMOKE
     # engines and decode steps on the card
-    for name, n in list(dense.items()) + list(dense_parity.items()):
+    for name, n in (list(dense.items()) + list(dense_parity.items())
+                    + list(moe.items()) + list(moe_parity.items())):
         launches[name] += n
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
@@ -2603,7 +2895,8 @@ def main() -> int:
           f"{t9 - t8:.1f} s, ssm parity {t10 - t9:.1f} s, fleet "
           f"{t11 - t10:.1f} s, fleet parity {t12 - t11:.1f} s, sim "
           f"{t13 - t12:.1f} s, dense {t14 - t13:.1f} s, dense parity "
-          f"{t15 - t14:.1f} s, total {t15 - t0:.1f} s")
+          f"{t15 - t14:.1f} s, moe {t16 - t15:.1f} s, moe parity "
+          f"{t17 - t16:.1f} s, total {t17 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

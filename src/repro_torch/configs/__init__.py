@@ -1,9 +1,10 @@
 """Architecture config registry — ``--arch <id>`` resolution for the
 architectures the port runs: the dense family ``qwen3-1.7b``,
-``qwen2-0.5b``, ``glm4-9b`` and ``gemma3-27b`` (served by the engines and
+``qwen2-0.5b``, ``glm4-9b`` and ``gemma3-27b`` and the MoE family
+``qwen3-moe-30b-a3b`` and ``qwen2-moe-a2.7b`` (served by the engines and
 the generic entry points), ``mamba2-2.7b`` (SSM) and ``zamba2-2.7b``
 (hybrid), each with ``FULL`` and ``SMOKE`` (for the CPU tests).  The
-reference's other architectures (MoE, the VLM, enc-dec) raise
+reference's other architectures (the VLM, enc-dec) raise
 ``NotImplementedError`` until a later slice ports their families."""
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ _MODULES: Dict[str, str] = {
     "qwen2-0.5b": "qwen2_0_5b",
     "glm4-9b": "glm4_9b",
     "gemma3-27b": "gemma3_27b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-2.7b": "zamba2_2_7b",
 }
@@ -24,8 +27,7 @@ _MODULES: Dict[str, str] = {
 ARCHS: List[str] = list(_MODULES)
 
 # the reference's architectures whose families the port does not serve yet
-_NOT_PORTED = ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b",
-               "seamless-m4t-large-v2", "qwen2-vl-7b")
+_NOT_PORTED = ("seamless-m4t-large-v2", "qwen2-vl-7b")
 
 
 def _module(name: str):

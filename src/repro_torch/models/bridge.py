@@ -7,11 +7,14 @@ numpy dict keyed by "/"-joined paths (``train/checkpoint.py``'s
 ``layers/attn/wq/w`` of shape (L, d, H·dh), ...; for the SSM families
 ``layers/ln/scale``, ``layers/mamba/wz/w``, ``layers/mamba/conv_x`` (L, k,
 d_inner), ``layers/mamba/A_log`` (L, H), ..., and for the hybrid the
-unstacked ``shared/...`` block).  :func:`load_reference` splits the
-stacked ``layers/...`` leaves along axis 0 into the port's per-layer
-modules (dense weights transposed to PyTorch's (out, in); conv kernels
-stay (k, channels)), and :func:`export_reference` is its exact inverse, so
-weights round-trip.
+unstacked ``shared/...`` block; an MoE layer has ``layers/moe/router`` (L,
+d, E) and ``layers/moe/w_gate`` / ``w_up`` (L, E, d, F) / ``w_down`` (L,
+E, F, d) as plain arrays, and its shared experts' dense weights under
+``layers/moe/shared/...``).  :func:`load_reference` splits the stacked
+``layers/...`` leaves along axis 0 into the port's per-layer modules
+(dense weights transposed to PyTorch's (out, in); conv kernels stay (k,
+channels), expert weights as they are), and :func:`export_reference` is
+its exact inverse, so weights round-trip.
 """
 from __future__ import annotations
 
@@ -24,11 +27,15 @@ from repro_torch.models.transformer import LM
 
 Arrays = Dict[str, np.ndarray]
 
-# (norms, dense weights, plain arrays) of a decoder layer or the hybrid's
-# shared block, and of a Mamba2 layer
+# (norms, dense weights, plain arrays) of a decoder layer (dense or MoE)
+# or the hybrid's shared block, and of a Mamba2 layer
 _ATTN_MLP = (("ln1", "ln2", "attn/q_norm", "attn/k_norm"),
              ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wi_gate",
               "mlp/wi_up", "mlp/wo"), ())
+_ATTN_MOE = (_ATTN_MLP[0],
+             _ATTN_MLP[1][:4] + ("moe/shared/wi_gate", "moe/shared/wi_up",
+                                 "moe/shared/wo"),
+             ("moe/router", "moe/w_gate", "moe/w_up", "moe/w_down"))
 _MAMBA = (("ln", "mamba/gate_norm"),
           ("mamba/wz", "mamba/wx", "mamba/wB", "mamba/wC", "mamba/wdt",
            "mamba/out_proj"),
@@ -59,8 +66,10 @@ def _leaves(mod, spec) -> Iterator[Tuple[str, str, bool]]:
 
 def _layer_leaves(model: LM) -> Iterator[Tuple[str, str, bool]]:
     """The leaves of one layer, under ``layers/`` in the reference."""
-    ssm = model.cfg.family in ("ssm", "hybrid")
-    return _leaves(model.layers[0], _MAMBA if ssm else _ATTN_MLP)
+    cfg = model.cfg
+    if cfg.family in ("ssm", "hybrid"):
+        return _leaves(model.layers[0], _MAMBA)
+    return _leaves(model.layers[0], _ATTN_MOE if cfg.is_moe else _ATTN_MLP)
 
 
 def _get(obj, dotted: str):

@@ -307,9 +307,13 @@ def attention_prefill_paged_apply(attn: Attention, x: torch.Tensor,
 # MLP (SwiGLU or plain GELU)
 # =============================================================================
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
+    """SwiGLU (or GELU) MLP of width ``d_ff`` (``cfg.d_ff`` by default; an
+    MoE's shared experts pass their summed width)."""
+
+    def __init__(self, cfg: ModelConfig, device, gen: torch.Generator,
+                 d_ff: Optional[int] = None):
         super().__init__()
-        d, d_ff = cfg.d_model, cfg.d_ff
+        d, d_ff = cfg.d_model, d_ff or cfg.d_ff
         out_std = d_ff ** -0.5 / (2 * cfg.n_layers) ** 0.5
         self.wi_gate = (init_dense(d, d_ff, cfg, device, gen)
                         if cfg.act == "silu" else None)

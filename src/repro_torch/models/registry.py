@@ -1,8 +1,8 @@
 """Model interface — the port's counterpart of the reference package's
 ``models/registry.py``: the generic entry points (:func:`forward`,
-:func:`make_cache`, :func:`decode_step`; the SSM and hybrid families so
-far) and the slotted and paged entry points of the serving engines
-(dense).
+:func:`make_cache`, :func:`decode_step`; the dense, MoE, SSM and hybrid
+families) and the slotted and paged entry points of the serving engines
+(dense and MoE).
 
 ``params`` is the :class:`~repro_torch.models.transformer.LM` module (it
 carries its config); batches are ``{"tokens": (b, s) int}``, and a decode
@@ -39,13 +39,14 @@ def forward(params: LM, batch: dict, cfg: ModelConfig, train: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (b, s, V), aux_loss ()); with
     ``return_hidden`` the final hidden states (b, s, d) in place of the
-    logits.  The SSM and hybrid families need ``s`` to be a multiple of
-    ``cfg.ssm_chunk``.  ``train=True`` (the training step) is not ported."""
+    logits.  ``aux_loss`` is the MoE layers' summed load-balance loss (0
+    for the other families).  The SSM and hybrid families need ``s`` to
+    be a multiple of ``cfg.ssm_chunk``.  ``train=True`` (the training step)
+    is not ported."""
     _check_cfg(params, cfg)
     if train:
         raise NotImplementedError("the training forward is not ported yet")
-    out = T.forward_lm(params, batch["tokens"], return_hidden=return_hidden)
-    return out, torch.zeros((), dtype=torch.float32, device=out.device)
+    return T.forward_lm(params, batch["tokens"], return_hidden=return_hidden)
 
 
 def make_cache(params: LM, cfg: ModelConfig, batch_size: int, max_len: int,

@@ -1,8 +1,9 @@
-"""Decoder-only LM stack (dense / SSM / hybrid) — the port's counterpart
-of the reference package's ``models/transformer.py``.
+"""Decoder-only LM stack (dense / MoE / SSM / hybrid) — the port's
+counterpart of the reference package's ``models/transformer.py``.
 
 One module per layer in an ``nn.ModuleList`` (the reference stacks layers
-on a leading axis for ``lax.scan``): ``DecoderLayer`` (dense), ``SSMLayer``
+on a leading axis for ``lax.scan``): ``DecoderLayer`` (dense and MoE: an
+MLP, or a ``models/moe.py`` ``MoE`` for a config with experts), ``SSMLayer``
 (a Mamba2 block; the ``ssm`` family, mamba2), and for the ``hybrid`` family
 (zamba2) one ``SharedBlock`` of attention and MLP whose weights every group
 of ``attn_every`` Mamba2 layers reuses.  Entry points:
@@ -21,15 +22,18 @@ of ``attn_every`` Mamba2 layers reuses.  Entry points:
   * :func:`decode_paged_multi_lm` — ``n_steps`` fused greedy steps whose
     token feedback stays on the device (a Python loop, no host sync).
 
-Every dense entry point takes each layer's sliding window and rotary
-tables from :func:`layer_pattern` (gemma3: ``local_global_ratio`` local
-layers of window ``sliding_window`` and rotary base ``rope_theta``, then
-one global layer of full attention and ``global_rope_theta``), as the
-reference scans them through its layer stack.  Caches and the arena are
-written in place.  M-RoPE, MoE, enc-dec and the append-buffer decode are
-not ported (:func:`check_supported` raises); the SSM and hybrid families
-run through the generic entry points only — the slot cache, the arena and
-the engines refuse them, as the reference's do.
+Every dense and MoE entry point takes each layer's sliding window and
+rotary tables from :func:`layer_pattern` (gemma3: ``local_global_ratio``
+local layers of window ``sliding_window`` and rotary base ``rope_theta``,
+then one global layer of full attention and ``global_rope_theta``), as the
+reference scans them through its layer stack.  An MoE layer routes the
+tokens of one call in groups with a capacity per expert
+(``moe.moe_apply``), so padded rows, free slots and chunk boundaries take
+part in its routing as they do in the reference.  Caches and the arena are
+written in place.  M-RoPE, enc-dec and the append-buffer decode are not
+ported (:func:`check_supported` raises); the SSM and hybrid families run
+through the generic entry points only — the slot cache, the arena and the
+engines refuse them, as the reference's do.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
@@ -48,17 +53,18 @@ Arena = Dict[str, torch.Tensor]
 SlotCache = Dict[str, torch.Tensor]
 KVCache = Dict[str, object]
 
-# the families of the generic entry points (forward_lm, init_kv_cache,
-# decode_step_lm)
-GENERIC_FAMILIES = ("dense", "ssm", "hybrid")
+# the families of the attention decoder (the slot cache, the arena and
+# the engines), and of the generic entry points (forward_lm,
+# init_kv_cache, decode_step_lm)
+DECODER_FAMILIES = ("dense", "moe")
+GENERIC_FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid")
 
 
-def check_supported(cfg: ModelConfig, families=("dense",)) -> None:
+def check_supported(cfg: ModelConfig, families=DECODER_FAMILIES) -> None:
     """Raise ``NotImplementedError`` for what a later slice ports: a family
-    outside ``families``, MoE, enc-dec, M-RoPE, the append-buffer
-    decode."""
+    outside ``families``, enc-dec, M-RoPE, the append-buffer decode."""
     reasons = []
-    if cfg.family not in families or cfg.is_moe or cfg.n_enc_layers:
+    if cfg.family not in families or cfg.n_enc_layers:
         reasons.append(f"family {cfg.family!r}")
     if cfg.mrope_sections:
         reasons.append("M-RoPE")
@@ -115,12 +121,16 @@ def _layer_specs(cfg: ModelConfig, positions: torch.Tensor
 # modules and init
 # =============================================================================
 class DecoderLayer(nn.Module):
+    """Attention, then an MLP (``mlp``) or, for a config with experts, an
+    MoE (``moe``); the other is None."""
+
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
         super().__init__()
         self.ln1 = L.RMSNorm(cfg.d_model, cfg, device)
         self.attn = L.Attention(cfg, device, gen)
         self.ln2 = L.RMSNorm(cfg.d_model, cfg, device)
-        self.mlp = L.MLP(cfg, device, gen)
+        self.mlp = None if cfg.is_moe else L.MLP(cfg, device, gen)
+        self.moe = M.MoE(cfg, device, gen) if cfg.is_moe else None
 
 
 class SSMLayer(nn.Module):
@@ -196,8 +206,17 @@ def init_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _mlp_residual(layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
-    return x + layer.mlp(layer.ln2(x))
+def _mlp_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x + the layer's MLP or MoE of ln2(x), the MoE's aux loss or None).
+    The MoE routes with ``cfg``, the model's config (not one kept in the
+    layer), so a copy of the config set on the model changes its
+    capacity."""
+    h = layer.ln2(x)
+    if layer.moe is None:
+        return x + layer.mlp(h), None
+    y, aux = M.moe_apply(layer.moe, h, cfg)
+    return x + y, aux
 
 
 # =============================================================================
@@ -205,26 +224,32 @@ def _mlp_residual(layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
 # =============================================================================
 @torch.no_grad()
 def forward_lm(model: LM, tokens: torch.Tensor, *,
-               return_hidden: bool = False) -> torch.Tensor:
-    """tokens: (b, s) int -> logits (b, s, V_padded); ``return_hidden``
-    returns the final-normed hidden states (b, s, d) instead.  Dense: each
-    layer's causal attention with its window and rotary tables
-    (:func:`layer_pattern`), then its MLP.  SSM and hybrid: ``s`` must be
-    a multiple of ``ssm_chunk``; the hybrid runs each group of
-    ``attn_every`` Mamba2 layers, then the shared attention (causal) and
-    MLP.  No decode state is returned, as in the reference: a generation
-    replays the prompt through :func:`decode_step_lm`."""
+               return_hidden: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (b, s) int -> (logits (b, s, V_padded), aux ()); with
+    ``return_hidden`` the final-normed hidden states (b, s, d) in place of
+    the logits.  Dense and MoE: each layer's causal attention with its
+    window and rotary tables (:func:`layer_pattern`), then its MLP or MoE;
+    ``aux`` is the sum of the MoE layers' load-balance losses (f32 0 for
+    the other families).  SSM and hybrid: ``s`` must be a multiple of
+    ``ssm_chunk``; the hybrid runs each group of ``attn_every`` Mamba2
+    layers, then the shared attention (causal) and MLP.  No decode state
+    is returned, as in the reference: a generation replays the prompt
+    through :func:`decode_step_lm`."""
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
     x = L.embedding_apply(model.embed, tokens)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
-    if cfg.family == "dense":
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if cfg.family in DECODER_FAMILIES:
         for layer, (w, (cos, sin)) in zip(model.layers,
                                           _layer_specs(cfg, positions)):
             x = x + L.attention_apply(layer.attn, layer.ln1(x), cos, sin,
                                       window=w)
-            x = _mlp_residual(layer, x)
+            x, a = _mlp_residual(layer, x, cfg)
+            if a is not None:
+                aux = aux + a
     else:
         sh = model.shared
         if sh is not None:
@@ -237,28 +262,29 @@ def forward_lm(model: LM, tokens: torch.Tensor, *,
                 x = x + L.attention_apply(sh.attn, sh.ln1(x), cos, sin)
                 x = x + sh.mlp(sh.ln2(x))
     if return_hidden:
-        return model.final_norm(x)
-    return model.logits(x)
+        return model.final_norm(x), aux
+    return model.logits(x), aux
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Optional[torch.device] = None) -> KVCache:
-    """Decode state, in the reference's layout: dense ``"k"``, ``"v"`` (L,
-    b, max_len, K, dh); SSM ``{"ssm": {conv_x, conv_B, conv_C, state}}``,
-    one layer's ``models/ssm.py`` ``init_ssm_cache`` stacked on L; the
+    """Decode state, in the reference's layout: dense and MoE ``"k"``,
+    ``"v"`` (L, b, max_len, K, dh); SSM ``{"ssm": {conv_x, conv_B,
+    conv_C, state}}``, one layer's ``models/ssm.py`` ``init_ssm_cache``
+    stacked on L; the
     hybrid both, its ``"k"``, ``"v"`` (G, b, max_len, K, dh) one per
     application of the shared block (G = L / attn_every); and ``"pos"``
     () int32, the next position."""
     check_supported(cfg, GENERIC_FAMILIES)
     dev = resolve_device(device)
     cache: KVCache = {}
-    if cfg.family != "dense":
+    if cfg.family not in DECODER_FAMILIES:
         layer = S.init_ssm_cache(cfg, batch, dtype, dev)
         cache["ssm"] = {key: buf.new_zeros((cfg.n_layers, *buf.shape))
                         for key, buf in layer.items()}
     if cfg.family != "ssm":
-        n_kv = (cfg.n_layers if cfg.family == "dense"
+        n_kv = (cfg.n_layers if cfg.family in DECODER_FAMILIES
                 else cfg.n_layers // cfg.attn_every)
         shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.d_head)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
@@ -278,13 +304,13 @@ def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor
     check_supported(cfg, GENERIC_FAMILIES)
     pos = cache["pos"]
     x = L.embedding_apply(model.embed, tokens)
-    if cfg.family == "dense":
+    if cfg.family in DECODER_FAMILIES:
         for li, (layer, (w, (cos, sin))) in enumerate(zip(
                 model.layers, _layer_specs(cfg, pos[None]))):
             x = x + L.attention_decode_apply(
                 layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
                 cache["v"][li], pos, window=w)
-            x = _mlp_residual(layer, x)
+            x, _ = _mlp_residual(layer, x, cfg)
     else:
         sh = model.shared
         if sh is not None:
@@ -307,11 +333,10 @@ def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor
 # slotted continuous-batching cache (serving engine, kv_layout="slotted")
 # =============================================================================
 def supports_slots(cfg: ModelConfig) -> bool:
-    """Families the reference's slotted batched KV cache covers: pure-
-    attention decoders (dense / MoE) — no encoder, no SSM state, no
-    per-stream M-RoPE positions.  (The port serves the dense ones;
-    :func:`check_supported` raises on the rest.)"""
-    return (cfg.family in ("dense", "moe") and cfg.n_enc_layers == 0
+    """Families the slotted batched KV cache covers, as in the reference:
+    pure-attention decoders (dense / MoE) — no encoder, no SSM state, no
+    per-stream M-RoPE positions."""
+    return (cfg.family in DECODER_FAMILIES and cfg.n_enc_layers == 0
             and not cfg.mrope_sections)
 
 
@@ -349,7 +374,7 @@ def prefill_kv_lm(model: LM, tokens: torch.Tensor
                                       _layer_specs(cfg, positions)):
         a, k, v = L.attention_prefill_apply(layer.attn, layer.ln1(x), cos,
                                             sin, causal=True, window=w)
-        x = _mlp_residual(layer, x + a)
+        x, _ = _mlp_residual(layer, x + a, cfg)
         ks.append(k)
         vs.append(v)
     return model.logits(x), torch.stack(ks), torch.stack(vs)
@@ -376,7 +401,7 @@ def decode_slots_lm(model: LM, cache: SlotCache, tokens: torch.Tensor,
         x = x + L.attention_decode_slots_apply(
             layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
             cache["v"][li], lengths, write, window=w)
-        x = _mlp_residual(layer, x)
+        x, _ = _mlp_residual(layer, x, cfg)
     cache["lengths"] = lengths + active.to(torch.int32)
     return model.logits(x)[:, 0, :], cache
 
@@ -414,7 +439,7 @@ def prefill_paged_lm(model: LM, tokens: torch.Tensor, arena: Arena,
             layer.attn, layer.ln1(x), cos, sin, arena["k"][li],
             arena["v"][li], table, positions, write_bid, write_off,
             window=w)
-        x = _mlp_residual(layer, x)
+        x, _ = _mlp_residual(layer, x, cfg)
     return model.logits(x)
 
 
@@ -442,7 +467,7 @@ def decode_paged_lm(model: LM, arena: Arena, tokens: torch.Tensor,
             layer.attn, layer.ln1(x), cos, sin, arena["k"][li],
             arena["v"][li], tables, lengths, write_bid, write_off,
             window=w)
-        x = _mlp_residual(layer, x)
+        x, _ = _mlp_residual(layer, x, cfg)
     return model.logits(x)[:, 0, :]
 
 

@@ -16,7 +16,7 @@ from repro.core import catalog as CATJ
 from repro.core import config_graph as CGJ
 from repro.core import objective as OBJJ
 from repro_torch.configs import get_config, get_smoke_config, \
-    mamba2_2_7b, qwen3_1_7b
+    mamba2_2_7b, qwen2_moe_a2_7b, qwen3_1_7b, qwen3_moe_30b_a3b
 from repro_torch.core import annealing as SAT
 from repro_torch.core import carbon as CBT
 from repro_torch.core import catalog as CATT
@@ -121,8 +121,8 @@ def test_anneal_visits_the_same_graphs_as_the_reference(stale_limit):
 def test_config_registry():
     assert get_smoke_config("qwen3-1.7b") == qwen3_1_7b.SMOKE
     assert get_config("qwen3-1.7b") == qwen3_1_7b.FULL
-    with pytest.raises(NotImplementedError):
-        get_config("qwen3-moe-30b-a3b")
+    assert get_config("qwen3-moe-30b-a3b") == qwen3_moe_30b_a3b.FULL
+    assert get_smoke_config("qwen2-moe-a2.7b") == qwen2_moe_a2_7b.SMOKE
     assert get_smoke_config("mamba2-2.7b") == mamba2_2_7b.SMOKE
     with pytest.raises(NotImplementedError):
         get_smoke_config("qwen2-vl-7b")

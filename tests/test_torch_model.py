@@ -167,13 +167,19 @@ def test_decode_paged_multi_matches_single_steps(params):
 
 
 def test_unported_configs_raise():
-    """Families and options no slice has ported raise at init: MoE,
-    M-RoPE, the append-buffer decode, enc-dec; the arena also refuses the
-    SSM family, which the reference's ``supports_paged`` excludes.  (Sliding
-    windows and the local/global pattern are ported:
-    ``tests/test_torch_dense_archs.py``.)"""
+    """Options no slice has ported raise at init: M-RoPE, the append-buffer
+    decode, enc-dec; the arena also refuses the SSM family, which the
+    reference's ``supports_paged`` excludes.  (Sliding windows and the
+    local/global pattern are ported: ``tests/test_torch_dense_archs.py``.)
+    MoE is ported: the same widths with experts build MoE layers and an
+    arena (``tests/test_torch_moe_archs.py``)."""
+    moe = CFG_T.with_(family="moe", n_experts=4, top_k=2, d_expert_ff=32)
+    model = RT.init_params(moe, device="cpu")
+    assert all(layer.mlp is None and layer.moe.w_gate.shape == (4, 64, 32)
+               for layer in model.layers)
+    arena = RT.make_block_arena(moe, 4, 8, dtype=torch.float32, device="cpu")
+    assert arena["k"].shape == (moe.n_layers, 4, 8, 2, 16)
     for kw, init_kw in (
-            ({"family": "moe", "n_experts": 4, "top_k": 2}, None),
             ({"mrope_sections": (2, 3, 3)}, None),
             ({"decode_window": 8}, None),
             ({"family": "ssm"}, {"n_enc_layers": 2})):

@@ -247,12 +247,18 @@ def test_decode_slots_drops_the_write_of_a_full_slot(params):
 
 
 def test_slotted_cache_refuses_unported_families():
-    for kw in ({"family": "ssm"}, {"n_enc_layers": 2},
-               {"family": "moe", "n_experts": 4, "top_k": 2}):
+    """The slot cache refuses SSM and enc-dec, as the reference's
+    ``supports_slots`` does, and serves MoE (ported)."""
+    for kw in ({"family": "ssm"}, {"n_enc_layers": 2}):
         cfg = CFG_T.with_(**kw)
-        assert RT.supports_slots(cfg) == (kw.get("family") == "moe")
+        assert not RT.supports_slots(cfg)
         with pytest.raises((AssertionError, NotImplementedError)):
             RT.make_slot_cache(cfg, 2, 16, device="cpu")
+    cfg = CFG_T.with_(family="moe", n_experts=4, top_k=2, d_expert_ff=32)
+    assert RT.supports_slots(cfg)
+    cache = RT.make_slot_cache(cfg, 2, 16, device="cpu")
+    assert cache["k"].shape == (cfg.n_layers, 2, 16, cfg.n_kv_heads,
+                                cfg.d_head)
 
 
 # =============================================================================

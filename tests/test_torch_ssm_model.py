@@ -246,10 +246,12 @@ def test_forward_on_cpu_launches_nothing_and_checks_its_arguments(pair):
 
 
 def test_generic_entry_points_refuse_unported_dense_options():
-    """The generic forward and decode serve the dense family
-    (``tests/test_torch_dense_archs.py``) but refuse what stays unported of
-    its configurations: the append-buffer decode and M-RoPE (qwen2-vl) on
-    dense weights, and MoE and enc-dec, which no model is built for."""
+    """The generic forward and decode serve the dense and MoE families
+    (``tests/test_torch_dense_archs.py``, ``tests/test_torch_moe_archs.py``)
+    but refuse what stays unported of their configurations: the
+    append-buffer decode and M-RoPE (qwen2-vl) on dense weights, and
+    enc-dec, which no model is built for; an MoE config builds and runs
+    through both."""
     for kw in ({"decode_window": 8}, {"mrope_sections": (2, 3, 3)}):
         model = RT.init_params(get_smoke_config("qwen3-1.7b"), device="cpu")
         model.cfg = model.cfg.with_(**kw)
@@ -258,11 +260,19 @@ def test_generic_entry_points_refuse_unported_dense_options():
                        model.cfg)
         with pytest.raises(NotImplementedError):
             RT.make_cache(model, model.cfg, 1, 8, device="cpu")
-    for kw in ({"family": "moe", "n_experts": 4, "top_k": 2},
-               {"n_enc_layers": 2}):
-        with pytest.raises(NotImplementedError):
-            RT.init_params(get_smoke_config("qwen3-1.7b").with_(**kw),
-                           device="cpu")
+    with pytest.raises(NotImplementedError):
+        RT.init_params(get_smoke_config("qwen3-1.7b").with_(n_enc_layers=2),
+                       device="cpu")
+    cfg = get_smoke_config("qwen3-1.7b").with_(
+        family="moe", n_experts=4, top_k=2, d_expert_ff=32)
+    model = RT.init_params(cfg, device="cpu")
+    toks = torch.zeros(1, 8, dtype=torch.long)
+    lg, aux = RT.forward(model, {"tokens": toks}, cfg)
+    assert lg.shape == (1, 8, cfg.padded_vocab) and float(aux) > 0
+    cache = RT.make_cache(model, cfg, 1, 8, dtype=torch.float32,
+                          device="cpu")
+    lg, _ = RT.decode_step(model, cache, {"tokens": toks[:, :1]}, cfg)
+    assert lg.shape == (1, cfg.padded_vocab)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
