@@ -109,8 +109,16 @@ Phases, each printing its result lines:
    with top-1 routing (decode rows compete) on the card against the CPU,
    strictly: both engines' streams, the forward's logits and aux, and
    ``decode_step``'s greedy tokens;
-15. the ``kernels`` line: every ported kernel with its launches on the main
-   paths that run it (phases 3, 9, 11a, 12 and 14 for the paged kernels,
+15. prefill/decode disaggregation (``RealEngine(kv_layout="paged",
+   roles=(1, 1))``, ``serving.disagg``): (a) qwen3-1.7b at full width with
+   f32 weights serving 16 requests of 200-1000 tokens (half sharing a
+   256-token preamble) through one prefill and one decode worker, every
+   stream equal to a monolithic paged engine's, 16 handoffs, the role
+   joules conserved; (b) the same in bf16 on a starved arena, preempting
+   on the decode worker after the handoffs; (c) the SMOKE config
+   disaggregated on the card against the CPU, strictly;
+16. the ``kernels`` line: every ported kernel with its launches on the main
+   paths that run it (phases 3, 9, 11a, 12, 14 and 15 for the paged kernels,
    phases 4, 11b, 13 and 14d for the contiguous decode and the f32
    contiguous prefill, whose record is the slotted serve's 1024-token
    shape, phase 7 for the scan, phase 8's, phase 12's and phase 14b's
@@ -2800,6 +2808,241 @@ def phase_moe_parity() -> dict:
 
 
 # =============================================================================
+# phase 15: prefill/decode disaggregation (serving.disagg)
+# =============================================================================
+# (a)'s traffic: 16 prompts of 200-1000 tokens, every other one (those of
+# 550 tokens and more) opening with a shared 256-token preamble, 48 new
+# tokens each
+DISAGG_LENGTHS = (200, 1000, 250, 900, 300, 800, 350, 700, 400, 600, 450,
+                  550, 500, 650, 220, 980)
+# (b)'s arena (blocks of 16, for both workers; the prefill worker holds
+# one 1024-token prompt): found on the CPU, since block counts depend on
+# lengths only — phase 3's 8 prompts with 64 new tokens each swap out 3
+# times on the decode worker (72 blocks: 1, 78: 2, 80: 2; at 66-68 the
+# 1088-token sequence cannot fit beside its own growth and swaps itself
+# out forever)
+DISAGG_DECODE_BLOCKS = 75
+
+
+def _disagg_prompts(vocab: int, seed: int = 11):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, size=256).astype(np.int32)
+    prompts = []
+    for i, n in enumerate(DISAGG_LENGTHS):
+        p = rng.integers(0, vocab, size=n).astype(np.int32)
+        if i % 2:
+            p[:256] = shared
+        prompts.append(p)
+    return prompts
+
+
+def _disagg_checks(tag: str, eng, m, resps, n_req: int) -> None:
+    """What every disaggregated serve must show: one handoff a request, the
+    staged pages summed, the role joules conserving (the port's
+    ``check_disagg_conservation``) and splitting each response's joules,
+    handoffs outside the preemption counts, and every worker's arena
+    whole and free after the drain."""
+    from repro_torch.obs.validate import check_disagg_conservation
+    _check(m["served"] == n_req == len(resps),
+           f"{tag}: served {m['served']} of {n_req}")
+    _check(m["handoffs"] == n_req, f"{tag}: {m['handoffs']} handoffs")
+    staged = sum(i.handoff_pages for i in eng.instances
+                 if i.role == "prefill")
+    _check(m["handoff_pages"] == staged,
+           f"{tag}: {m['handoff_pages']} handoff pages, {staged} staged")
+    check_disagg_conservation(m)
+    _check(m["both_energy_j"] == 0.0 and m["handoff_energy_j"] > 0.0,
+           f"{tag}: role joules {m['both_energy_j']} / "
+           f"{m['handoff_energy_j']}")
+    for r in resps:
+        _check(abs(sum(r.energy_by_role.values()) - r.energy_j)
+               <= 1e-9 * r.energy_j, f"{tag}: rid {r.rid}: role joules "
+               f"{r.energy_by_role} != {r.energy_j}")
+    _check(sum(r.preemptions for r in resps) == m["preemptions"],
+           f"{tag}: response preemptions != {m['preemptions']}")
+    for inst in eng.instances:
+        _check(all(s is None for s in inst.rows) and not inst._inflight,
+               f"{tag}: {inst.role} worker not drained")
+        if inst.prefix is not None:
+            inst.prefix.clear()
+        inst.alloc.check()
+        _check(inst.alloc.num_free == inst.alloc.num_allocatable,
+               f"{tag}: {inst.role} worker's blocks not all free")
+
+
+def _disagg_summary(tag: str, eng, m, resps) -> str:
+    """tok/s, TTFT, the handoffs' wall (their joules are charged at busy
+    power, so J / (chips x P_BUSY_W) is their wall exactly) against the
+    requests' latency, pages per handoff, and the four role joules."""
+    from repro_torch.core import perf_model as PM
+    chips = eng.instances[0].chips
+    handoff_s = m["handoff_energy_j"] / (chips * PM.P_BUSY_W)
+    mean_lat = sum(r.latency_s for r in resps) / len(resps)
+    per_req = handoff_s / max(m["handoffs"], 1)
+    return (f"{tag}: {m['served']} requests, {m['tokens']} tokens in "
+            f"{m['wall_s']:.2f} s = {m['tokens_per_s']:.1f} tok/s; TTFT p50 "
+            f"{m['ttft_p50_s'] * 1e3:.1f} ms p95 {m['ttft_p95_s'] * 1e3:.1f}"
+            f" ms; handoffs {m['handoffs']}, {m['handoff_pages']} pages "
+            f"({m['handoff_pages'] / max(m['handoffs'], 1):.1f} a handoff), "
+            f"wall {per_req * 1e3:.3f} ms a request = "
+            f"{per_req / mean_lat:.5f} of its mean latency "
+            f"{mean_lat:.3f} s; preemptions {m['preemptions']}; pages "
+            f"copied at placement {m['swapin_pages_copied']}, re-acquired "
+            f"from the decode tree {m['partial_swapin_pages_saved']}; role "
+            f"joules prefill {m['prefill_energy_j']:.3f} decode "
+            f"{m['decode_energy_j']:.3f} handoff {m['handoff_energy_j']:.4f} "
+            f"both {m['both_energy_j']:.1f} of {m['energy_j']:.3f} J "
+            f"(reference power model)")
+
+
+def _disagg_engine(family, cfg_name: str, **kw):
+    from repro_torch.core.config_graph import ConfigGraph
+    from repro_torch.serving import engine as ENG
+    eng = ENG.RealEngine(family, max_len=2048, kv_layout="paged",
+                         block_size=16, max_seqs=8, chunk_blocks=8, **kw)
+    eng.configure(ConfigGraph.from_dict(cfg_name, {("x1", 1): 1}))
+    return eng
+
+
+def phase_disagg() -> dict:
+    """Prefill/decode disaggregation, ``RealEngine(kv_layout="paged",
+    roles=(1, 1))``: one prefill and one decode worker on the card, the
+    handoff staged through host memory on one stream.  (a) qwen3-1.7b at
+    full width with f32 weights (TF32 off, f32 arenas of 600 blocks):
+    16 requests (``_disagg_prompts``), 48 new tokens each; every stream
+    equal to a monolithic paged engine's on the same weights, 16 handoffs,
+    no preemption, some preamble pages re-acquired from the decode-side
+    radix tree, both paged kernels launched.  (b) the same model in bf16
+    on a starved arena (``DISAGG_DECODE_BLOCKS``) with preemption: phase
+    3's 8 prompts, 64 new tokens each, at least 2 preemptions, all on the
+    decode worker.  (c) the SMOKE config disaggregated on the card against
+    the CPU with the same weights, strictly, roomy and on phase 6's starved
+    arena.  Returns the paged kernels' launches in the disaggregated serves
+    on the card."""
+    import torch
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving.api import serve_prompts
+    from repro_torch.serving.disagg import DisaggEngine
+    launches = {name: 0 for name in _paged_counts()}
+
+    def serve(eng, prompts, n_new, count: bool):
+        for fn in _paged_counts().values():
+            fn.launches = 0
+        m = serve_prompts(eng, prompts, n_new=n_new)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        seen = {k: fn.launches for k, fn in _paged_counts().items()}
+        if count:
+            for k, n in seen.items():
+                launches[k] += n
+        return m, seen
+
+    # (a) full width, f32: token identity with the monolithic engine
+    cfg = qwen3_1_7b.FULL.with_(dtype=torch.float32)
+    t0 = time.perf_counter()
+    family = ENG.build_engine_family(cfg, fracs=(1.0,), seed=0)
+    prompts = _disagg_prompts(cfg.vocab_size)
+    mono = _disagg_engine(family, cfg.name, n_blocks=600)
+    m_mono, _ = serve(mono, prompts, 48, count=False)
+    out_mono = dict(mono.last_outputs)
+    del mono
+    eng = _disagg_engine(family, cfg.name, n_blocks=600, roles=(1, 1))
+    _check(isinstance(eng, DisaggEngine), "roles= built no DisaggEngine")
+    m, seen = serve(eng, prompts, 48, count=True)
+    resps = eng.last_responses
+    _check(set(eng.last_outputs) == set(out_mono), "disagg a: request sets")
+    for rid, toks in out_mono.items():
+        _check(len(toks) == 48 and (eng.last_outputs[rid] == toks).all(),
+               f"disagg a: rid {rid} differs from the monolithic engine: "
+               f"{eng.last_outputs[rid]} against {toks}")
+    _check(m["preemptions"] == 0, f"disagg a: {m['preemptions']} preemptions")
+    _check(m["partial_swapin_pages_saved"] > 0,
+           "disagg a: no page re-acquired from the decode-side radix tree")
+    _check(all(n > 0 for n in seen.values()),
+           f"disagg a: a paged kernel was not launched: {seen}")
+    _check(m["compile_retraces"] == 0, "disagg a: shape missed by warmup")
+    _disagg_checks("disagg a", eng, m, resps, len(prompts))
+    print(_disagg_summary("disagg a (f32)", eng, m, resps))
+    print(f"disagg a: the {len(prompts)} streams equal the monolithic "
+          f"engine's ({m_mono['tokens_per_s']:.1f} tok/s, TTFT p50 "
+          f"{m_mono['ttft_p50_s'] * 1e3:.1f} ms); launches {seen}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del eng, family, resps
+    torch.cuda.empty_cache()
+
+    # (b) full width, bf16: a starved decode arena preempts after handoff
+    cfg = qwen3_1_7b.FULL
+    t0 = time.perf_counter()
+    family = ENG.build_engine_family(cfg, fracs=(1.0,), seed=0)
+    eng = _disagg_engine(family, cfg.name, n_blocks=DISAGG_DECODE_BLOCKS,
+                         preemption=True, roles=(1, 1))
+    prompts = _serve_prompts(cfg.vocab_size)
+    m, seen = serve(eng, prompts, 64, count=True)
+    resps = eng.last_responses
+    per_role = {i.role: i.preemptions for i in eng.instances}
+    _check(m["preemptions"] >= 2 and per_role["decode"] == m["preemptions"]
+           and per_role["prefill"] == 0,
+           f"disagg b: preemptions {m['preemptions']}, by worker {per_role}")
+    for r in resps:
+        _check(len(r.tokens) == 64 and bool(((r.tokens >= 0) & (
+            r.tokens < cfg.padded_vocab)).all()),
+            f"disagg b: rid {r.rid}: {r.tokens}")
+    _check(all(n > 0 for n in seen.values()),
+           f"disagg b: a paged kernel was not launched: {seen}")
+    _disagg_checks("disagg b", eng, m, resps, len(prompts))
+    print(_disagg_summary("disagg b (bf16, starved decode arena)", eng, m,
+                          resps))
+    print(f"disagg b: {DISAGG_DECODE_BLOCKS} blocks a worker, preemptions "
+          f"by worker {per_role}; launches {seen}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del eng, family, resps
+    torch.cuda.empty_cache()
+
+    # (c) SMOKE on the card against the CPU, strictly
+    from repro_torch.core.config_graph import ConfigGraph
+    cfg = qwen3_1_7b.SMOKE
+    fam_cpu = ENG.build_engine_family(cfg, fracs=(1.0,), seed=3,
+                                      device="cpu")
+    fam_gpu = ENG.build_engine_family(cfg, fracs=(1.0,), seed=3)
+    fam_gpu[0].params.load_state_dict(fam_cpu[0].params.state_dict())
+    prompts = _mixed_prompts(cfg.vocab_size)
+    for label, kw in (("roomy", {}),
+                      ("starved", dict(preemption=True,
+                                       n_blocks=PARITY_PREEMPT_BLOCKS))):
+        outs, stats = {}, {}
+        for fam, dev in ((fam_gpu, None), (fam_cpu, "cpu")):
+            eng = ENG.RealEngine(fam, n_slots=2, max_len=64, block_size=8,
+                                 max_seqs=6, kv_layout="paged", roles=(1, 1),
+                                 device=dev, **kw)
+            eng.configure(ConfigGraph.from_dict(cfg.name, {("x1", 1): 1}))
+            stats[dev], _ = serve(eng, prompts, 12, count=dev is None)
+            _disagg_checks(f"disagg c {label}", eng, stats[dev],
+                           eng.last_responses, len(prompts))
+            outs[dev] = dict(eng.last_outputs)
+        for rid, toks in outs["cpu"].items():
+            _check((outs[None][rid] == toks).all(),
+                   f"disagg c {label}: rid {rid} differs: {outs[None][rid]} "
+                   f"on the card, {toks} on the CPU")
+        for key in ("handoffs", "handoff_pages", "preemptions",
+                    "swapin_pages_copied", "partial_swapin_pages_saved"):
+            _check(stats[None][key] == stats["cpu"][key],
+                   f"disagg c {label}: {key} {stats[None][key]} on the "
+                   f"card, {stats['cpu'][key]} on the CPU")
+        _check(label == "roomy" or stats[None]["preemptions"] >= 1,
+               "disagg c starved: no preemption")
+        print(f"disagg c {label}: SMOKE disaggregated on the card equals the "
+              f"CPU on {len(prompts)} requests x 12 tokens: "
+              f"{stats[None]['handoffs']} handoffs, "
+              f"{stats[None]['handoff_pages']} pages, "
+              f"{stats[None]['preemptions']} preemptions")
+    print(f"disagg: launches in the disaggregated serves on the card "
+          f"{launches}")
+    return launches
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -2870,6 +3113,9 @@ def main() -> int:
     t16 = time.perf_counter()
     moe_parity = phase_moe_parity()
     t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    disagg = phase_disagg()
+    t18 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
@@ -2887,6 +3133,8 @@ def main() -> int:
     for name, n in (list(dense.items()) + list(dense_parity.items())
                     + list(moe.items()) + list(moe_parity.items())):
         launches[name] += n
+    for name, n in disagg.items():        # both worker pools' serves
+        launches[name] += n
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "
@@ -2896,7 +3144,8 @@ def main() -> int:
           f"{t11 - t10:.1f} s, fleet parity {t12 - t11:.1f} s, sim "
           f"{t13 - t12:.1f} s, dense {t14 - t13:.1f} s, dense parity "
           f"{t15 - t14:.1f} s, moe {t16 - t15:.1f} s, moe parity "
-          f"{t17 - t16:.1f} s, total {t17 - t0:.1f} s")
+          f"{t17 - t16:.1f} s, disagg {t18 - t17:.1f} s, total "
+          f"{t18 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

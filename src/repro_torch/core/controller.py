@@ -1,6 +1,6 @@
 """Clover master controller (paper §4.3 + Fig. 5) — the port's copy of the
-reference package's ``core/controller.py`` (without its SLO burn-rate
-alert hook, whose evaluator the port has not copied): monitors grid carbon
+reference package's ``core/controller.py``, with its SLO burn-rate alert
+hook (``alerts=``, an ``obs.slo.SLOEvaluator``): monitors grid carbon
 intensity, re-invokes the optimizer on configurable triggers, and tracks the
 serving configuration over a trace.
 
@@ -41,6 +41,7 @@ class Invocation:
     outcome: Optional[SA.SAOutcome]
     config: CG.ConfigGraph
     predictive: bool = False            # fired by the forecast trigger
+    alert: bool = False                 # fired by an SLO/carbon burn alert
 
 
 @dataclasses.dataclass
@@ -65,6 +66,15 @@ class Controller:
     # feed's latest measured snapshot instead of a trace lookup — the
     # "controller consumes the telemetry plane" coupling (codecarbon idiom)
     feed: Optional[object] = None
+    # optional SLO/carbon burn-rate alerting (repro_torch.obs.slo.
+    # SLOEvaluator): when attached, every ``maybe_reoptimize(t)`` first
+    # advances the evaluator at ``t``; a rule *starting* to fire forces a
+    # re-invocation even when carbon intensity has not drifted — an
+    # exhausted error budget is the controller's signal that the current
+    # config is wrong regardless of what the grid is doing.
+    alerts: Optional[object] = None
+    last_alerts: List[object] = dataclasses.field(default_factory=list)
+    _alert_fires_seen: int = 0
 
     def _notify(self, prev: Optional[CG.ConfigGraph]) -> None:
         if self.on_config_change is not None and self.config is not None \
@@ -122,9 +132,17 @@ class Controller:
             assert snap is not None, \
                 "carbon feed has no snapshot yet (heartbeat it first)"
             ci = snap.ci_g_per_kwh
-        if not self.should_reoptimize(ci, t):
+        alert_fired = False
+        if self.alerts is not None:
+            self.last_alerts = list(self.alerts.evaluate(t))
+            fires = sum(s.fire_count for s in self.last_alerts)
+            if fires > self._alert_fires_seen:
+                alert_fired = True
+            self._alert_fires_seen = fires
+        if not alert_fired and not self.should_reoptimize(ci, t):
             return self.config, None
-        predictive = not self._drifted(self.last_opt_ci, ci)
+        predictive = (not alert_fired
+                      and not self._drifted(self.last_opt_ci, ci))
         ci_hat = self._forecast_ci(t)
         ci_opt = ci
         if predictive:
@@ -136,7 +154,7 @@ class Controller:
         self.last_opt_ci = ci
         self.last_opt_hat = ci_hat if ci_hat is not None else ci
         self.invocations.append(Invocation(t, ci_opt, outcome, new_cfg,
-                                           predictive))
+                                           predictive, alert=alert_fired))
         self._notify(prev)
         return new_cfg, outcome
 

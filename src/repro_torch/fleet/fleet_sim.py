@@ -136,10 +136,10 @@ class FleetConfig:
                                               # policies
     engine_preemption: bool = False    # paged decode-time swap-out
     # per-region disaggregated worker topology: region → (prefill_workers,
-    # decode_workers).  A region in the map asks RealEngine(roles=...) for
-    # a prefill/decode split — it requires the paged KV layout (block
-    # handoff), and the port's engine refuses ``roles`` as not ported yet;
-    # regions not in the map stay monolithic.
+    # decode_workers).  A region in the map gets RealEngine(roles=...), a
+    # prefill/decode split (serving.disagg.DisaggEngine) that requires the
+    # paged KV layout (block handoff); regions not in the map stay
+    # monolithic.
     engine_topology: Optional[Dict[str, Tuple[int, int]]] = None
     # mixed-quality request path (serving.quality): a per-request variant
     # selector built over THIS region's forecaster (same nowcast the carbon
@@ -325,10 +325,9 @@ class _Region:
                     cfg.engine_quality_selector, ci_fn=probe_ci_fn,
                     dirty_threshold_g=cfg.engine_ci_threshold_g,
                     default_floor=cfg.engine_accuracy_floor)
-            # disaggregated regions: the reference's RealEngine(roles=...)
-            # builds a prefill/decode worker split behind the same protocol
-            # — it requires the paged arena for handoff.  The port keeps
-            # the check; its engine then refuses ``roles`` as not ported
+            # disaggregated regions: RealEngine(roles=...) builds a
+            # DisaggEngine (prefill/decode worker split) behind the same
+            # protocol — it requires the paged arena for handoff
             roles = (cfg.engine_topology or {}).get(self.name)
             if roles is not None:
                 assert cfg.engine_kv_layout == "paged", \

@@ -45,7 +45,13 @@ token readbacks land a tick later through pinned host buffers.  On top:
     (wall, joules, grams) segment per session into a ``CarbonFeed``;
   * **mixed quality** (``quality_selector=``, ``serving.quality``): each
     request's ladder rung is decided at submit, and admission places it
-    only on instances of that rung.
+    only on instances of that rung;
+  * **prefill/decode disaggregation** (``roles=``, paged only):
+    ``RealEngine(..., roles=...)`` builds a ``serving.disagg.DisaggEngine``,
+    whose prefill workers hand each prefilled sequence to a decode worker
+    through the swap machinery (``PagedInstance.handoff_out`` /
+    ``resume``); every joule the session charges carries its worker's
+    role, and ``stats`` and the responses report the split.
 
 How the JAX-specific parts of the reference translate:
 
@@ -64,8 +70,8 @@ How the JAX-specific parts of the reference translate:
     tensor, copied to pinned host memory like a readback, and
     ``index_copy_`` back into the arena.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=`` and
-``roles=`` (sharding and disaggregation).
+Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
+(sharding).
 """
 from __future__ import annotations
 
@@ -355,6 +361,7 @@ class Instance:
     ``ValueError`` on another type."""
 
     profiler: PhaseProfiler = _NULL_PROFILER
+    role: str = "both"                   # slotted instances never split
 
     def __init__(self, ev: EngineVariant, chips: int, n_slots: int = 4,
                  max_len: int = 96):
@@ -618,7 +625,14 @@ class PagedInstance:
     sequence's table on demand; when the arena runs dry mid-decode the
     lowest-priority / youngest sequence is swapped out to host memory
     (``_SwapState``) for the engine to re-queue and later restore
-    bit-exactly."""
+    bit-exactly.
+
+    ``role`` splits the serving loop for disaggregation (``serving.
+    disagg``): a ``"prefill"`` worker runs chunked prefill only (its tick
+    never dispatches decode, admission reserves prompt blocks only) and
+    fully-prefilled sequences are extracted via :meth:`handoff_out`; a
+    ``"decode"`` worker receives them through ``resume``.  The default
+    ``"both"`` is the monolithic engine."""
 
     profiler: PhaseProfiler = _NULL_PROFILER
 
@@ -628,9 +642,12 @@ class PagedInstance:
                  cache_watermark: float = 0.25, chunk_burst: int = 4,
                  preemption: bool = False,
                  policy: Optional[SchedulerPolicy] = None,
-                 pipeline: bool = True, fused_steps: int = 8):
+                 pipeline: bool = True, fused_steps: int = 8,
+                 role: str = "both"):
+        assert role in ("both", "prefill", "decode"), role
         self.ev = ev
         self.chips = chips
+        self.role = role
         self.params = ev.params
         self.device = next(ev.params.parameters()).device
         self.block_size = block_size
@@ -664,6 +681,10 @@ class PagedInstance:
         self.prefill_chunks = 0
         self.prefix_hit_tokens = 0
         self.preemptions = 0
+        # disaggregation traffic (lifetime; session deltas): sequences this
+        # worker staged out for a decode worker, and the pages that moved
+        self.handoffs_out = 0
+        self.handoff_pages = 0
         # swap-in page accounting: ``total`` counts the pages a FULL restore
         # would have written back, ``copied`` the pages actually written —
         # the gap is what the radix tree's surviving blocks saved
@@ -781,8 +802,11 @@ class PagedInstance:
         pressure is resolved by swapping victims out."""
         assert prompt_len + n_new <= self.max_len, \
             f"prompt {prompt_len} + n_new {n_new} > max_len {self.max_len}"
-        need = self.alloc.blocks_for_tokens(
-            prompt_len if self.preemption else prompt_len + n_new)
+        # a prefill worker never decodes here: only the prompt's blocks are
+        # ever written before handoff, so that is all admission reserves
+        reserve = (prompt_len if self.preemption or self.role == "prefill"
+                   else prompt_len + n_new)
+        need = self.alloc.blocks_for_tokens(reserve)
         assert need <= self.alloc.num_allocatable, \
             f"request needs {need} blocks > arena {self.alloc.num_allocatable}"
         if all(s is not None for s in self.rows):
@@ -804,8 +828,9 @@ class PagedInstance:
         n_cached = 0
         if self.prefix is not None:
             matched, n_cached = self.prefix.match(prompt)
-        need = self.alloc.blocks_for_tokens(
-            true_len if self.preemption else true_len + n_new) - len(matched)
+        reserve = (true_len if self.preemption or self.role == "prefill"
+                   else true_len + n_new)
+        need = self.alloc.blocks_for_tokens(reserve) - len(matched)
         if need > self.alloc.num_free and self.prefix is not None:
             self.prefix.evict(need - self.alloc.num_free)
         blocks = matched + self.alloc.alloc(need)
@@ -841,7 +866,13 @@ class PagedInstance:
         device copy — their K/V never left the arena); only the evicted
         tail pages are written back from the host image.  If the tree
         dropped the nodes in the meantime the match comes back short and
-        the difference is restored from the host — bit-exact either way."""
+        the difference is restored from the host — bit-exact either way.
+
+        A restored row always has ``n_ctx >= 1`` (a prefilled prompt): the
+        decode kernels return zero for a row of length 0, where the plain
+        versions average V, so no resumed row may reach them at 0."""
+        assert swap.n_ctx >= 1, \
+            f"resume of rid {swap.rid} with n_ctx {swap.n_ctx}"
         row = self.rows.index(None)
         nb = swap.n_blocks
         reused: List[int] = []
@@ -931,7 +962,30 @@ class PagedInstance:
         a ceiling, not a promise, since LRU eviction may drop them before
         re-admission.  The page copy is staged (``_gather_pages``),
         bucket-padded with junk pages that the image slices off."""
-        self._flush_all()
+        return self._stage_out(seq, count_preempt=True)
+
+    def handoff_out(self, seq: _PagedSeq) -> _SwapState:
+        """Stage a FULLY-PREFILLED sequence out for prefill→decode handoff
+        (``serving.disagg``): the same staged page gather and row/block
+        release as a swap-out, but a planned transfer, not a preemption —
+        the sequence's ``preempts`` and this instance's ``preemptions``
+        stay untouched; ``handoffs_out``/``handoff_pages`` record the
+        traffic instead.  Only the sequence's own pending first token is
+        landed (a prefill worker has no in-flight decodes), so extracting
+        one handoff never force-lands its neighbours."""
+        assert seq.prefilled and seq.pending_first is None, \
+            f"handoff of rid {seq.rid} before its first token landed"
+        swap = self._stage_out(seq, count_preempt=False)
+        self.handoffs_out += 1
+        self.handoff_pages += swap.n_blocks
+        return swap
+
+    def _stage_out(self, seq: _PagedSeq, *,
+                   count_preempt: bool) -> _SwapState:
+        if count_preempt:
+            self._flush_all()            # pending tokens become part of image
+        elif seq.pending_first is not None:
+            self._land_first(seq.pending_first)
         n_ctx = int(self.lengths[seq.row])
         nb = self.alloc.blocks_for_tokens(max(n_ctx, 1))
         idx = np.zeros((_pow2_bucket(nb, self.n_pages),), np.int64)
@@ -947,12 +1001,14 @@ class PagedInstance:
             n_new=seq.n_new, priority=seq.priority, tokens=list(seq.tokens),
             remaining=seq.remaining, n_ctx=n_ctx,
             next_token=int(self._next[seq.row, 0]), t_first=seq.t_first,
-            cached_tokens=seq.cached_tokens, preempts=seq.preempts + 1,
+            cached_tokens=seq.cached_tokens,
+            preempts=seq.preempts + (1 if count_preempt else 0),
             img_k=img_k, img_v=img_v, n_blocks=nb, tree_blocks=tree_blocks,
             slo=seq.slo, deadline_s=seq.deadline_s)
         self.alloc.free(seq.blocks)      # decref: prefix-tree refs survive
         self._clear_row(seq)
-        self.preemptions += 1
+        if count_preempt:
+            self.preemptions += 1
         return swap
 
     def _ensure_decode_capacity(self) -> List[_SwapState]:
@@ -1248,6 +1304,16 @@ class PagedInstance:
                     self._land_first(seq.pending_first)  # its first token
                     self._ev_finished.append(seq)
                     self._release(seq)
+        if self.role == "prefill":
+            # a prefill worker never dispatches decode: land first-token
+            # readbacks whose copies overlapped an earlier tick (the disagg
+            # layer extracts those sequences via handoff_out), and skip
+            # table growth, decode dispatch and preemption entirely
+            self._land_ready()
+            return self._ev_finished, _tick_info(
+                prefill_s=prefill_s,
+                blocks_in_use=self.alloc.blocks_in_use(),
+                prefill_rids=prefill_rids, emitted=self._ev_emitted)
         # decode-time block pressure: grow tables on demand, swap victims
         # out when the arena is dry (PREEMPTED lifecycle state)
         preempted = self._ensure_decode_capacity() if self.preemption else []
@@ -1334,6 +1400,16 @@ class _Session:
         self.admit_t: Dict[int, float] = {}
         self.responses: List[InferenceResponse] = []
         self.energy = 0.0
+        # per-role joules (disaggregation accounting): every charge is
+        # tagged with the instance's role — "both" for monolithic engines,
+        # "prefill"/"decode"/"handoff" under serving.disagg.  ``charge`` and
+        # ``meter`` keep the ``energy``/``meters`` accumulation order of the
+        # untagged path, so monolithic numbers are unchanged bit for bit and
+        # role sums conserve by construction.
+        self.role_energy: Dict[str, float] = {}
+        self.meters_role: Dict[int, Dict[str, float]] = {}
+        self.handoffs = 0
+        self.handoff_pages = 0
         self.decode_steps = 0
         self.occ_frac_sum = 0.0
         self.inflight_sum = 0
@@ -1350,6 +1426,17 @@ class _Session:
         # stats report THIS session's delta
         self.counters0 = {name: sum(getattr(i, name, 0) for i in instances)
                           for name in _INSTANCE_COUNTERS}
+
+    def charge(self, role: str, joules: float) -> None:
+        """Add session energy under a role tag (see ``role_energy``)."""
+        self.energy += joules
+        self.role_energy[role] = self.role_energy.get(role, 0.0) + joules
+
+    def meter(self, rid: int, role: str, joules: float) -> None:
+        """Add per-request energy under a role tag (see ``meters_role``)."""
+        self.meters[rid] += joules
+        mr = self.meters_role.setdefault(rid, {})
+        mr[role] = mr.get(role, 0.0) + joules
 
     def schedule(self, req: InferenceRequest) -> None:
         if req.arrival_s is None:
@@ -1388,8 +1475,18 @@ class RealEngine:
     ``core.perf_model``) and carbon (``ci_g_per_kwh``) per request.
 
     ``device`` is where the family's weights live (the GPU by default; the
-    CPU on request).  The reference's ``mesh`` and ``roles`` are not ported
-    yet and raise ``NotImplementedError``."""
+    CPU on request).  ``roles=`` splits the engine into prefill and decode
+    workers: constructing ``RealEngine(..., roles=...)`` builds a
+    :class:`serving.disagg.DisaggEngine` (the same ``ServingBackend``
+    surface, so callers and the fleet's ``probe_window`` drive it
+    unchanged).  The reference's ``mesh`` is not ported yet and raises
+    ``NotImplementedError``."""
+
+    def __new__(cls, *args, **kwargs):
+        if cls is RealEngine and kwargs.get("roles"):
+            from repro_torch.serving.disagg import DisaggEngine
+            return super().__new__(DisaggEngine)
+        return super().__new__(cls)
 
     def __init__(self, family: Sequence[EngineVariant], n_slots: int = 4,
                  max_len: int = 96, *, kv_layout: str = "slotted",
@@ -1402,11 +1499,11 @@ class RealEngine:
                  decode_pipeline: bool = True, fused_steps: int = 8,
                  quality_selector=None, mesh=None, roles=None,
                  device: Optional[Union[str, torch.device]] = None):
-        unported = {"mesh": mesh is not None, "roles": bool(roles)}
-        missing = [k for k, v in unported.items() if v]
-        if missing:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(missing)}")
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: mesh")
+        assert not roles, \
+            "roles= is the DisaggEngine's (serving.disagg) — RealEngine " \
+            "dispatches there via __new__; do not pass roles to a subclass"
         if kv_layout not in ("slotted", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if preemption and kv_layout == "slotted":
@@ -1467,8 +1564,8 @@ class RealEngine:
         self.last_latencies: List[float] = []
         self.last_responses: List[InferenceResponse] = []
 
-    def _new_instance(self, ev: EngineVariant, chips: int
-                      ) -> Union[Instance, PagedInstance]:
+    def _new_instance(self, ev: EngineVariant, chips: int,
+                      role: str = "both") -> Union[Instance, PagedInstance]:
         if self.kv_layout == "paged":
             return PagedInstance(ev, chips, n_blocks=self.n_blocks,
                                  block_size=self.block_size,
@@ -1479,7 +1576,7 @@ class RealEngine:
                                  preemption=self.preemption,
                                  policy=self.policy,
                                  pipeline=self.decode_pipeline,
-                                 fused_steps=self.fused_steps)
+                                 fused_steps=self.fused_steps, role=role)
         return Instance(ev, chips, self.n_slots, self.max_len)
 
     def configure(self, graph) -> float:
@@ -1509,6 +1606,26 @@ class RealEngine:
         self.last_reconfig_s = time.perf_counter() - t0
         return self.last_reconfig_s
 
+    # --- disaggregation hooks (overridden by serving.disagg) -----------------
+    def _profilers(self):
+        """Every phase profiler the engine repoints per session."""
+        return (self.profiler,)
+
+    def _takes(self, inst, resuming: bool) -> bool:
+        """Whether ``inst`` takes part in admitting the queue head (the
+        DisaggEngine routes fresh work to prefill workers and swapped-out
+        images to decode workers; monolithic instances take everything)."""
+        return True
+
+    def _post_tick(self, completed: List[InferenceResponse]) -> None:
+        """End-of-step hook: the DisaggEngine extracts finished prefills
+        into ``BlockHandoff``s and places them on decode workers here."""
+
+    def _extra_pending(self) -> bool:
+        """Work the drain loop must wait on beyond queues and busy
+        instances (the DisaggEngine's in-transit handoff queue)."""
+        return False
+
     # --- ServingBackend protocol ---------------------------------------------
     def submit(self, req: InferenceRequest) -> None:
         """Enqueue a typed request.  The first submit after idle opens a
@@ -1524,7 +1641,8 @@ class RealEngine:
                 tel.registry = reg       # per-session registry (see obs)
             # phase profiling rides the telemetry opt-in: without a bundle
             # the profiler stays disabled and the hot path pays nothing
-            self.profiler.registry = reg if tel is not None else None
+            for prof in self._profilers():
+                prof.registry = reg if tel is not None else None
             self.policy.reset_holds()    # rids repeat across sessions
             self._session = _Session(
                 SchedulerCore(self.policy), self.instances, reg,
@@ -1582,6 +1700,10 @@ class RealEngine:
                 want = s.variant_of.get(rid)
                 if want is not None and inst.ev.variant.name != want:
                     break
+                # role routing (disagg): fresh work → prefill workers,
+                # swapped/handed-off images → decode workers
+                if not self._takes(inst, rid in s.swapped):
+                    break
                 sig = inst.admission_signature()
                 if s.admit_gate.get(id(inst)) == (rid, sig):
                     break                # nothing changed since last failure
@@ -1621,8 +1743,8 @@ class RealEngine:
                 if dt > 0:               # the slotted layout prefills here
                     self.profiler.observe("prefill_chunk", dt)
                 e_pf = inst.chips * PM.P_BUSY_W * dt   # prefill: busy power
-                s.energy += e_pf
-                s.meters[rid] += e_pf
+                s.charge(inst.role, e_pf)
+                s.meter(rid, inst.role, e_pf)
                 s.accounted_s[id(inst)] += dt
                 s.progressed = True
                 if state.remaining <= 0 and state.tokens:    # n_new == 1
@@ -1640,9 +1762,9 @@ class RealEngine:
             # and a k-step device window would delay a mid-window arrival's
             # prefill behind k queued decode steps
             done, info = inst.tick(s.rel(t_tick), allow_fused=not s.future)
-            s.energy += inst.chips * PM.P_BUSY_W * info["prefill_s"]
+            s.charge(inst.role, inst.chips * PM.P_BUSY_W * info["prefill_s"])
             for rid, dtc in info["prefill_rids"]:
-                s.meters[rid] += inst.chips * PM.P_BUSY_W * dtc
+                s.meter(rid, inst.role, inst.chips * PM.P_BUSY_W * dtc)
                 inst.profiler.observe("prefill_chunk", dtc)
             if info["decode_steps"]:
                 # info describes LANDED decode work: ``decode_steps`` model
@@ -1653,10 +1775,10 @@ class RealEngine:
                 occ = info["occupied"]
                 e_dec = PM.instance_power_w(
                     inst.chips, occ / inst.capacity) * info["decode_s"]
-                s.energy += e_dec
+                s.charge(inst.role, e_dec)
                 share = e_dec / max(len(info["decode_rids"]), 1)
                 for rid in info["decode_rids"]:
-                    s.meters[rid] += share
+                    s.meter(rid, inst.role, share)
                 s.decode_steps += ksteps
                 s.occ_frac_sum += (occ / inst.capacity) * ksteps
                 s.inflight_sum += occ * ksteps
@@ -1686,6 +1808,7 @@ class RealEngine:
                                      slo=req.slo)
             for state in done:
                 completed.append(self._finish(state, inst))
+        self._post_tick(completed)
         return completed
 
     @staticmethod
@@ -1728,7 +1851,8 @@ class RealEngine:
             return []
         stalled_once = False
         while s.future or s.core.has_pending() \
-                or any(i.busy for i in self.instances):
+                or any(i.busy for i in self.instances) \
+                or self._extra_pending():
             self.step()
             if s.progressed:
                 stalled_once = False
@@ -1817,14 +1941,26 @@ class RealEngine:
         wall = time.perf_counter() - s.t0
         for inst in self.instances:       # idle floor for unaccounted wall
             idle_s = max(wall - s.accounted_s[id(inst)], 0.0)
-            s.energy += inst.chips * PM.P_IDLE_W * idle_s
+            s.charge(inst.role, inst.chips * PM.P_IDLE_W * idle_s)
         # attribute the idle floor + carbon: per-request joules sum to the
         # engine total, gCO2 = joules × the serving window's intensity
         attributed = sum(r.energy_j for r in s.responses)
         idle_share = ((s.energy - attributed) / len(s.responses)
                       if s.responses else 0.0)
+        # per-role idle remainders: whatever each role charged beyond its
+        # metered per-request work (its idle floor + fp dust) spreads the
+        # same way, so a response's energy_by_role sums to its energy_j and
+        # role totals conserve against the session
+        n_resp = max(len(s.responses), 1)
+        role_rem = {
+            role: (total - sum(mr.get(role, 0.0)
+                               for mr in s.meters_role.values())) / n_resp
+            for role, total in s.role_energy.items()}
         for r in s.responses:
             r.energy_j += idle_share
+            mr = s.meters_role.get(r.rid, {})
+            r.energy_by_role = {role: mr.get(role, 0.0) + rem
+                                for role, rem in role_rem.items()}
             r.carbon_g = r.energy_j / 3.6e6 * self.ci_g_per_kwh
             if s.tracer is not None and r.rid in s.span_ids:
                 s.tracer.annotate(s.span_ids[r.rid], energy_j=r.energy_j,
@@ -1850,6 +1986,8 @@ class RealEngine:
         reg.counter("swapin_pages_saved").inc(saved)
         for stat, value in delta.items():
             reg.counter(stat).inc(value)
+        reg.counter("handoffs").inc(s.handoffs)
+        reg.counter("handoff_pages").inc(s.handoff_pages)
         reg.gauge("wall_s").set(wall)
         served = int(reg.value("requests_served"))
         total_tokens = int(reg.value("tokens_generated"))
@@ -1886,6 +2024,17 @@ class RealEngine:
             # H2D uploads (event-driven only under pipelining), and decode
             # dispatches (< decode_steps when fusion engaged)
             **delta,
+            # disaggregation: sequences handed prefill→decode, pages moved,
+            # and the per-role joules split (zero on monolithic engines,
+            # where "both" carries the whole total).  prefill + decode +
+            # handoff + both == energy_j, which
+            # ``obs.validate.check_disagg_conservation`` checks
+            "handoffs": s.handoffs,
+            "handoff_pages": s.handoff_pages,
+            "prefill_energy_j": s.role_energy.get("prefill", 0.0),
+            "decode_energy_j": s.role_energy.get("decode", 0.0),
+            "handoff_energy_j": s.role_energy.get("handoff", 0.0),
+            "both_energy_j": s.role_energy.get("both", 0.0),
         }
         if self.telemetry is not None and self.telemetry.feed is not None:
             # one exact segment per session: feed totals stay equal to the

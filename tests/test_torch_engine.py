@@ -209,14 +209,15 @@ def test_token_stream_callbacks_and_single_token_requests(family):
 
 @pytest.mark.parametrize("kw", [{"preemption": True, "mesh": object()},
                                 {"telemetry": object(),
-                                 "roles": {"prefill": 1}},
+                                 "roles": {"prefill": 1, "decode": 1},
+                                 "mesh": object()},
                                 {"quality_selector": "greedy",
                                  "mesh": object()},
                                 {"mesh": object()},
-                                {"roles": {"prefill": 1}}])
+                                {"roles": (1, 1), "mesh": object()}])
 def test_unported_engine_options_raise(family, kw):
-    """``mesh=`` and ``roles=`` stay refused, alone and beside the ported
-    preemption, telemetry and quality selector."""
+    """``mesh=`` stays refused, alone and beside the ported preemption,
+    telemetry, quality selector and ``roles=`` (disaggregation)."""
     with pytest.raises(NotImplementedError):
         ENG.RealEngine(family, kv_layout="paged", device="cpu", **kw)
 

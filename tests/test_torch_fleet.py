@@ -585,15 +585,19 @@ def test_region_plumbs_layout_policy_and_selector(families):
 
 
 def test_engine_topology_asserts_paged_then_engine_refuses(families):
+    """A region in ``engine_topology`` needs the paged layout, and then
+    gets a disaggregated engine with the map's worker counts."""
+    from repro_torch.serving.disagg import DisaggEngine
     with pytest.raises(AssertionError, match="paged"):
         _regions(families[:1] * 2, engine_kv_layout="slotted",
                  engine_topology={"r0": (1, 1)})
     cfg = FST.FleetConfig(backend="real", engine_kv_layout="paged",
-                          engine_topology={"r0": (1, 1)})
-    with pytest.raises(NotImplementedError, match="roles"):
-        FST._Region("r0", CBT.make_trace("CISO-March", hours=2.0),
-                    families[1][0].variant.family, cfg,
-                    engine_family=families[1])
+                          engine_topology={"r0": (2, 1)})
+    split = FST._Region("r0", CBT.make_trace("CISO-March", hours=2.0),
+                        families[1][0].variant.family, cfg,
+                        engine_family=families[1])
+    assert isinstance(split.server.engine, DisaggEngine)
+    assert split.server.engine.roles == {"prefill": 2, "decode": 1}
     # a region not in the map stays monolithic
     other = FST._Region("r1", CBT.make_trace("CISO-March", hours=2.0),
                         families[1][0].variant.family, cfg,

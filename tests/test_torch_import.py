@@ -36,7 +36,10 @@ def test_importing_every_port_module_leaves_jax_out():
                 "repro_torch.core.controller", "repro_torch.obs.aggregate",
                 "repro_torch.configs.gemma3_27b",
                 "repro_torch.configs.glm4_9b",
-                "repro_torch.configs.qwen2_0_5b"):
+                "repro_torch.configs.qwen2_0_5b",
+                "repro_torch.serving.disagg", "repro_torch.serving.queue",
+                "repro_torch.obs.export", "repro_torch.obs.slo",
+                "repro_torch.obs.validate"):
         assert mod in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

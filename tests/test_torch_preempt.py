@@ -73,17 +73,18 @@ def _same_outputs(a, b):
                                       b.last_outputs[rid])
 
 
-# stats keys of the reference's disaggregation, not ported yet
-DISAGG_KEYS = {"handoffs", "handoff_pages", "prefill_energy_j",
-               "decode_energy_j", "handoff_energy_j", "both_energy_j"}
-
-
 def _matches_reference(ref, eng, m_ref, m):
-    """The port's serve equals the reference's: the stats keys (less
-    disaggregation's; plus the port's TTFT median), token streams, admit
-    order, preemption and swap-in counts, per-response preemptions."""
-    assert set(m_ref) - set(m) == DISAGG_KEYS
+    """The port's serve equals the reference's: the stats keys (plus the
+    port's TTFT median), token streams, admit order, preemption and
+    swap-in counts, per-response preemptions, and the disaggregation
+    keys' monolithic values."""
+    assert set(m_ref) - set(m) == set()
     assert set(m) - set(m_ref) == {"ttft_p50_s"}
+    assert m["handoffs"] == m_ref["handoffs"] == 0
+    assert m["handoff_pages"] == m_ref["handoff_pages"] == 0
+    assert m["both_energy_j"] == m["energy_j"]
+    assert m["prefill_energy_j"] == m["decode_energy_j"] == \
+        m["handoff_energy_j"] == 0.0
     _same_outputs(ref, eng)
     assert ref.last_admit_order == eng.last_admit_order
     for key in ("served", "tokens", "preemptions", "swapin_pages_copied",
