@@ -117,13 +117,33 @@ Phases, each printing its result lines:
    joules conserved; (b) the same in bf16 on a starved arena, preempting
    on the decode worker after the handoffs; (c) the SMOKE config
    disaggregated on the card against the CPU, strictly;
-16. the ``kernels`` line: every ported kernel with its launches on the main
+16. the enc-dec family and the VL family's M-RoPE through the generic
+   entry points: (a) the contiguous flash kernel full (not causal) at
+   seamless-m4t-large-v2's widths (``ENCDEC_ATTN``: 16 heads of 64, g =
+   1) — self-attention over 4 x 1000 and 4 x 1024 frames, cross-attention
+   of 256 queries over 1000 keys and of 1000 over 37 — the contiguous
+   decode there at one shared () length (S = 1000 and S = 97), the causal
+   flash over 2 x 1024 tokens and both decodes over rows of 1-2048
+   positions at qwen2-vl-7b's widths (``VL_ATTN``: 28 heads of 128 over 4,
+   g = 7), f32 and bf16, in phase 2's style; (b) seamless at full width,
+   bf16: ``registry.forward`` over 4 x (1000 source frames + 256 target
+   tokens) with 72 flash launches, ``make_cache(src_embeds=)`` with 24,
+   greedy decode (64 replayed + 32 new) with 48 decode launches a step,
+   its replay held to the forward, and the f32 replay; (c) qwen2-vl at
+   full width, bf16: ``forward_lm`` on merged patch embeddings (64 text
+   tokens, a 24 x 24 image, 384 text tokens) at M-RoPE grid positions
+   with 28 flash launches, greedy decode (a 320-token prompt with a 16 x
+   16 grid, replayed with per-step positions, + 32 new) with 28 decode
+   launches a step, its replay held to the forward, and the f32 replay
+   (batch 1, 128 tokens); (d) both SMOKE configs on the card against the
+   CPU: forward logits and greedy tokens;
+17. the ``kernels`` line: every ported kernel with its launches on the main
    paths that run it (phases 3, 9, 11a, 12, 14 and 15 for the paged kernels,
-   phases 4, 11b, 13 and 14d for the contiguous decode and the f32
+   phases 4, 11b, 13, 14d, 16b-d for the contiguous decode and the f32
    contiguous prefill, whose record is the slotted serve's 1024-token
-   shape, phase 7 for the scan, phase 8's, phase 12's and phase 14b's
-   forwards for the bf16 contiguous prefill, whose record is phase 8's
-   forward shape).
+   shape, phase 7 for the scan, phase 8's, phase 12's, phase 14b's and
+   phase 16's forwards for the bf16 contiguous prefill, whose record is
+   phase 8's forward shape).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is ``{"ok": true, "device": {...}}``.
@@ -329,14 +349,15 @@ def _contig_decode_case(b: int, dtype, seed: int, S: int = 2048, K: int = 8,
 
 
 def _flash_case(sq: int, dtype, seed: int, K: int = 8, g: int = 2,
-                dh: int = 128, b: int = 1):
-    """Random contiguous-prefill inputs: b prompts of sq tokens."""
+                dh: int = 128, b: int = 1, skv: int = 0):
+    """Random contiguous-prefill inputs: b prompts of sq tokens, against
+    skv keys of another sequence when skv > 0 (cross-attention)."""
     import torch
     torch.manual_seed(seed)
     dev = "cuda"
     q = torch.randn(b, sq, K * g, dh, device=dev).to(dtype)
-    k = torch.randn(b, sq, K, dh, device=dev).to(dtype)
-    v = torch.randn(b, sq, K, dh, device=dev).to(dtype)
+    k = torch.randn(b, skv or sq, K, dh, device=dev).to(dtype)
+    v = torch.randn(b, skv or sq, K, dh, device=dev).to(dtype)
     return q, k, v
 
 
@@ -356,13 +377,13 @@ def _sdpa_contig_decode(q, kc, vc, lengths, window: int = 0):
                                                   enable_gqa=True)
 
 
-def _sdpa_flash(q, k, v, window: int):
+def _sdpa_flash(q, k, v, window: int, causal: bool = True):
     import torch
     import torch.nn.functional as F
     qq, kq, vq = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if window <= 0:
         return lambda: F.scaled_dot_product_attention(
-            qq, kq, vq, is_causal=True, enable_gqa=True)
+            qq, kq, vq, is_causal=causal, enable_gqa=True)
     pos = torch.arange(q.shape[1], device=q.device)
     diff = pos[:, None] - pos[None, :]
     mask = (diff >= 0) & (diff < window)
@@ -411,11 +432,6 @@ def phase_kernels() -> dict:
     the dense and MoE families' attention shapes (``DENSE_ATTN``,
     ``MOE_ATTN``)."""
     import torch
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels import ref as REF
-    records = {}
     f32, bf16 = torch.float32, torch.bfloat16
     cases = ([("decode", b, f32) for b in (1, 8)]
              + [("prefill", n, f32) for n in (0, 224, 992)]
@@ -500,6 +516,20 @@ def phase_kernels() -> dict:
                   tuple(sorted(dict(ZAMBA2_ATTN, b=4).items()))):
                      "flash_attention",
                  ("flash", (1024, 0), "float32", ()): "flash_attention_f32"}
+    return _kernel_cases(cases, headlines)
+
+
+def _kernel_cases(cases, headlines: dict) -> dict:
+    """Run each case of ``cases`` ((kind, arg, dtype[, shape])): the kernel
+    held to its plain version at ``TOL``, then timed beside the plain
+    version, one SDPA call and its bound; returns the records of the cases
+    that ``headlines`` names."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref as REF
+    records = {}
     for i, (kind, arg, dtype, *shape) in enumerate(cases):
         shape = dict(shape[0]) if shape else {}
         dname = str(dtype).replace("torch.", "")
@@ -558,21 +588,29 @@ def phase_kernels() -> dict:
                     *a).masked_fill(z[:, None, None], 0)
         elif kind == "flash":
             sq, window = arg
+            causal = shape.pop("causal", True)
             args = _flash_case(sq, dtype, seed=i, **shape)
-            kern = lambda a=args, w=window: FA.flash_attention(*a, window=w)
-            plain = lambda a=args, w=window: REF.flash_attention_ref(
-                *a, window=w)
-            lib = _sdpa_flash(*args, window)
+            kern = lambda a=args, w=window, c=causal: FA.flash_attention(
+                *a, causal=c, window=w)
+            plain = lambda a=args, w=window, c=causal: \
+                REF.flash_attention_ref(*a, causal=c, window=w)
+            lib = _sdpa_flash(*args, window, causal)
             q, k, v = args
-            H, dh, K = q.shape[2], q.shape[3], k.shape[2]
+            H, dh, K, skv = q.shape[2], q.shape[3], k.shape[2], k.shape[1]
             qpos = torch.arange(sq)
-            visible = qpos + 1 if window <= 0 else (qpos + 1).clamp(
-                max=window)
+            if not causal:                   # every query sees every key
+                visible = torch.full((sq,), skv)
+            elif window <= 0:
+                visible = qpos + 1
+            else:
+                visible = (qpos + 1).clamp(max=window)
             n_bytes = 2 * q.numel() * elt + 2 * k.numel() * elt
             n_ops = 4 * dh * H * int(visible.sum()) * q.shape[0]
             name, label = "flash_attention", f"sq={sq} window={window}"
-            if shape:
+            if shape or not causal:
                 label += f" b={q.shape[0]} H={H} K={K} dh={dh}"
+            if not causal:
+                label += f" skv={skv} full"
         else:
             window = shape.pop("window", 0)
             args = _prefill_case(arg, dtype, seed=i, **shape)
@@ -1300,20 +1338,23 @@ def _counts() -> dict:
 
 
 def _forward_run(tag: str, model, b: int, s: int, per_forward: dict,
-                 seed: int) -> dict:
-    """``registry.forward`` over b random prompts of s tokens: one warm-up
-    call, then one timed call whose kernel launches are counted (each
-    kernel of ``per_forward`` exactly that often), then one profiled call;
-    returns the timed call's launches."""
+                 seed: int, extra: dict = None, fwd=None) -> dict:
+    """``registry.forward`` over b random prompts of s tokens (with the
+    batch entries ``extra``: an enc-dec's ``src_embeds``, a VLM's
+    positions), or the call ``fwd`` (its logits over b x s positions): one
+    warm-up call, then one timed call whose kernel launches are counted
+    (each kernel of ``per_forward`` exactly that often), then one profiled
+    call; returns the timed call's launches."""
     import numpy as np
     import torch
     from repro_torch.models import registry as R
     cfg = model.cfg
     tokens = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, size=(b, s)).astype(np.int32), device="cuda")
-
-    def fwd():
-        return R.forward(model, {"tokens": tokens}, cfg)[0]
+    if fwd is None:
+        def fwd():
+            return R.forward(model, {"tokens": tokens, **(extra or {})},
+                             cfg)[0]
 
     fwd()
     torch.cuda.synchronize()
@@ -1342,27 +1383,42 @@ def _forward_run(tag: str, model, b: int, s: int, per_forward: dict,
     return counts
 
 
-def _replay(model, prompts, cache):
+def _step_batch(tokens, positions, i: int) -> dict:
+    """A decode step's batch: the token column, and a VLM's (3, b, 1)
+    M-RoPE positions of step ``i`` when ``positions`` are given."""
+    if positions is None:
+        return {"tokens": tokens}
+    return {"tokens": tokens, "mrope_positions": positions[:, :, i:i + 1]}
+
+
+def _replay(model, prompts, cache, positions=None):
     """Feed ``prompts`` (b, n) through ``decode_step`` one position at a
-    time (the forward returns no SSM state); returns the last position's
+    time (the forward returns no SSM state), with a VLM's M-RoPE
+    ``positions`` (3, b, >= n) when given; returns the last position's
     logits and the cache."""
     from repro_torch.models import registry as R
     for i in range(prompts.shape[1]):
-        lg, cache = R.decode_step(model, cache,
-                                  {"tokens": prompts[:, i:i + 1]}, model.cfg)
+        lg, cache = R.decode_step(
+            model, cache, _step_batch(prompts[:, i:i + 1], positions, i),
+            model.cfg)
     return lg, cache
 
 
-def _replay_vs_forward(tag: str, model, prompts, lg) -> str:
+def _replay_vs_forward(tag: str, model, prompts, lg,
+                       extra: dict = None) -> str:
     """Hold a replay's logits ``lg`` at the last prompt position against
-    ``registry.forward``'s over the same prompts, relative to what the
-    layers add to them (``REPLAY_TOL`` of the model's type); returns the
+    ``registry.forward``'s over the same prompts (and batch entries
+    ``extra``: an enc-dec's ``src_embeds``, a VLM's positions), relative
+    to what the layers add to them (``REPLAY_TOL`` of the model's type):
+    the logits of the last token's embedding alone, through the final norm
+    and the head, which an enc-dec model has as well; returns the
     reading."""
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import registry as R
     cfg = model.cfg
-    ref = R.forward(model, {"tokens": prompts}, cfg)[0][:, -1].float()
+    ref = R.forward(model, {"tokens": prompts, **(extra or {})},
+                    cfg)[0][:, -1].float()
     with torch.no_grad():     # the logits of the embedding alone
         base = model.logits(L.embedding_apply(
             model.embed, prompts[:, -1:]))[:, 0].float()
@@ -1383,12 +1439,15 @@ def _replay_vs_forward(tag: str, model, prompts, lg) -> str:
 
 
 def _greedy_run(tag: str, model, n_prompt: int, n_new: int, per_step: dict,
-                seed: int, b: int = 4) -> None:
+                seed: int, b: int = 4, src_embeds=None,
+                positions=None) -> dict:
     """Greedy generation through ``make_cache`` and ``decode_step`` (bf16
     cache, the default): b random prompts of n_prompt tokens replayed
-    token by token, then n_new tokens.  The replay is held against the
-    forward (``_replay_vs_forward``); every decode step launches each
-    kernel of ``per_step`` exactly that often."""
+    token by token, then n_new tokens — with an enc-dec's ``src_embeds``
+    in ``make_cache``, or a VLM's M-RoPE ``positions`` (3, b, n_prompt +
+    n_new + 1) one column a step.  The replay is held against the forward
+    (``_replay_vs_forward``); every decode step launches each kernel of
+    ``per_step`` exactly that often.  Returns the replay's launches."""
     import numpy as np
     import torch
     from repro_torch.models import registry as R
@@ -1396,26 +1455,31 @@ def _greedy_run(tag: str, model, n_prompt: int, n_new: int, per_step: dict,
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, size=(b, n_prompt)).astype(np.int32),
         device="cuda")
-    cache = R.make_cache(model, cfg, b, n_prompt + n_new + 1)
+    cache = R.make_cache(model, cfg, b, n_prompt + n_new + 1,
+                         src_embeds=src_embeds)
+    extra = ({"src_embeds": src_embeds} if src_embeds is not None else
+             {"mrope_positions": positions[:, :, :n_prompt]}
+             if positions is not None else {})
     torch.cuda.synchronize()
     _zero_counts()
     t = time.perf_counter()
-    lg, cache = _replay(model, prompts, cache)
+    lg, cache = _replay(model, prompts, cache, positions)
     torch.cuda.synchronize()
     t_replay = time.perf_counter() - t
-    counts = _counts()
+    counts = _counts()            # the replay's
     for name, n in per_step.items():
         _check(counts[name] == n * n_prompt,
                f"{tag}: {counts[name]} {name} launches in {n_prompt} decode "
                f"steps, expected {n} per step")
-    reading = _replay_vs_forward(tag, model, prompts, lg)
+    reading = _replay_vs_forward(tag, model, prompts, lg, extra)
     tok = lg.argmax(-1, keepdim=True).to(torch.int32)
     out = []
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(n_new):
+    for j in range(n_new):
         out.append(tok)
-        lg, cache = R.decode_step(model, cache, {"tokens": tok}, cfg)
+        lg, cache = R.decode_step(
+            model, cache, _step_batch(tok, positions, n_prompt + j), cfg)
         tok = lg.argmax(-1, keepdim=True).to(torch.int32)
     t_enqueue = time.perf_counter() - t
     torch.cuda.synchronize()
@@ -1426,7 +1490,8 @@ def _greedy_run(tag: str, model, n_prompt: int, n_new: int, per_step: dict,
            f"{tag}: token ids out of range")
     _check(int(cache["pos"]) == n_prompt + n_new, f"{tag}: cache position")
     device = _device_profile(
-        lambda: R.decode_step(model, cache, {"tokens": tok}, cfg), 1,
+        lambda: R.decode_step(model, cache, _step_batch(
+            tok, positions, n_prompt + n_new), cfg), 1,
         t_wall / n_new, {
             "attention kernel (split and merge)":
                 lambda key: "decode_split_kernel" in key
@@ -1435,28 +1500,40 @@ def _greedy_run(tag: str, model, n_prompt: int, n_new: int, per_step: dict,
           f"{t_replay / n_prompt * 1e3:.2f} ms/step; {reading}; {n_new} new "
           f"tokens: wall {t_wall / n_new * 1e3:.2f} ms/step, host enqueue "
           f"{t_enqueue / n_new * 1e3:.2f} ms/step, {device}")
+    return counts
 
 
 def _f32_replay_run(tag: str, cfg, seed: int, b: int = 2,
-                    n_prompt: int = 256) -> None:
+                    n_prompt: int = 256, src_len: int = 0,
+                    positions=None) -> None:
     """The model at full width in f32 (weights from the same seed as the
     bf16 one): b prompts of n_prompt tokens — two chunks, so the scan
     carries its state across a chunk boundary — replayed through
-    ``decode_step`` with an f32 cache and held against the forward."""
+    ``decode_step`` with an f32 cache and held against the forward; an
+    enc-dec model over ``src_len`` seeded frames, a VLM at M-RoPE
+    ``positions`` (3, b, n_prompt) when given."""
     import numpy as np
     import torch
     from repro_torch.models import registry as R
     cfg = cfg.with_(dtype=torch.float32)
     model = R.init_params(cfg, seed=0)
-    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, size=(b, n_prompt)).astype(np.int32),
         device="cuda")
-    cache = R.make_cache(model, cfg, b, n_prompt + 1, dtype=torch.float32)
+    src = (torch.as_tensor(rng.standard_normal(
+        (b, src_len, cfg.d_model), np.float32), device="cuda")
+        if src_len else None)
+    cache = R.make_cache(model, cfg, b, n_prompt + 1, src_embeds=src,
+                         dtype=torch.float32)
     t = time.perf_counter()
-    lg, cache = _replay(model, prompts, cache)
+    lg, cache = _replay(model, prompts, cache, positions)
     torch.cuda.synchronize()
     t_replay = time.perf_counter() - t
-    reading = _replay_vs_forward(f"{tag} f32", model, prompts, lg)
+    extra = ({"src_embeds": src} if src is not None else
+             {"mrope_positions": positions} if positions is not None
+             else {})
+    reading = _replay_vs_forward(f"{tag} f32", model, prompts, lg, extra)
     print(f"{tag} f32 replay (batch {b}, {n_prompt} tokens, "
           f"{t_replay / n_prompt * 1e3:.2f} ms/step): {reading}")
     del model, cache
@@ -1776,27 +1853,33 @@ def phase_preempt_serve() -> dict:
 SMOKE_TOL = 2e-4
 
 
-def _replay_greedy(model, prompt, n_new: int):
+def _replay_greedy(model, prompt, n_new: int, src_embeds=None,
+                   positions=None):
     """Greedy tokens and every step's logits (on the host) of ``prompt``
     (b, n) replayed through ``decode_step`` and continued n_new tokens, on
-    the model's device with an f32 cache."""
+    the model's device with an f32 cache (an enc-dec's over the frames
+    ``src_embeds``, a VLM's at M-RoPE ``positions`` (3, b, n + n_new),
+    both host arrays)."""
     import torch
     from repro_torch.models import registry as R
     cfg = model.cfg
     dev = next(model.parameters()).device
     b, n = prompt.shape
-    cache = R.make_cache(model, cfg, b, n + n_new, dtype=torch.float32,
-                         device=dev)
+    cache = R.make_cache(
+        model, cfg, b, n + n_new, dtype=torch.float32, device=dev,
+        src_embeds=(None if src_embeds is None
+                    else torch.as_tensor(src_embeds, device=dev)))
+    pos = None if positions is None else torch.as_tensor(positions,
+                                                         device=dev)
     toks = torch.as_tensor(prompt, device=dev)
-    for i in range(n):
-        lg, cache = R.decode_step(model, cache, {"tokens": toks[:, i:i + 1]},
-                                  cfg)
+    lg, cache = _replay(model, toks, cache, pos)
     out, logits = [], []
-    for _ in range(n_new):
+    for j in range(n_new):
         logits.append(lg.float().cpu())
         tok = lg.argmax(-1, keepdim=True).to(torch.int32)
         out.append(tok.cpu())
-        lg, cache = R.decode_step(model, cache, {"tokens": tok}, cfg)
+        lg, cache = R.decode_step(model, cache, _step_batch(tok, pos, n + j),
+                                  cfg)
     return torch.cat(out, dim=1), logits
 
 
@@ -2538,6 +2621,27 @@ def phase_dense_parity() -> dict:
     return _smoke_parity("dense parity", variants, strict=False)
 
 
+def _decode_ties(tag: str, gen_g, gen_c, lg_steps) -> int:
+    """Rows whose greedy tokens on the card (``gen_g``) differ from the
+    CPU's (``gen_c``), each at a near-tie of the CPU's logits at the first
+    differing step (``lg_steps``, from ``_replay_greedy``); raises for a
+    difference that is not one."""
+    import torch
+    ties = 0
+    for row in range(gen_c.shape[0]):
+        diff = (gen_g[row] != gen_c[row]).nonzero()
+        if len(diff) == 0:
+            continue
+        step = int(diff[0])
+        top = torch.topk(lg_steps[step][row], 2).values
+        gap = float(top[0] - top[1])
+        _check(gap <= 1e-4 * max(1.0, float(top[0].abs())),
+               f"{tag}: decode_step row {row} differs at step {step} "
+               f"with a top-2 logit gap of {gap:.3g} — not a near-tie")
+        ties += 1
+    return ties
+
+
 def _smoke_parity(prefix: str, variants, strict: bool) -> dict:
     """SMOKE ``variants`` ((label, arch, overrides)) on the card against
     the CPU with the same weights: both engines' greedy streams equal, the
@@ -2613,18 +2717,7 @@ def _smoke_parity(prefix: str, variants, strict: bool) -> dict:
         gen_g, _ = _replay_greedy(fam_gpu[0].params, toks[:, :12], 12)
         counts["decode_attention"] += DA.decode_attention.launches
         gen_c, lg_steps = _replay_greedy(model, toks[:, :12], 12)
-        ties["decode_step"] = 0
-        for row in range(gen_c.shape[0]):
-            diff = (gen_g[row] != gen_c[row]).nonzero()
-            if len(diff) == 0:
-                continue
-            step = int(diff[0])
-            top = torch.topk(lg_steps[step][row], 2).values
-            gap = float(top[0] - top[1])
-            _check(gap <= 1e-4 * max(1.0, float(top[0].abs())),
-                   f"{tag}: decode_step row {row} differs at step {step} "
-                   f"with a top-2 logit gap of {gap:.3g} — not a near-tie")
-            ties["decode_step"] += 1
+        ties["decode_step"] = _decode_ties(tag, gen_g, gen_c, lg_steps)
         print(f"{tag}: on {len(prompts)} requests x 12 tokens the paged and "
               f"slotted engines on the card equal the CPU's, and the "
               f"decode_step greedy tokens of 2 rows x 12 (near-tie "
@@ -3043,6 +3136,248 @@ def phase_disagg() -> dict:
 
 
 # =============================================================================
+# phase 16: the enc-dec family (seamless-m4t-large-v2) and the VL family's
+# M-RoPE (qwen2-vl-7b) through the generic entry points
+# =============================================================================
+# seamless-m4t-large-v2's attention: 16 heads of 64 over 16 KV heads (g =
+# 1); its forward runs 4 prompts of 1000 source frames and 256 target
+# tokens
+ENCDEC_ATTN = dict(K=16, g=1, dh=64)
+ENCDEC_SRC, ENCDEC_TGT = 1000, 256
+# qwen2-vl-7b's: 28 heads of 128 over 4 KV heads (g = 7)
+VL_ATTN = dict(K=4, g=7, dh=128)
+
+
+def _grid_positions(b: int, n0: int, gh: int, gw: int, n1: int):
+    """qwen2-vl's M-RoPE positions of n0 text tokens, an image of gh x gw
+    patches and n1 text tokens: text ``0 .. n0 - 1`` on all three streams,
+    the patches at temporal ``n0``, height ``n0 + i``, width ``n0 + j``,
+    the text after them from ``n0 + max(gh, gw)``.  Returns the (3, b, s)
+    int32 positions and the (b, s) bool mask of the image's positions, as
+    host arrays."""
+    import numpy as np
+    t = list(range(n0)) + [n0] * (gh * gw)
+    h = list(range(n0)) + [n0 + i for i in range(gh) for _ in range(gw)]
+    w = list(range(n0)) + [n0 + j for _ in range(gh) for j in range(gw)]
+    rest = list(range(n0 + max(gh, gw), n0 + max(gh, gw) + n1))
+    pos = np.array([t + rest, h + rest, w + rest], np.int32)
+    mask = np.zeros(pos.shape[1], bool)
+    mask[n0:n0 + gh * gw] = True
+    return (np.broadcast_to(pos[:, None], (3, b, pos.shape[1])).copy(),
+            np.broadcast_to(mask, (b, mask.size)).copy())
+
+
+def phase_encdec_vl_kernels() -> None:
+    """Phase 16a: the two contiguous kernels in the forms and at the
+    widths the enc-dec and VL families give them, each held to its plain
+    version at ``TOL`` and timed beside it, one SDPA call and its bound,
+    in f32 and bf16: the flash kernel full (not causal) at seamless's
+    widths (``ENCDEC_ATTN``) — encoder self-attention over 4 x 1000
+    frames (a ragged last key block) and 4 x 1024, cross-attention of 256
+    queries over 1000 keys and of 1000 queries over 37 keys; the
+    contiguous decode at those widths, batch 4, over S = 1000 at one
+    shared () length 1000 (cross-attention decode) and over S = 97 at 60;
+    the causal flash over 2 x 1024 tokens at qwen2-vl's widths
+    (``VL_ATTN``: g = 7, dh = 128), and both decodes there at batch 8 over
+    rows of 1-2048 positions."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    full = dict(ENCDEC_ATTN, b=4, causal=False)
+    cases = ([("flash", (1000, 0), d, full) for d in (f32, bf16)]
+             + [("flash", (1024, 0), d, full) for d in (f32, bf16)]
+             + [("flash", (256, 0), d, dict(full, skv=1000))
+                for d in (f32, bf16)]
+             + [("flash", (1000, 0), d, dict(full, skv=37))
+                for d in (f32, bf16)]
+             + [("contig_decode", 4, d, dict(ENCDEC_ATTN, S=S, lengths=n))
+                for d in (f32, bf16) for S, n in ((1000, 1000), (97, 60))]
+             + [("flash", (1024, 0), d, dict(VL_ATTN, b=2))
+                for d in (f32, bf16)]
+             + [(kind, 8, d, dict(VL_ATTN, lengths=DENSE_LENGTHS))
+                for d in (f32, bf16)
+                for kind in ("decode", "contig_decode")])
+    _kernel_cases(cases, {})
+
+
+def phase_encdec(smi: str) -> dict:
+    """Phase 16b: seamless-m4t-large-v2 at full width (24 encoder and 24
+    decoder layers, d_model 1024, GELU MLP of 8192, vocab 256206 padded to
+    256512, untied), bf16 weights from the port's seeded init.
+    ``registry.forward`` over 4 x (1000 seeded source frames + 256 target
+    tokens): 72 flash launches (24 encoder, 24 decoder self, 24 cross);
+    ``make_cache(src_embeds=)``: 24 (its encoder pass); greedy decode of 4
+    prompts of 64 replayed tokens and 32 new: 48 decode launches a step (24
+    self, 24 cross) and no flash, the replay held to the forward; then the
+    f32 replay (batch 2, 64 tokens).  Returns the launches counted."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import seamless_m4t_large_v2
+    from repro_torch.models import registry as R
+    cfg = seamless_m4t_large_v2.FULL
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"encdec: {cfg.name} init {time.perf_counter() - t0:.1f} s, "
+          f"{n_params / 1e6:.1f} M params ({cfg.dtype}) on {smi}")
+    L, b = cfg.n_layers, 4
+    src = torch.as_tensor(np.random.default_rng(21).standard_normal(
+        (b, ENCDEC_SRC, cfg.d_model), np.float32), device="cuda")
+    tag = f"encdec [{smi}]"       # the card beside every number
+    fwd = _forward_run(f"{tag} ({ENCDEC_SRC} source frames)", model, b,
+                       ENCDEC_TGT, {"flash_attention": cfg.n_enc_layers
+                                    + 2 * L, "decode_attention": 0},
+                       seed=22, extra={"src_embeds": src})
+    _zero_counts()
+    t = time.perf_counter()
+    cache = R.make_cache(model, cfg, b, 8, src_embeds=src)
+    torch.cuda.synchronize()
+    t_cache = time.perf_counter() - t
+    enc = _counts()
+    _check(enc["flash_attention"] == cfg.n_enc_layers
+           and enc["decode_attention"] == 0,
+           f"encdec make_cache: launches {enc}, expected "
+           f"{cfg.n_enc_layers} flash")
+    shape = (L, b, ENCDEC_SRC, cfg.n_kv_heads, cfg.d_head)
+    _check(tuple(cache["xk"].shape) == shape
+           and cache["xk"].dtype == torch.bfloat16
+           and bool(torch.isfinite(cache["xk"]).all()
+                    and torch.isfinite(cache["xv"]).all()),
+           f"encdec make_cache: xk {tuple(cache['xk'].shape)} "
+           f"{cache['xk'].dtype}")
+    print(f"encdec make_cache: encoder pass and cross K/V of {L} layers "
+          f"{t_cache * 1e3:.1f} ms; launches {enc}")
+    del cache
+    rep = _greedy_run(tag, model, 64, 32, {
+        "decode_attention": 2 * L, "flash_attention": 0}, seed=23, b=b,
+        src_embeds=src)
+    del model, src
+    torch.cuda.empty_cache()
+    _f32_replay_run(tag, cfg, seed=24, b=2, n_prompt=64,
+                    src_len=ENCDEC_SRC)
+    return {"flash_attention": fwd["flash_attention"]
+            + enc["flash_attention"],
+            "decode_attention": rep["decode_attention"]}
+
+
+def phase_vl(smi: str) -> dict:
+    """Phase 16c: qwen2-vl-7b at full width (28 layers, d_model 3584, 28
+    heads of 128 over 4 KV heads, QKV bias, M-RoPE sections (16, 24, 24),
+    vocab 152064), bf16 weights from the port's seeded init.
+    ``forward_lm`` on ``inputs_embeds = merge_patch_embeds(...)`` over 2 x
+    1024 positions — 64 text tokens, a 24 x 24 grid of 576 seeded patch
+    embeddings, 384 text tokens — at ``_grid_positions``: 28 flash
+    launches.  Greedy decode of 4 prompts of 320 tokens (64 text and a
+    16 x 16 grid of token ids at grid positions) replayed with each
+    step's positions, then 32 new tokens whose positions continue from
+    80: 28 decode launches a step, the replay held to ``registry.forward``
+    on the same tokens and positions; then the f32 replay (batch 1, 64
+    text tokens and an 8 x 8 grid).  Returns the launches counted."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import qwen2_vl_7b
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    cfg = qwen2_vl_7b.FULL
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vl: {cfg.name} init {time.perf_counter() - t0:.1f} s, "
+          f"{n_params / 1e6:.1f} M params ({cfg.dtype}) on {smi}")
+    b, n0, grid, n1 = 2, 64, 24, 384
+    pos, mask = (torch.as_tensor(a, device="cuda")
+                 for a in _grid_positions(b, n0, grid, grid, n1))
+    s = pos.shape[2]
+    rng = np.random.default_rng(31)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, s))
+                             .astype(np.int32), device="cuda")
+    patches = torch.as_tensor(rng.standard_normal(
+        (b, grid * grid, cfg.d_model), np.float32),
+        device="cuda").to(cfg.dtype)
+
+    def fwd():
+        emb = T.merge_patch_embeds(L.embedding_apply(model.embed, tokens),
+                                   patches, mask)
+        return T.forward_lm(model, None, mrope_positions=pos,
+                            inputs_embeds=emb)[0]
+
+    tag = f"vl [{smi}]"           # the card beside every number
+    counts = _forward_run(f"{tag} ({grid} x {grid} patches merged)", model,
+                          b, s, {"flash_attention": cfg.n_layers,
+                                 "decode_attention": 0}, seed=32, fwd=fwd)
+    del pos, mask, tokens, patches
+    n_prompt, n_new, b = 64 + 16 * 16, 32, 4
+    steps = torch.as_tensor(_grid_positions(b, 64, 16, 16, n_new + 1)[0],
+                            device="cuda")
+    rep = _greedy_run(tag, model, n_prompt, n_new, {
+        "decode_attention": cfg.n_layers, "flash_attention": 0}, seed=33,
+        b=b, positions=steps)
+    del model
+    torch.cuda.empty_cache()
+    _f32_replay_run(tag, cfg, seed=34, b=1, n_prompt=128,
+                    positions=torch.as_tensor(
+                        _grid_positions(1, 64, 8, 8, 0)[0], device="cuda"))
+    return {"flash_attention": counts["flash_attention"],
+            "decode_attention": rep["decode_attention"]}
+
+
+def phase_encdec_vl_parity() -> dict:
+    """Phase 16d: both SMOKE configs (f32) with the same weights on the
+    card and on the CPU: ``registry.forward``'s logits within
+    ``SMOKE_TOL`` and 16 greedy ``decode_step`` tokens of 2 rows after a
+    12-token replay equal (a differing token must be a near-tie of the
+    CPU's logits); seamless over 13 seeded frames, qwen2-vl at the
+    positions of 4 text tokens, a 4 x 4 image and text.  Returns the
+    card's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import registry as R
+    counts = {"flash_attention_f32": 0, "decode_attention": 0}
+    for arch in ("seamless-m4t-large-v2", "qwen2-vl-7b"):
+        cfg = get_smoke_config(arch)
+        cpu = R.init_params(cfg, seed=3, device="cpu")
+        gpu = R.init_params(cfg, seed=3)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(41)
+        toks = rng.integers(0, cfg.vocab_size, size=(2, 28)).astype(np.int32)
+        src = pos = None
+        if cfg.n_enc_layers:
+            src = rng.standard_normal((2, 13, cfg.d_model)).astype(np.float32)
+            extra = {"src_embeds": src}
+        else:
+            pos = _grid_positions(2, 4, 4, 4, 8)[0]
+            extra = {"mrope_positions": pos}
+        FA.flash_attention.launches = DA.decode_attention.launches = 0
+        lg_g, _ = R.forward(gpu, {k: torch.as_tensor(v, device="cuda")
+                                  for k, v in dict(extra,
+                                                   tokens=toks).items()},
+                            cfg)
+        gen_g, _ = _replay_greedy(gpu, toks[:, :12], 16, src, pos)
+        counts["flash_attention_f32"] += FA.flash_attention.launches
+        counts["decode_attention"] += DA.decode_attention.launches
+        lg_c, _ = R.forward(cpu, {k: torch.as_tensor(v) for k, v in
+                                  dict(extra, tokens=toks).items()}, cfg)
+        lg_g = lg_g.float().cpu()
+        err = (lg_g - lg_c).abs().max().item()
+        _check(torch.allclose(lg_g, lg_c, atol=SMOKE_TOL, rtol=SMOKE_TOL),
+               f"encdec/vl parity {arch}: forward logits differ by "
+               f"{err:.3g}")
+        gen_c, lg_steps = _replay_greedy(cpu, toks[:, :12], 16, src, pos)
+        ties = _decode_ties(f"encdec/vl parity {arch}", gen_g, gen_c,
+                            lg_steps)
+        print(f"encdec/vl parity {arch}: forward max |diff| {err:.3g} (tol "
+              f"{SMOKE_TOL}); decode_step greedy tokens of 2 rows x 16 "
+              f"after a 12-token replay equal the CPU's (near-tie "
+              f"divergences {ties})")
+    return counts
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -3116,6 +3451,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     disagg = phase_disagg()
     t18 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_encdec_vl_kernels()
+    encdec = phase_encdec(smi)
+    vl = phase_vl(smi)
+    encdec_vl_parity = phase_encdec_vl_parity()
+    t19 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
@@ -3135,6 +3476,10 @@ def main() -> int:
         launches[name] += n
     for name, n in disagg.items():        # both worker pools' serves
         launches[name] += n
+    # the enc-dec and VL forwards, decode replays and SMOKE runs
+    for name, n in (list(encdec.items()) + list(vl.items())
+                    + list(encdec_vl_parity.items())):
+        launches[name] += n
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "
@@ -3144,8 +3489,8 @@ def main() -> int:
           f"{t11 - t10:.1f} s, fleet parity {t12 - t11:.1f} s, sim "
           f"{t13 - t12:.1f} s, dense {t14 - t13:.1f} s, dense parity "
           f"{t15 - t14:.1f} s, moe {t16 - t15:.1f} s, moe parity "
-          f"{t17 - t16:.1f} s, disagg {t18 - t17:.1f} s, total "
-          f"{t18 - t0:.1f} s")
+          f"{t17 - t16:.1f} s, disagg {t18 - t17:.1f} s, encdec/vl "
+          f"{t19 - t18:.1f} s, total {t19 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

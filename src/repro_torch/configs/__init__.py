@@ -1,11 +1,11 @@
-"""Architecture config registry — ``--arch <id>`` resolution for the
-architectures the port runs: the dense family ``qwen3-1.7b``,
+"""Architecture config registry — ``--arch <id>`` resolution for every
+architecture of the reference: the dense family ``qwen3-1.7b``,
 ``qwen2-0.5b``, ``glm4-9b`` and ``gemma3-27b`` and the MoE family
 ``qwen3-moe-30b-a3b`` and ``qwen2-moe-a2.7b`` (served by the engines and
-the generic entry points), ``mamba2-2.7b`` (SSM) and ``zamba2-2.7b``
-(hybrid), each with ``FULL`` and ``SMOKE`` (for the CPU tests).  The
-reference's other architectures (the VLM, enc-dec) raise
-``NotImplementedError`` until a later slice ports their families."""
+the generic entry points); ``mamba2-2.7b`` (SSM), ``zamba2-2.7b``
+(hybrid), ``qwen2-vl-7b`` (VLM, M-RoPE) and ``seamless-m4t-large-v2``
+(enc-dec), which run through the generic entry points only, as in the
+reference.  Each has ``FULL`` and ``SMOKE`` (for the CPU tests)."""
 from __future__ import annotations
 
 import importlib
@@ -22,18 +22,13 @@ _MODULES: Dict[str, str] = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-2.7b": "zamba2_2_7b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 ARCHS: List[str] = list(_MODULES)
 
-# the reference's architectures whose families the port does not serve yet
-_NOT_PORTED = ("seamless-m4t-large-v2", "qwen2-vl-7b")
-
-
 def _module(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet; "
-                                  f"available: {ARCHS}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

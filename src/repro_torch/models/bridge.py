@@ -10,19 +10,24 @@ d_inner), ``layers/mamba/A_log`` (L, H), ..., and for the hybrid the
 unstacked ``shared/...`` block; an MoE layer has ``layers/moe/router`` (L,
 d, E) and ``layers/moe/w_gate`` / ``w_up`` (L, E, d, F) / ``w_down`` (L,
 E, F, d) as plain arrays, and its shared experts' dense weights under
-``layers/moe/shared/...``).  :func:`load_reference` splits the stacked
-``layers/...`` leaves along axis 0 into the port's per-layer modules
-(dense weights transposed to PyTorch's (out, in); conv kernels stay (k,
-channels), expert weights as they are), and :func:`export_reference` is
-its exact inverse, so weights round-trip.
+``layers/moe/shared/...``).  An enc-dec model has two stacks in place of
+``layers/...``: ``enc_layers/{ln1,attn,ln2,mlp}/...`` and
+``dec_layers/{ln1,attn,lnx,xattn,ln2,mlp}/...``, and ``enc_norm/scale``
+beside the top leaves.  :func:`load_reference` splits the stacked leaves
+along axis 0 into the port's per-layer modules (dense weights transposed
+to PyTorch's (out, in); conv kernels stay (k, channels), expert weights as
+they are), and :func:`export_reference` is its exact inverse, so weights
+round-trip.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import LM
 
 Arrays = Dict[str, np.ndarray]
@@ -42,6 +47,11 @@ _MAMBA = (("ln", "mamba/gate_norm"),
           ("mamba/conv_x", "mamba/conv_B", "mamba/conv_C", "mamba/conv_bx",
            "mamba/conv_bB", "mamba/conv_bC", "mamba/A_log", "mamba/D",
            "mamba/dt_bias"))
+# an enc-dec decoder layer: the self- and the cross-attention, then the MLP
+_CROSS = (("ln1", "lnx", "ln2", "attn/q_norm", "attn/k_norm",
+           "xattn/q_norm", "xattn/k_norm"),
+          _ATTN_MLP[1][:4] + ("xattn/wq", "xattn/wk", "xattn/wv",
+                              "xattn/wo") + _ATTN_MLP[1][4:], ())
 
 
 def _leaves(mod, spec) -> Iterator[Tuple[str, str, bool]]:
@@ -64,12 +74,24 @@ def _leaves(mod, spec) -> Iterator[Tuple[str, str, bool]]:
         yield name, name.replace("/", "."), False
 
 
-def _layer_leaves(model: LM) -> Iterator[Tuple[str, str, bool]]:
-    """The leaves of one layer, under ``layers/`` in the reference."""
+def _stacks(model: Union[LM, EncDec]
+            ) -> Iterator[Tuple[str, nn.ModuleList,
+                                Tuple[Tuple[str, str, bool], ...]]]:
+    """(the reference's prefix, the port's layers, the leaves of one
+    layer) of every stack of layers: ``layers`` (decoder-only), or
+    ``enc_layers`` and ``dec_layers`` (enc-dec)."""
     cfg = model.cfg
+    if isinstance(model, EncDec):
+        yield ("enc_layers", model.enc_layers,
+               tuple(_leaves(model.enc_layers[0], _ATTN_MLP)))
+        yield ("dec_layers", model.dec_layers,
+               tuple(_leaves(model.dec_layers[0], _CROSS)))
+        return
     if cfg.family in ("ssm", "hybrid"):
-        return _leaves(model.layers[0], _MAMBA)
-    return _leaves(model.layers[0], _ATTN_MOE if cfg.is_moe else _ATTN_MLP)
+        spec = _MAMBA
+    else:
+        spec = _ATTN_MOE if cfg.is_moe else _ATTN_MLP
+    yield "layers", model.layers, tuple(_leaves(model.layers[0], spec))
 
 
 def _get(obj, dotted: str):
@@ -80,18 +102,22 @@ def _get(obj, dotted: str):
     return obj
 
 
-def _top_leaves(model: LM) -> Iterator[Tuple[str, str, bool]]:
+def _top_leaves(model: Union[LM, EncDec]
+                ) -> Iterator[Tuple[str, str, bool]]:
     yield "embed/table", "embed", False
+    if isinstance(model, EncDec):
+        yield "enc_norm/scale", "enc_norm.scale", False
     yield "final_norm/scale", "final_norm.scale", False
     if model.lm_head is not None:
         yield "lm_head/w", "lm_head.weight", True
-    if model.shared is not None:
+    if getattr(model, "shared", None) is not None:
         for key, attr, dense in _leaves(model.shared, _ATTN_MLP):
             yield f"shared/{key}", f"shared.{attr}", dense
 
 
 @torch.no_grad()
-def load_reference(model: LM, arrays: Arrays) -> LM:
+def load_reference(model: Union[LM, EncDec],
+                   arrays: Arrays) -> Union[LM, EncDec]:
     """Copy the reference's flattened params into ``model`` (its device and
     dtype).  Every leaf of the model must be present with the reference's
     shape; extra keys are an error too."""
@@ -113,13 +139,15 @@ def load_reference(model: LM, arrays: Arrays) -> LM:
 
     for key, attr, dense in _top_leaves(model):
         put(key, model, attr, dense, arrays[key])
-    for key, attr, dense in _layer_leaves(model):
-        stacked = arrays[f"layers/{key}"]
-        if stacked.shape[0] != len(model.layers):
-            raise ValueError(f"layers/{key}: {stacked.shape[0]} layers in "
-                             f"the reference, {len(model.layers)} here")
-        for i, layer in enumerate(model.layers):
-            put(f"layers/{key}", layer, attr, dense, stacked[i])
+    for prefix, layers, leaves in _stacks(model):
+        for key, attr, dense in leaves:
+            stacked = arrays[f"{prefix}/{key}"]
+            if stacked.shape[0] != len(layers):
+                raise ValueError(f"{prefix}/{key}: {stacked.shape[0]} "
+                                 f"layers in the reference, {len(layers)} "
+                                 f"here")
+            for i, layer in enumerate(layers):
+                put(f"{prefix}/{key}", layer, attr, dense, stacked[i])
     extra = set(arrays) - used
     if extra:
         raise ValueError(f"reference leaves the port has no place for: "
@@ -128,7 +156,7 @@ def load_reference(model: LM, arrays: Arrays) -> LM:
 
 
 @torch.no_grad()
-def export_reference(model: LM) -> Arrays:
+def export_reference(model: Union[LM, EncDec]) -> Arrays:
     """The inverse of :func:`load_reference`: the model's weights as the
     reference's flattened params (stacked layers, (in, out) dense
     weights), in their own dtype on the host."""
@@ -140,9 +168,10 @@ def export_reference(model: LM) -> Arrays:
     out: Arrays = {}
     for key, attr, dense in _top_leaves(model):
         out[key] = host(_get(model, attr), dense)
-    for key, attr, dense in _layer_leaves(model):
-        out[f"layers/{key}"] = np.stack(
-            [host(_get(layer, attr), dense) for layer in model.layers])
+    for prefix, layers, leaves in _stacks(model):
+        for key, attr, dense in leaves:
+            out[f"{prefix}/{key}"] = np.stack(
+                [host(_get(layer, attr), dense) for layer in layers])
     return out
 
 

@@ -3,8 +3,8 @@
 
 The dataclass keeps every field of the reference, so a config reads the same
 in both packages; ``dtype`` is a torch dtype here.  The port's model path
-covers the dense, MoE, SSM and hybrid families (``models/transformer.py``
-raises on enc-dec, M-RoPE and the append-buffer decode).
+covers every family (``models/transformer.py``, ``models/encdec.py``); it
+raises on the append-buffer decode (``decode_window``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """Decoder building blocks — the port's counterpart of the reference
 package's ``models/layers.py``: RMSNorm, rotary embeddings (partial
-rotary), GQA attention with qk-norm — full-sequence attention and prefill,
-decode at one shared position over a contiguous cache (the generic decode
-of ``registry.decode_step``), decode over a slotted cache, and prefill and
-decode over a paged KV arena — the SwiGLU MLP and the tied embedding.
+rotary, and qwen2-vl's M-RoPE), GQA attention with qk-norm — full-sequence
+attention (causal or full, or cross-attention over K/V from
+:func:`cross_kv`) and prefill, decode at one shared position over a
+contiguous cache (the generic decode of ``registry.decode_step``), decode
+over a slotted cache, and prefill and decode over a paged KV arena — the
+SwiGLU (or GELU) MLP and the tied embedding.
 
 Parameters live in ``nn.Module``s; the math is plain functions on tensors
 that follow the reference's rounding order (norms in f32 then cast back,
@@ -25,7 +27,8 @@ from repro_torch.kernels.ref import gather_paged_kv
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["RMSNorm", "Attention", "MLP", "rmsnorm_apply", "rope_table",
-           "apply_rope", "mlp_apply", "embedding_apply", "embedding_logits",
+           "mrope_table", "apply_rope", "cross_kv", "mlp_apply",
+           "embedding_apply", "embedding_logits",
            "blocked_attention", "decode_attention", "slot_write_index",
            "attention_apply", "attention_prefill_apply",
            "attention_decode_apply", "attention_decode_slots_apply",
@@ -94,6 +97,23 @@ def rope_table(positions: torch.Tensor, d_rot: int, theta: float
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_table(positions: torch.Tensor, d_rot: int, theta: float,
+                sections: Tuple[int, ...]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE (qwen2-vl).  positions: (3, b, s) — the temporal,
+    height and width streams; ``sections`` split the d_rot//2 frequencies
+    among them, in that order.  Returns (b, s, d_rot//2) f32 tables."""
+    assert sum(sections) == d_rot // 2, (sections, d_rot)
+    cos_all, sin_all = rope_table(positions, d_rot, theta)  # (3, b, s, half)
+    cos_parts, sin_parts = [], []
+    off = 0
+    for i, sec in enumerate(sections):
+        cos_parts.append(cos_all[i, ..., off:off + sec])
+        sin_parts.append(sin_all[i, ..., off:off + sec])
+        off += sec
+    return torch.cat(cos_parts, -1), torch.cat(sin_parts, -1)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                partial: float = 1.0) -> torch.Tensor:
     """x: (b, s, h, d).  cos/sin: (b, s, d_rot//2) or (s, d_rot//2)."""
@@ -130,21 +150,39 @@ class Attention(nn.Module):
         self.q_norm = RMSNorm(dh, cfg, device) if cfg.qk_norm else None
         self.k_norm = RMSNorm(dh, cfg, device) if cfg.qk_norm else None
 
-    def project_qkv(self, x: torch.Tensor, cos: torch.Tensor,
-                    sin: torch.Tensor):
-        """The reference's ``_project_qkv``: x (b, s, d) -> rotated q
-        (b, s, H, dh), k and v (b, s, K, dh)."""
+    def project_q(self, x: torch.Tensor, cos: Optional[torch.Tensor],
+                  sin: Optional[torch.Tensor]) -> torch.Tensor:
+        """q of :meth:`project_qkv` alone (a cross-attention decode reads
+        its K/V from the encoder's cache)."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = self.wq(x).reshape(b, s, cfg.n_heads, cfg.d_head)
-        k = self.wk(x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-        v = self.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
         if self.q_norm is not None:
             q = self.q_norm(q)
+        if cos is not None:
+            q = apply_rope(q, cos, sin, cfg.partial_rotary)
+        return q
+
+    def project_kv(self, x: torch.Tensor, cos: Optional[torch.Tensor],
+                   sin: Optional[torch.Tensor]):
+        """k and v (b, s, K, dh) of x (b, s, d): k normed and rotated as
+        in :meth:`project_qkv`."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        k = self.wk(x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+        v = self.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+        if self.k_norm is not None:
             k = self.k_norm(k)
-        q = apply_rope(q, cos, sin, cfg.partial_rotary)
-        k = apply_rope(k, cos, sin, cfg.partial_rotary)
-        return q, k, v
+        if cos is not None:
+            k = apply_rope(k, cos, sin, cfg.partial_rotary)
+        return k, v
+
+    def project_qkv(self, x: torch.Tensor, cos: Optional[torch.Tensor],
+                    sin: Optional[torch.Tensor]):
+        """The reference's ``_project_qkv``: x (b, s, d) -> q (b, s, H,
+        dh), k and v (b, s, K, dh), q and k rotated unless ``cos`` is None
+        (cross-attention's queries)."""
+        return (self.project_q(x, cos, sin),) + self.project_kv(x, cos, sin)
 
 
 def _scaled_q(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
@@ -195,10 +233,29 @@ def attention_prefill_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
 
 
 def attention_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
-                    window: int = 0) -> torch.Tensor:
-    """Full-sequence causal self-attention (the forward), with a sliding
-    window when ``window`` > 0.  x: (b, s, d) -> (b, s, d)."""
-    return attention_prefill_apply(attn, x, cos, sin, window=window)[0]
+                    causal: bool = True, window: int = 0,
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """Full-sequence attention (the forward): self-attention, causal or
+    full, with a sliding window when ``window`` > 0; ``kv`` (k, v of
+    (b, skv, K, dh), from :func:`cross_kv`) replaces the self K/V —
+    cross-attention, full and without a window, as in the reference.
+    x: (b, s, d) -> (b, s, d)."""
+    if kv is None:
+        return attention_prefill_apply(attn, x, cos, sin, causal=causal,
+                                       window=window)[0]
+    cfg = attn.cfg
+    q = attn.project_q(x, cos, sin)
+    o = blocked_attention(q, *kv, causal=False)
+    b, s = x.shape[:2]
+    return attn.wo(o.reshape(b, s, cfg.n_heads * cfg.d_head))
+
+
+def cross_kv(attn: Attention, memory: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (b, s_src, K, dh) from the encoder memory (b,
+    s_src, d): projected, k normed when ``qk_norm``, no rotary."""
+    return attn.project_kv(memory, None, None)
 
 
 def attention_decode_apply(attn: Attention, x: torch.Tensor, cos, sin,

@@ -1,41 +1,53 @@
 """Model interface — the port's counterpart of the reference package's
 ``models/registry.py``: the generic entry points (:func:`forward`,
-:func:`make_cache`, :func:`decode_step`; the dense, MoE, SSM and hybrid
-families) and the slotted and paged entry points of the serving engines
-(dense and MoE).
+:func:`make_cache`, :func:`decode_step`; every family) and the slotted and
+paged entry points of the serving engines (dense and MoE).
 
-``params`` is the :class:`~repro_torch.models.transformer.LM` module (it
-carries its config); batches are ``{"tokens": (b, s) int}``, and a decode
-batch carries one token column.  The decode cache, the slot cache
-``{"k", "v", "lengths"}`` and the arena ``{"k", "v"}`` are written in
-place, where the reference returns new ones.
+``params`` is the :class:`~repro_torch.models.transformer.LM` module, or
+for a config with encoder layers the :class:`~repro_torch.models.encdec.
+EncDec` module (each carries its config).  Batches, as in the reference:
+
+  * decoder-only: ``{"tokens": (b, s) int}``;
+  * VLM: ``+ {"mrope_positions": (3, b, s) int}`` (optional: without it
+    the rotary is the plain one);
+  * enc-dec: ``{"src_embeds": (b, s_src, d), "tokens": (b, s) int}``.
+
+A decode batch carries one token column (and a VLM's (3, b, 1)
+positions).  The decode cache, the slot cache ``{"k", "v", "lengths"}``
+and the arena ``{"k", "v"}`` are written in place, where the reference
+returns new ones.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
 LM = T.LM
+Params = Union[T.LM, ED.EncDec]
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device: Optional[torch.device] = None) -> LM:
-    """Random weights from ``seed`` on ``device`` (the GPU by default)."""
+                device: Optional[torch.device] = None) -> Params:
+    """Random weights from ``seed`` on ``device`` (the GPU by default): an
+    ``EncDec`` for a config with encoder layers, else an ``LM``."""
+    if cfg.n_enc_layers > 0:
+        return ED.init_encdec(cfg, seed=seed, device=device)
     return T.init_lm(cfg, seed=seed, device=device)
 
 
-def _check_cfg(params: LM, cfg: ModelConfig) -> None:
+def _check_cfg(params: Params, cfg: ModelConfig) -> None:
     if cfg != params.cfg:
         raise ValueError(f"cfg {cfg.name!r} is not the config of the "
                          f"params ({params.cfg.name!r})")
 
 
-def forward(params: LM, batch: dict, cfg: ModelConfig, train: bool = False,
-            return_hidden: bool = False
+def forward(params: Params, batch: dict, cfg: ModelConfig,
+            train: bool = False, return_hidden: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (b, s, V), aux_loss ()); with
     ``return_hidden`` the final hidden states (b, s, d) in place of the
@@ -46,29 +58,43 @@ def forward(params: LM, batch: dict, cfg: ModelConfig, train: bool = False,
     _check_cfg(params, cfg)
     if train:
         raise NotImplementedError("the training forward is not ported yet")
-    return T.forward_lm(params, batch["tokens"], return_hidden=return_hidden)
+    if cfg.n_enc_layers > 0:
+        return ED.forward_encdec(params, batch["src_embeds"],
+                                 batch["tokens"], return_hidden=return_hidden)
+    return T.forward_lm(params, batch["tokens"],
+                        mrope_positions=batch.get("mrope_positions"),
+                        return_hidden=return_hidden)
 
 
-def make_cache(params: LM, cfg: ModelConfig, batch_size: int, max_len: int,
-               src_embeds: Optional[torch.Tensor] = None,
+def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
+               max_len: int, src_embeds: Optional[torch.Tensor] = None,
                dtype: torch.dtype = torch.bfloat16,
-               device: Optional[torch.device] = None) -> T.KVCache:
+               device: Optional[torch.device] = None) -> dict:
     """Decode state for :func:`decode_step` on ``device`` (the GPU by
     default): KV caches of ``max_len`` positions, SSM conv histories (in
-    ``dtype``) and f32 states, and ``pos``.  Enc-dec (``src_embeds``) is not
-    ported."""
+    ``dtype``) and f32 states, and ``pos``.  Enc-dec runs the encoder on
+    ``src_embeds`` (needed) and keeps every layer's cross K/V; its batch
+    is ``src_embeds``'s and ``batch_size`` is ignored, as in the
+    reference."""
     _check_cfg(params, cfg)
-    if src_embeds is not None or cfg.n_enc_layers:
-        raise NotImplementedError("enc-dec decode is not ported yet")
+    if cfg.n_enc_layers > 0:
+        if src_embeds is None:
+            raise ValueError("enc-dec decode needs encoder inputs "
+                             "(src_embeds)")
+        return ED.init_encdec_cache(params, src_embeds, max_len, dtype,
+                                    device)
     return T.init_kv_cache(cfg, batch_size, max_len, dtype, device)
 
 
-def decode_step(params: LM, cache: T.KVCache, batch: dict,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, T.KVCache]:
+def decode_step(params: Params, cache: dict, batch: dict,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     """One-token decode at ``cache["pos"]`` -> (logits (b, V), cache),
     the cache advanced in place."""
     _check_cfg(params, cfg)
-    return T.decode_step_lm(params, cache, batch["tokens"])
+    if cfg.n_enc_layers > 0:
+        return ED.decode_step_encdec(params, cache, batch["tokens"])
+    return T.decode_step_lm(params, cache, batch["tokens"],
+                            mrope_positions=batch.get("mrope_positions"))
 
 
 def supports_slots(cfg: ModelConfig) -> bool:

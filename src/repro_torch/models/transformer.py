@@ -1,4 +1,4 @@
-"""Decoder-only LM stack (dense / MoE / SSM / hybrid) — the port's
+"""Decoder-only LM stack (dense / MoE / SSM / hybrid / VLM) — the port's
 counterpart of the reference package's ``models/transformer.py``.
 
 One module per layer in an ``nn.ModuleList`` (the reference stacks layers
@@ -20,7 +20,10 @@ of ``attn_every`` Mamba2 layers reuses.  Entry points:
   * :func:`prefill_paged_lm` — one chunk of chunked prefill;
   * :func:`decode_paged_lm` — one batched decode step;
   * :func:`decode_paged_multi_lm` — ``n_steps`` fused greedy steps whose
-    token feedback stays on the device (a Python loop, no host sync).
+    token feedback stays on the device (a Python loop, no host sync);
+  * :func:`merge_patch_embeds` and :func:`default_mrope_positions` — the
+    VLM's precomputed patch embeddings in the token stream, and text-only
+    M-RoPE positions.
 
 Every dense and MoE entry point takes each layer's sliding window and
 rotary tables from :func:`layer_pattern` (gemma3: ``local_global_ratio``
@@ -30,10 +33,13 @@ reference scans them through its layer stack.  An MoE layer routes the
 tokens of one call in groups with a capacity per expert
 (``moe.moe_apply``), so padded rows, free slots and chunk boundaries take
 part in its routing as they do in the reference.  Caches and the arena are
-written in place.  M-RoPE, enc-dec and the append-buffer decode are not
-ported (:func:`check_supported` raises); the SSM and hybrid families run
+written in place.  The VLM (qwen2-vl) is the dense body with M-RoPE: the
+generic entry points take its (3, b, s) position streams; without them its
+tables are the plain ones.  The append-buffer decode is not ported
+(:func:`check_supported` raises); the SSM, hybrid and VLM families run
 through the generic entry points only — the slot cache, the arena and the
-engines refuse them, as the reference's do.
+engines refuse them, as the reference's do (enc-dec is
+``models/encdec.py``'s).
 """
 from __future__ import annotations
 
@@ -55,24 +61,27 @@ KVCache = Dict[str, object]
 
 # the families of the attention decoder (the slot cache, the arena and
 # the engines), and of the generic entry points (forward_lm,
-# init_kv_cache, decode_step_lm)
+# init_kv_cache, decode_step_lm); the VLM runs the decoder's dense body
 DECODER_FAMILIES = ("dense", "moe")
-GENERIC_FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid")
+GENERIC_FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid", "vlm")
+_DENSE_BODY = DECODER_FAMILIES + ("vlm",)
 
 
 def check_supported(cfg: ModelConfig, families=DECODER_FAMILIES) -> None:
-    """Raise ``NotImplementedError`` for what a later slice ports: a family
-    outside ``families``, enc-dec, M-RoPE, the append-buffer decode."""
+    """Raise ``NotImplementedError`` for what ``families`` do not take: a
+    family outside them, enc-dec (``models/encdec.py``), M-RoPE unless they
+    include the VLM (the generic entry points), and the append-buffer
+    decode, which a later slice ports."""
     reasons = []
     if cfg.family not in families or cfg.n_enc_layers:
         reasons.append(f"family {cfg.family!r}")
-    if cfg.mrope_sections:
+    if cfg.mrope_sections and "vlm" not in families:
         reasons.append("M-RoPE")
     if cfg.decode_window:
-        reasons.append("append-buffer decode")
+        reasons.append("append-buffer decode (not ported yet)")
     if reasons:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(reasons)} not ported yet")
+            f"{cfg.name}: {', '.join(reasons)} not supported here")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
                          f"into groups of attn_every={cfg.attn_every}")
@@ -95,24 +104,33 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[np.ndarray, np.ndarray]:
     return windows, is_global
 
 
-def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor,
+                 mrope_positions: Optional[torch.Tensor] = None):
     """((cos_l, sin_l), (cos_g, sin_g)) for ``positions`` at the config's
     rotary width: the local layers' tables at ``rope_theta`` and the global
     layers' at ``global_rope_theta`` (the same tables for a config without
-    a local/global pattern)."""
+    a local/global pattern).  With M-RoPE sections and ``mrope_positions``
+    (3, b, s) given, both are M-RoPE's (b, s, half) tables, one per batch
+    row; without positions M-RoPE's tables are the plain ones."""
     d_rot = int(cfg.d_head * cfg.partial_rotary)
+    if cfg.mrope_sections and mrope_positions is not None:
+        tables = L.mrope_table(mrope_positions, d_rot, cfg.rope_theta,
+                               cfg.mrope_sections)
+        return tables, tables
     local = L.rope_table(positions, d_rot, cfg.rope_theta)
     if cfg.local_global_ratio > 0:
         return local, L.rope_table(positions, d_rot, cfg.global_rope_theta)
     return local, local
 
 
-def _layer_specs(cfg: ModelConfig, positions: torch.Tensor
+def _layer_specs(cfg: ModelConfig, positions: torch.Tensor,
+                 mrope_positions: Optional[torch.Tensor] = None
                  ) -> List[Tuple[int, Tuple[torch.Tensor, torch.Tensor]]]:
     """(window, (cos, sin)) of every layer: :func:`layer_pattern` with the
-    rotary tables of the layer's kind at ``positions``."""
+    rotary tables of the layer's kind at ``positions`` (M-RoPE's at
+    ``mrope_positions`` when given)."""
     windows, is_global = layer_pattern(cfg)
-    local, glob = _rope_tables(cfg, positions)
+    local, glob = _rope_tables(cfg, positions, mrope_positions)
     return [(int(w), glob if g else local)
             for w, g in zip(windows, is_global)]
 
@@ -223,28 +241,35 @@ def _mlp_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig
 # full-sequence forward and the generic decode
 # =============================================================================
 @torch.no_grad()
-def forward_lm(model: LM, tokens: torch.Tensor, *,
+def forward_lm(model: LM, tokens: Optional[torch.Tensor], *,
+               mrope_positions: Optional[torch.Tensor] = None,
+               inputs_embeds: Optional[torch.Tensor] = None,
                return_hidden: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (b, s) int -> (logits (b, s, V_padded), aux ()); with
     ``return_hidden`` the final-normed hidden states (b, s, d) in place of
-    the logits.  Dense and MoE: each layer's causal attention with its
-    window and rotary tables (:func:`layer_pattern`), then its MLP or MoE;
-    ``aux`` is the sum of the MoE layers' load-balance losses (f32 0 for
-    the other families).  SSM and hybrid: ``s`` must be a multiple of
-    ``ssm_chunk``; the hybrid runs each group of ``attn_every`` Mamba2
-    layers, then the shared attention (causal) and MLP.  No decode state
-    is returned, as in the reference: a generation replays the prompt
-    through :func:`decode_step_lm`."""
+    the logits; ``inputs_embeds`` (b, s, d) (cast to the model's type)
+    replace the embedded tokens (the VLM's merged patch embeddings,
+    :func:`merge_patch_embeds`).  Dense, MoE and VLM: each layer's causal
+    attention with its window and rotary tables (:func:`layer_pattern`; a
+    VLM's M-RoPE tables at ``mrope_positions`` (3, b, s) when given), then
+    its MLP or MoE; ``aux`` is the sum of the MoE layers' load-balance
+    losses (f32 0 for the other families).  SSM and hybrid: ``s`` must be
+    a multiple of ``ssm_chunk``; the hybrid runs each group of
+    ``attn_every`` Mamba2 layers, then the shared attention (causal) and
+    MLP.  No decode state is returned, as in the reference: a generation
+    replays the prompt through :func:`decode_step_lm`."""
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
-    x = L.embedding_apply(model.embed, tokens)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    if cfg.family in DECODER_FAMILIES:
-        for layer, (w, (cos, sin)) in zip(model.layers,
-                                          _layer_specs(cfg, positions)):
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(cfg.dtype)
+    else:
+        x = L.embedding_apply(model.embed, tokens)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in _DENSE_BODY:
+        for layer, (w, (cos, sin)) in zip(
+                model.layers, _layer_specs(cfg, positions, mrope_positions)):
             x = x + L.attention_apply(layer.attn, layer.ln1(x), cos, sin,
                                       window=w)
             x, a = _mlp_residual(layer, x, cfg)
@@ -269,7 +294,7 @@ def forward_lm(model: LM, tokens: torch.Tensor, *,
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Optional[torch.device] = None) -> KVCache:
-    """Decode state, in the reference's layout: dense and MoE ``"k"``,
+    """Decode state, in the reference's layout: dense, MoE and VLM ``"k"``,
     ``"v"`` (L, b, max_len, K, dh); SSM ``{"ssm": {conv_x, conv_B,
     conv_C, state}}``, one layer's ``models/ssm.py`` ``init_ssm_cache``
     stacked on L; the
@@ -279,12 +304,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     check_supported(cfg, GENERIC_FAMILIES)
     dev = resolve_device(device)
     cache: KVCache = {}
-    if cfg.family not in DECODER_FAMILIES:
+    if cfg.family not in _DENSE_BODY:
         layer = S.init_ssm_cache(cfg, batch, dtype, dev)
         cache["ssm"] = {key: buf.new_zeros((cfg.n_layers, *buf.shape))
                         for key, buf in layer.items()}
     if cfg.family != "ssm":
-        n_kv = (cfg.n_layers if cfg.family in DECODER_FAMILIES
+        n_kv = (cfg.n_layers if cfg.family in _DENSE_BODY
                 else cfg.n_layers // cfg.attn_every)
         shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.d_head)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
@@ -294,19 +319,23 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 @torch.no_grad()
-def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor
+def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor, *,
+                   mrope_positions: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step at ``cache["pos"]`` for every row.  tokens: (b, 1)
-    int.  The cache's buffers are advanced IN PLACE (the reference returns
-    new ones) and ``cache["pos"]`` becomes a new tensor ``pos + 1``.
-    Returns (logits (b, V_padded), cache)."""
+    int.  A VLM's rotary comes from ``mrope_positions`` (3, b, 1) when
+    given; its K/V are still written at ``cache["pos"]`` (after an image
+    the two differ).  The cache's buffers are advanced IN PLACE (the
+    reference returns new ones) and ``cache["pos"]`` becomes a new tensor
+    ``pos + 1``.  Returns (logits (b, V_padded), cache)."""
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
     pos = cache["pos"]
     x = L.embedding_apply(model.embed, tokens)
-    if cfg.family in DECODER_FAMILIES:
+    if cfg.family in _DENSE_BODY:
         for li, (layer, (w, (cos, sin))) in enumerate(zip(
-                model.layers, _layer_specs(cfg, pos[None]))):
+                model.layers, _layer_specs(cfg, pos[None],
+                                           mrope_positions))):
             x = x + L.attention_decode_apply(
                 layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
                 cache["v"][li], pos, window=w)
@@ -501,3 +530,29 @@ def decode_paged_multi_lm(model: LM, arena: Arena, tokens: torch.Tensor,
         ln = ln + act_i
         toks.append(tok)
     return torch.stack(toks), nxt, ln
+
+
+# =============================================================================
+# VLM helpers — precomputed patch embeddings, text-only M-RoPE positions
+# =============================================================================
+def merge_patch_embeds(token_embeds: torch.Tensor, patch_embeds: torch.Tensor,
+                       image_mask: torch.Tensor) -> torch.Tensor:
+    """Scatter patch embeddings over the positions where ``image_mask`` is
+    set, in order.  token_embeds: (b, s, d); patch_embeds: (b, n_patch, d);
+    image_mask: (b, s) bool with exactly n_patch True a row (the vision
+    tower's output arrives precomputed, as in the reference)."""
+    d = token_embeds.shape[-1]
+    idx = (image_mask.to(torch.int32).cumsum(1) - 1).clamp(
+        0, patch_embeds.shape[1] - 1)
+    gathered = patch_embeds.gather(
+        1, idx.long()[..., None].expand(-1, -1, d))
+    return torch.where(image_mask[..., None], gathered, token_embeds)
+
+
+def default_mrope_positions(batch: int, seq: int,
+                            device: Optional[torch.device] = None
+                            ) -> torch.Tensor:
+    """Text-only M-RoPE positions (3, batch, seq) int32 on ``device`` (the
+    GPU by default): all three streams ``0 .. seq - 1``."""
+    pos = torch.arange(seq, dtype=torch.int32, device=resolve_device(device))
+    return pos.expand(3, batch, seq)

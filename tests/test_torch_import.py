@@ -39,7 +39,9 @@ def test_importing_every_port_module_leaves_jax_out():
                 "repro_torch.configs.qwen2_0_5b",
                 "repro_torch.serving.disagg", "repro_torch.serving.queue",
                 "repro_torch.obs.export", "repro_torch.obs.slo",
-                "repro_torch.obs.validate"):
+                "repro_torch.obs.validate", "repro_torch.models.encdec",
+                "repro_torch.configs.seamless_m4t_large_v2",
+                "repro_torch.configs.qwen2_vl_7b"):
         assert mod in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

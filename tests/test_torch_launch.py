@@ -16,7 +16,8 @@ from repro.core import catalog as CATJ
 from repro.core import config_graph as CGJ
 from repro.core import objective as OBJJ
 from repro_torch.configs import get_config, get_smoke_config, \
-    mamba2_2_7b, qwen2_moe_a2_7b, qwen3_1_7b, qwen3_moe_30b_a3b
+    mamba2_2_7b, qwen2_moe_a2_7b, qwen2_vl_7b, qwen3_1_7b, \
+    qwen3_moe_30b_a3b, seamless_m4t_large_v2
 from repro_torch.core import annealing as SAT
 from repro_torch.core import carbon as CBT
 from repro_torch.core import catalog as CATT
@@ -124,8 +125,9 @@ def test_config_registry():
     assert get_config("qwen3-moe-30b-a3b") == qwen3_moe_30b_a3b.FULL
     assert get_smoke_config("qwen2-moe-a2.7b") == qwen2_moe_a2_7b.SMOKE
     assert get_smoke_config("mamba2-2.7b") == mamba2_2_7b.SMOKE
-    with pytest.raises(NotImplementedError):
-        get_smoke_config("qwen2-vl-7b")
+    assert get_smoke_config("qwen2-vl-7b") == qwen2_vl_7b.SMOKE
+    assert get_config("seamless-m4t-large-v2") == \
+        seamless_m4t_large_v2.FULL
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

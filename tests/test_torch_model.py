@@ -15,6 +15,7 @@ from repro.models import registry as RJ
 from repro.train.checkpoint import _flatten
 from repro_torch.configs import qwen3_1_7b
 from repro_torch.models import bridge
+from repro_torch.models import encdec as EDT
 from repro_torch.models import registry as RT
 
 CFG = get_smoke_config("qwen3-1.7b").with_(n_layers=2, dtype=jnp.float32)
@@ -167,23 +168,29 @@ def test_decode_paged_multi_matches_single_steps(params):
 
 
 def test_unported_configs_raise():
-    """Options no slice has ported raise at init: M-RoPE, the append-buffer
-    decode, enc-dec; the arena also refuses the SSM family, which the
-    reference's ``supports_paged`` excludes.  (Sliding windows and the
-    local/global pattern are ported: ``tests/test_torch_dense_archs.py``.)
-    MoE is ported: the same widths with experts build MoE layers and an
-    arena (``tests/test_torch_moe_archs.py``)."""
+    """The append-buffer decode, which no slice has ported, raises at init.
+    Enc-dec builds an ``EncDec`` and M-RoPE an ``LM``, as the reference's
+    ``init_params`` does (the generic entry points run them:
+    ``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py``).  The
+    arena refuses all three, and the SSM family, which the reference's
+    ``supports_paged`` excludes.  (Sliding windows and the local/global
+    pattern are ported: ``tests/test_torch_dense_archs.py``.)  MoE is
+    ported: the same widths with experts build MoE layers and an arena
+    (``tests/test_torch_moe_archs.py``)."""
     moe = CFG_T.with_(family="moe", n_experts=4, top_k=2, d_expert_ff=32)
     model = RT.init_params(moe, device="cpu")
     assert all(layer.mlp is None and layer.moe.w_gate.shape == (4, 64, 32)
                for layer in model.layers)
     arena = RT.make_block_arena(moe, 4, 8, dtype=torch.float32, device="cpu")
     assert arena["k"].shape == (moe.n_layers, 4, 8, 2, 16)
-    for kw, init_kw in (
-            ({"mrope_sections": (2, 3, 3)}, None),
-            ({"decode_window": 8}, None),
-            ({"family": "ssm"}, {"n_enc_layers": 2})):
-        with pytest.raises(NotImplementedError):
-            RT.init_params(CFG_T.with_(**(init_kw or kw)), device="cpu")
+    encdec = RT.init_params(CFG_T.with_(n_enc_layers=2), device="cpu")
+    assert isinstance(encdec, EDT.EncDec) and len(encdec.enc_layers) == 2
+    mrope = RT.init_params(CFG_T.with_(mrope_sections=(2, 3, 3)),
+                           device="cpu")
+    assert isinstance(mrope, RT.LM)
+    with pytest.raises(NotImplementedError):
+        RT.init_params(CFG_T.with_(decode_window=8), device="cpu")
+    for kw in ({"mrope_sections": (2, 3, 3)}, {"decode_window": 8},
+               {"family": "ssm"}, {"n_enc_layers": 2}):
         with pytest.raises(NotImplementedError):
             RT.make_block_arena(CFG_T.with_(**kw), 4, 8, device="cpu")

@@ -247,9 +247,10 @@ def test_decode_slots_drops_the_write_of_a_full_slot(params):
 
 
 def test_slotted_cache_refuses_unported_families():
-    """The slot cache refuses SSM and enc-dec, as the reference's
-    ``supports_slots`` does, and serves MoE (ported)."""
-    for kw in ({"family": "ssm"}, {"n_enc_layers": 2}):
+    """The slot cache refuses SSM, enc-dec, the VLM family and M-RoPE, as
+    the reference's ``supports_slots`` does, and serves MoE (ported)."""
+    for kw in ({"family": "ssm"}, {"n_enc_layers": 2}, {"family": "vlm"},
+               {"mrope_sections": (2, 3, 3)}):
         cfg = CFG_T.with_(**kw)
         assert not RT.supports_slots(cfg)
         with pytest.raises((AssertionError, NotImplementedError)):

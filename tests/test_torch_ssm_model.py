@@ -249,20 +249,29 @@ def test_generic_entry_points_refuse_unported_dense_options():
     """The generic forward and decode serve the dense and MoE families
     (``tests/test_torch_dense_archs.py``, ``tests/test_torch_moe_archs.py``)
     but refuse what stays unported of their configurations: the
-    append-buffer decode and M-RoPE (qwen2-vl) on dense weights, and
-    enc-dec, which no model is built for; an MoE config builds and runs
-    through both."""
-    for kw in ({"decode_window": 8}, {"mrope_sections": (2, 3, 3)}):
-        model = RT.init_params(get_smoke_config("qwen3-1.7b"), device="cpu")
-        model.cfg = model.cfg.with_(**kw)
-        with pytest.raises(NotImplementedError):
-            RT.forward(model, {"tokens": torch.zeros(1, 8, dtype=torch.long)},
-                       model.cfg)
-        with pytest.raises(NotImplementedError):
-            RT.make_cache(model, model.cfg, 1, 8, device="cpu")
+    append-buffer decode on dense weights.  M-RoPE (qwen2-vl) on dense
+    weights runs, and without positions equals plain RoPE
+    (``tests/test_torch_vlm.py`` holds it to the reference with them);
+    enc-dec builds its own model (``tests/test_torch_encdec.py``); an MoE
+    config builds and runs through both."""
+    model = RT.init_params(get_smoke_config("qwen3-1.7b"), device="cpu")
+    toks = torch.tensor(_tokens(model.cfg, b=1, s=8))
+    plain, _ = RT.forward(model, {"tokens": toks}, model.cfg)
+    model.cfg = model.cfg.with_(mrope_sections=(2, 3, 3))
+    lg, _ = RT.forward(model, {"tokens": toks}, model.cfg)
+    assert torch.equal(lg, plain)
+    cache = RT.make_cache(model, model.cfg, 1, 8, dtype=torch.float32,
+                          device="cpu")
+    lg, _ = RT.decode_step(model, cache, {"tokens": toks[:, :1]}, model.cfg)
+    torch.testing.assert_close(lg, plain[:, 0], rtol=TOL, atol=TOL)
+    model.cfg = model.cfg.with_(mrope_sections=(), decode_window=8)
     with pytest.raises(NotImplementedError):
-        RT.init_params(get_smoke_config("qwen3-1.7b").with_(n_enc_layers=2),
-                       device="cpu")
+        RT.forward(model, {"tokens": toks}, model.cfg)
+    with pytest.raises(NotImplementedError):
+        RT.make_cache(model, model.cfg, 1, 8, device="cpu")
+    encdec = RT.init_params(
+        get_smoke_config("qwen3-1.7b").with_(n_enc_layers=2), device="cpu")
+    assert len(encdec.enc_layers) == 2
     cfg = get_smoke_config("qwen3-1.7b").with_(
         family="moe", n_experts=4, top_k=2, d_expert_ff=32)
     model = RT.init_params(cfg, device="cpu")
