@@ -137,13 +137,27 @@ Phases, each printing its result lines:
    launches a step, its replay held to the forward, and the f32 replay
    (batch 1, 128 tokens); (d) both SMOKE configs on the card against the
    CPU: forward logits and greedy tokens;
-17. the ``kernels`` line: every ported kernel with its launches on the main
+17. training: (a) the flash kernel's forward with its log-sum-exp and its
+   backward (``csrc/flash_backward.cu``) against autograd through the
+   plain version, dQ / dK / dV in f32 and bf16, at the training paths'
+   attention widths (``BWD_CASES``: qwen3-1.7b 4 x 1024, gemma3 with and
+   without its window, glm4's g = 16, qwen2's g = 7, seamless full and
+   cross, zamba2 1 x 4096, a ragged 1000), each timed beside the plain
+   backward, one SDPA backward and its bound; (b) four SMOKE configs
+   (dense, MoE, VL with M-RoPE positions, enc-dec) trained on the card
+   against the CPU from the same weights; (c) qwen3-1.7b at full width in
+   f32, 4 steps of 4 x 1024 tokens (28 backward and 56 forward flash
+   launches a step, ms a step, tokens/s, peak memory, a profiled step),
+   then a checkpoint resume at its widths cut to 2 layers; (d) the SSM
+   and hybrid families' training forward on CUDA refused;
+18. the ``kernels`` line: every ported kernel with its launches on the main
    paths that run it (phases 3, 9, 11a, 12, 14 and 15 for the paged kernels,
-   phases 4, 11b, 13, 14d, 16b-d for the contiguous decode and the f32
-   contiguous prefill, whose record is the slotted serve's 1024-token
-   shape, phase 7 for the scan, phase 8's, phase 12's, phase 14b's and
-   phase 16's forwards for the bf16 contiguous prefill, whose record is
-   phase 8's forward shape).
+   phases 4, 11b, 13, 14d, 16b-d for the contiguous decode and, with
+   17b-c, the f32 contiguous prefill, whose record is the slotted serve's
+   1024-token shape, phase 7 for the scan, phase 8's, phase 12's, phase
+   14b's and phase 16's forwards for the bf16 contiguous prefill, whose
+   record is phase 8's forward shape, phases 17b-c for the backward, whose
+   record is the full-width training step's shape).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is ``{"ok": true, "device": {...}}``.
@@ -1325,6 +1339,7 @@ def _counters() -> dict:
     from repro_torch.kernels import ssd_scan as SSD
     return {"ssd_chunked": SSD.ssd_chunked,
             "flash_attention": FA.flash_attention,
+            "flash_attention_bwd": FA.flash_attention_bwd,
             "decode_attention": DA.decode_attention}
 
 
@@ -3378,6 +3393,459 @@ def phase_encdec_vl_parity() -> dict:
 
 
 # =============================================================================
+# phase 17: training — the flash backward kernel, train steps card against
+# CPU, qwen3-1.7b at full width, the SSM refusal
+# =============================================================================
+# (attention shape, sq, skv, causal, window) of the backward's cases: the
+# training paths' attention at each family's widths
+TRAIN_ATTN = {"qwen3": dict(K=8, g=2, dh=128),
+              "gemma3": DENSE_ATTN["gemma3"], "glm4": DENSE_ATTN["glm4"],
+              "qwen2": DENSE_ATTN["qwen2"], "seamless": ENCDEC_ATTN,
+              "zamba2": ZAMBA2_ATTN}
+BWD_CASES = (("qwen3", 4, 1024, 0, True, 0),
+             ("gemma3", 1, 1400, 0, True, 1024),
+             ("gemma3", 1, 1400, 0, True, 0),
+             ("glm4", 1, 1400, 0, True, 0),
+             ("qwen2", 1, 1400, 0, True, 0),
+             ("seamless", 4, 1000, 0, False, 0),
+             ("seamless", 4, 256, 1000, False, 0),
+             ("zamba2", 1, 4096, 0, True, 0),
+             ("qwen3", 2, 1000, 0, True, 0))
+# the backward against autograd through the plain version: the largest
+# |difference| over the plain gradient's largest magnitude, per gradient.
+# f32: orders of summation only.  bf16: both widen the bf16 inputs and sum
+# in f32, but the kernel's delta reads the bf16-rounded output and every
+# gradient is rounded to bf16 (relative 2**-8).  The limit is set by the
+# plain version's own spread between bf16 inputs and the f32 inputs they
+# were rounded from, which phase 17a prints beside each case: 3.9e-3 to
+# 7.0e-3 at these shapes on the card, the kernel 0.4e-3 to 6.6e-3 from
+# the plain version; the limit is about three times the largest spread
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the contiguous flash attention computes."""
+    import torch
+    q = torch.arange(sq)[:, None]
+    k = torch.arange(skv)[None, :]
+    seen = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        seen &= q >= k
+    if window > 0:
+        seen &= (q - k) < window
+    return int(seen.sum())
+
+
+def phase_train_kernels() -> dict:
+    """Phase 17a: the flash kernel's forward with its log-sum-exp and its
+    backward (``flash_attention_bwd``, ``csrc/flash_backward.cu``) against
+    autograd through the plain version, dQ, dK and dV, f32 and bf16, at
+    ``BWD_CASES``: each gradient within ``BWD_TOL`` of the plain one's
+    largest magnitude, the lse within 1e-4 of ``flash_attention_lse_ref``.
+    Prints, for each case, the backward's time, the plain backward's, one
+    SDPA backward (a yardstick, never called by the port) and the bound,
+    and the same three for forward + backward.  The bound: ``10 dh`` flops
+    per visible (query head, key) pair over the peak for the input type
+    (f32: the CUDA cores' 67 TFLOP/s, where this kernel computes), or the
+    bytes (q, k, v, o, dO, lse read, dq, dk, dv written) over 3.35 TB/s.
+    Returns the record of the qwen3 4 x 1024 f32 case, the full-width
+    training step's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as REF
+    records = {}
+    for i, (model, b, sq, skv, causal, window) in enumerate(BWD_CASES):
+        shape = TRAIN_ATTN[model]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            # f32 draws, rounded for bf16: the spread below reads the plain
+            # version on the unrounded inputs
+            x32 = _flash_case(sq, torch.float32, seed=100 + i, b=b, skv=skv,
+                              **shape)
+            torch.manual_seed(200 + i)
+            x32 += (torch.randn_like(x32[0]),)
+            q, k, v, do = (t.to(dtype) for t in x32)
+            H, dh, skv = q.shape[2], q.shape[3], k.shape[1]
+            label = (f"{model} b={b} sq={sq} skv={skv} H={H} K={k.shape[2]} "
+                     f"dh={dh} {'causal' if causal else 'full'} "
+                     f"window={window} {dname}")
+            args = dict(causal=causal, window=window)
+            out, lse = FA.flash_attention(q, k, v, return_lse=True, **args)
+            grads = FA.flash_attention_bwd(q, k, v, out, lse, do, **args)
+            torch.cuda.synchronize()
+            lse_ref = REF.flash_attention_lse_ref(q, k, **args)
+            lse_err = (lse - lse_ref).abs().max().item()
+            _check(lse_err <= 1e-4 * max(1.0, lse_ref.abs().max().item()),
+                   f"flash lse {label}: max |err| {lse_err:.3g}")
+
+            def plain_grads(q, k, v, do):
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = REF.flash_attention_ref(*leaves, **args)
+                return o, leaves, torch.autograd.grad(o, leaves, do,
+                                                      retain_graph=True)
+            o_ref, leaves, ref = plain_grads(q, k, v, do)
+            errs, abs_err = [], 0.0
+            for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+                scale = want.float().abs().max().item()
+                diff = (got.float() - want.float()).abs().max().item()
+                abs_err = max(abs_err, diff)
+                err = diff / scale
+                _check(bool(torch.isfinite(got).all()),
+                       f"flash_attention_bwd {label}: non-finite {name}")
+                _check(err <= BWD_TOL[dname],
+                       f"flash_attention_bwd {label}: {name} off by {err:.3g}"
+                       f" of its largest magnitude (limit {BWD_TOL[dname]})")
+                errs.append(err)
+            spread = ""
+            if dtype == torch.bfloat16:
+                ref32 = plain_grads(*x32)[2]
+                spread = max((a.float() - w).abs().max().item()
+                             / w.abs().max().item() for a, w in zip(ref, ref32))
+                spread = f", plain bf16-vs-f32 spread {spread:.3g}"
+                del ref32
+            print(f"kernel flash_attention_bwd {label}: max err / max |plain| "
+                  f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} (limit "
+                  f"{BWD_TOL[dname]}{spread}); max_abs_err {abs_err:.3g}; lse "
+                  f"max |err| {lse_err:.3g}")
+            # timings: the backward alone (graphs kept), and forward +
+            # backward, for the kernel, the plain version and SDPA
+            qq, kq, vq = (t.detach().transpose(1, 2).contiguous()
+                          .requires_grad_() for t in (q, k, v))
+            if window > 0:
+                pos = torch.arange(sq, device=q.device)
+                diff = pos[:, None] - pos[None, :]
+                mask = (diff >= 0) & (diff < window)
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qq, kq, vq, attn_mask=mask, enable_gqa=True)
+            else:
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qq, kq, vq, is_causal=causal, enable_gqa=True)
+            o_lib = sdpa()
+            do_lib = do.transpose(1, 2).contiguous()
+            bwd_ms = _time_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, out, lse, do, **args), reps=10, warmup=2)
+            plain_ms = _time_ms(lambda: torch.autograd.grad(
+                o_ref, leaves, do, retain_graph=True), reps=3, warmup=1)
+            lib_ms = _time_ms(lambda: torch.autograd.grad(
+                o_lib, (qq, kq, vq), do_lib, retain_graph=True), reps=10,
+                warmup=2)
+
+            def fb_kernel():
+                o, l = FA.flash_attention(q, k, v, return_lse=True, **args)
+                return FA.flash_attention_bwd(q, k, v, o, l, do, **args)
+            fb_ms = _time_ms(fb_kernel, reps=10, warmup=2)
+            # the forward alone, as inference launches it and with the lse
+            fwd_ms = _time_ms(lambda: FA.flash_attention(q, k, v, **args),
+                              reps=10, warmup=2)
+            fwd_lse_ms = _time_ms(lambda: FA.flash_attention(
+                q, k, v, return_lse=True, **args), reps=10, warmup=2)
+            fb_plain = _time_ms(lambda: plain_grads(q, k, v, do), reps=3,
+                                warmup=1)
+            fb_lib = _time_ms(lambda: torch.autograd.grad(
+                sdpa(), (qq, kq, vq), do_lib), reps=10, warmup=2)
+            del o_ref, leaves, ref, o_lib
+            pairs = _visible_pairs(sq, skv, causal, window) * H * b
+            elt = q.element_size()
+            n_bytes = (5 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
+            bound_ms, bound_by = _bound_ms(n_bytes, 10 * dh * pairs, dname,
+                                           "flash_attention_bwd")
+            cc_ms, _ = _bound_ms(n_bytes, 10 * dh * pairs, dname,
+                                 "flash_attention_bwd", "float32")
+            print(f"kernel flash_attention_bwd {label}: "
+                  f"backward ms {bwd_ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
+                  f"{lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; at the "
+                  f"CUDA cores' f32 peak {cc_ms:.5f}); forward + backward ms "
+                  f"{fb_ms:.4f} plain {fb_plain:.4f} sdpa {fb_lib:.4f}; "
+                  f"forward ms {fwd_ms:.4f}, with the lse {fwd_lse_ms:.4f}")
+            if i == 0 and dtype == torch.float32:
+                records["flash_attention_bwd"] = {
+                    "max_abs_err": abs_err, "ms": bwd_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms}
+            del q, k, v, do, x32, out, lse, grads, qq, kq, vq
+            torch.cuda.empty_cache()
+    return records
+
+
+# the SMOKE training on the card against the CPU (f32).  The first
+# step's gradients: within GRAD_TOL of each leaf's largest magnitude (the
+# sums run in another order).  After three steps and an accum-2 step:
+# losses within 1e-5 relative, and the parameters within the CPU train
+# tests' rtol 2e-4 / atol 2e-5 (tests/test_torch_train_steps.py) but for
+# at most TRAIN_OFF of them, each within the 2 lr a step that two AdamW
+# runs can part by: AdamW moves an element by about lr whatever its
+# gradient's size, so an element whose gradient is near rounding noise
+# takes a step of another size or sign, and momentum carries it (on the
+# CPU alone, with only the attention in f64, 1-2 elements of each config
+# leave the bound, up to 3.9e-5 apart; on the card, 1 of qwen3's 90496 up
+# to 1.7e-4 and 31 of qwen2-moe's 165312 up to 1.6e-3)
+GRAD_TOL = 1e-4
+TRAIN_TOL = (2e-4, 2e-5)
+TRAIN_OFF = 1e-3
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100)
+TRAIN_SMOKE = ("qwen3-1.7b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
+               "seamless-m4t-large-v2")
+# phase 17c: qwen3-1.7b at full width in f32, 4 x 1024 tokens a step
+TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, TRAIN_FULL_STEPS = 4, 1024, 4
+
+
+def _train_batch(cfg, b: int, s: int, step: int, device) -> dict:
+    """The synthetic stream's batch ``step`` (b x s tokens and labels) on
+    ``device``, with a VLM's M-RoPE grid positions (4 text tokens, a 4 x 4
+    image, text) and an enc-dec's 13 seeded source frames."""
+    import numpy as np
+    import torch
+    from repro_torch.train import data as DATA
+    batch = DATA.SyntheticLM(DATA.DataConfig(cfg.vocab_size, s, b)).batch_at(
+        step)
+    if cfg.mrope_sections:
+        batch["mrope_positions"] = _grid_positions(b, 4, 4, 4, s - 20)[0]
+    if cfg.n_enc_layers:
+        batch["src_embeds"] = np.random.default_rng(step).standard_normal(
+            (b, 13, cfg.d_model)).astype(np.float32)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _train_run(cfg, model, device, steps: int = 3):
+    """``steps`` make_train_step steps and one gradient-accumulation step
+    (accum 2) on the synthetic stream: the losses, the final weights in
+    the reference's layout."""
+    from repro_torch.models import bridge
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_loop as TL
+    opt = O.AdamWConfig(**TRAIN_OPT)
+    state = TL.make_train_state(model, opt)
+    step = TL.make_train_step(cfg, opt)
+    losses = []
+    for i in range(steps):
+        state, m = step(state, _train_batch(cfg, 4, 32, i, device))
+        losses.append(m["loss"].item())
+    state, m = TL.make_grad_accum_train_step(cfg, opt, 2)(
+        state, _train_batch(cfg, 4, 32, steps, device))
+    losses.append(m["loss"].item())
+    return losses, bridge.export_reference(model)
+
+
+def _first_grads(cfg, model, device) -> dict:
+    """The loss's gradients at the model's weights on the synthetic
+    stream's first batch, in the reference's layout."""
+    from repro_torch.models import bridge
+    from repro_torch.train import train_loop as TL
+    model.requires_grad_(True)
+    loss, _ = TL.lm_loss(model, _train_batch(cfg, 4, 32, 0, device), cfg)
+    return bridge.to_reference(model, TL._grads(model, loss))
+
+
+def phase_train_parity() -> dict:
+    """Phase 17b: the SMOKE configs of ``TRAIN_SMOKE`` (dense, MoE, VL with
+    M-RoPE positions, enc-dec) in f32, from the same seeded weights on the
+    card and on the CPU: the first step's gradients within ``GRAD_TOL``,
+    then three train steps and one accum-2 step, every loss within 1e-5
+    relative and the parameters within ``TRAIN_TOL`` but for at most
+    ``TRAIN_OFF`` of them, each within 2 ``lr`` a step.  Returns the
+    card's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry as R
+    counts = {"flash_attention_f32": 0, "flash_attention_bwd": 0}
+    for arch in TRAIN_SMOKE:
+        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+        cpu = R.init_params(cfg, seed=5, device="cpu")
+        gpu = R.init_params(cfg, seed=5)
+        gpu.load_state_dict(cpu.state_dict())
+        _zero_counts()
+        gg = _first_grads(cfg, gpu, "cuda")
+        gc = _first_grads(cfg, cpu, "cpu")
+        g_err = max(float(np.abs(gg[k] - w).max())
+                    / max(float(np.abs(w).max()), 1e-30)
+                    for k, w in gc.items())
+        _check(g_err <= GRAD_TOL, f"train parity {arch}: gradients off by "
+                                  f"{g_err:.3g} of a leaf's largest")
+        lg, pg = _train_run(cfg, gpu, "cuda")
+        n = _counts()
+        _check(n["flash_attention_bwd"] > 0 and n["flash_attention"] > 0,
+               f"train parity {arch}: launches {n}")
+        counts["flash_attention_f32"] += n["flash_attention"]
+        counts["flash_attention_bwd"] += n["flash_attention_bwd"]
+        lc, pc = _train_run(cfg, cpu, "cpu")
+        _check(np.allclose(lg, lc, rtol=1e-5, atol=0),
+               f"train parity {arch}: losses {lg} on the card, {lc} on the "
+               f"CPU")
+        rtol, atol = TRAIN_TOL
+        worst, off, total = 0.0, 0, 0
+        for k, want in pc.items():
+            diff = np.abs(pg[k] - want)
+            worst = max(worst, float(diff.max()))
+            off += int((diff > atol + rtol * np.abs(want)).sum())
+            total += diff.size
+        _check(worst <= 2 * TRAIN_OPT["lr"] * len(lg)
+               and off <= TRAIN_OFF * total,
+               f"train parity {arch}: params max |diff| {worst:.3g}, "
+               f"{off} of {total} outside rtol {rtol} atol {atol}")
+        print(f"train parity {arch}: first gradients off by {g_err:.3g} of "
+              f"a leaf's largest (limit {GRAD_TOL}); 3 steps + 1 accum-2 "
+              f"step, losses {[round(x, 6) for x in lg]} on the card, max "
+              f"|loss diff| {max(abs(a - b) for a, b in zip(lg, lc)):.3g}; "
+              f"params max |diff| {worst:.3g}, {off} of {total} outside "
+              f"rtol {rtol} atol {atol} (limit {TRAIN_OFF:g} of them, each "
+              f"within 2 lr a step); launches {n}")
+    return counts
+
+
+def phase_train_full(smi: str) -> dict:
+    """Phase 17c: qwen3-1.7b at full width (28 layers, 1.72 B params) in
+    f32, as ``launch/train`` casts it, weights from the port's seeded
+    init, full activation checkpointing: ``TRAIN_FULL_STEPS`` steps of 4 x
+    1024 tokens of the synthetic stream, each loss finite and the last
+    below the first; per step exactly 28 backward and 56 forward flash
+    launches (each layer's forward and its recompute); ms a step,
+    tokens/s, peak memory, and a profiled step's device idle share and
+    flash kernels' shares.  Then the resume check at its widths cut to 2
+    layers: 4 steps straight against 2 steps, an ``AsyncCheckpointer``
+    save, a restore into a fresh state and 2 more steps (in a temporary
+    directory, removed after), every parameter equal.  Returns the timed
+    steps' launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import bridge
+    from repro_torch.models import registry as R
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_loop as TL
+    cfg = get_config("qwen3-1.7b").with_(dtype=torch.float32)
+    tag = f"train full [{smi}]"
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, seed=0)
+    opt = O.AdamWConfig(**TRAIN_OPT)
+    state = TL.make_train_state(model, opt)
+    step = TL.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{tag}: {cfg.name} {n_params / 1e6:.1f} M params f32, remat "
+          f"{cfg.remat_policy}, init {time.perf_counter() - t0:.1f} s")
+    b, s, L = TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, cfg.n_layers
+    batches = [_train_batch(cfg, b, s, i, "cuda")
+               for i in range(TRAIN_FULL_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, walls = [], []
+    for i in range(TRAIN_FULL_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, batches[i])
+        losses.append(m["loss"].item())            # waits for the step
+        walls.append(time.perf_counter() - t)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"{tag}: losses {losses}")
+    want = {"flash_attention_bwd": L * TRAIN_FULL_STEPS,
+            "flash_attention": 2 * L * TRAIN_FULL_STEPS}
+    for name, n in want.items():
+        _check(counts[name] == n, f"{tag}: {counts[name]} {name} launches in "
+                                  f"{TRAIN_FULL_STEPS} steps, expected {n}")
+    steady = walls[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    # the step's operations: every product of the forward, of its
+    # recompute and of the backward (twice the forward's) — 8 flops a
+    # parameter a token for the layers' products and the tied head — and
+    # the attention's 4 dh (forward, twice) + 10 dh (backward) a visible
+    # (query head, key) pair; its bound at the CUDA cores' f32 peak (the
+    # f32 products do not use the tensor cores: TF32 is off)
+    n_embed = model.embed.numel()
+    pairs = b * cfg.n_heads * s * (s + 1) // 2
+    flops = (8 * (n_params - n_embed) * b * s + 8 * n_embed * b * s
+             + 18 * cfg.d_head * pairs * L)
+    bound_ms = flops / PEAK_OPS_S["float32"] * 1e3
+    t = time.perf_counter()
+    state, m = step(state, batches[-1])
+    m["loss"].item()
+    t_wall = time.perf_counter() - t
+    device = _device_profile(lambda: step(state, batches[-1]), 1, t_wall, {
+        "flash forward": lambda key: "flash_tc_kernel" in key,
+        "flash backward": lambda key: "flash_bwd" in key})
+    print(f"{tag}: {TRAIN_FULL_STEPS} steps of {b} x {s} tokens, losses "
+          f"{[round(x, 4) for x in losses]}; steps {[round(w * 1e3, 1) for w in walls]} "
+          f"ms (the first with the warm-up), {ms:.1f} ms a step, "
+          f"{b * s / ms * 1e3:.1f} tokens/s ({flops / 1e12:.1f} TFLOP a "
+          f"step: bound {bound_ms:.1f} ms at the f32 peak, "
+          f"{bound_ms / ms:.3f} of it); peak device memory {peak:.2f} "
+          f"GiB; launches {counts} ({L} backward and {2 * L} forward a "
+          f"step); a profiled step ({t_wall * 1e3:.1f} ms wall): {device}")
+    del state, step, model, batches, m
+    torch.cuda.empty_cache()
+
+    # the resume check at qwen3-1.7b's widths cut to 2 layers
+    small = cfg.with_(n_layers=2)
+
+    def fresh(seed):
+        return TL.make_train_state(R.init_params(small, seed=seed), opt)
+    step = TL.make_train_step(small, opt)
+    data = [_train_batch(small, 2, 256, i, "cuda") for i in range(4)]
+    straight = fresh(1)
+    for i in range(4):
+        straight, _ = step(straight, data[i])
+    resumed = fresh(1)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(2):
+            resumed, _ = step(resumed, data[i])
+        ck = CKPT.AsyncCheckpointer(d, keep=1)
+        ck.submit(resumed, 2)
+        ck.wait()
+        ck.close()
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs) / 2**30
+        del resumed
+        resumed = CKPT.restore(d, fresh(7))
+        _check(CKPT.latest_step(d) == 2 and int(resumed["opt"]["step"]) == 2,
+               "resume: checkpoint step")
+    t_ckpt = time.perf_counter() - t
+    for i in range(2, 4):
+        resumed, _ = step(resumed, data[i])
+    a = bridge.export_reference(straight["params"])
+    r = bridge.export_reference(resumed["params"])
+    diff = max(float(np.abs(a[k] - r[k]).max()) for k in a)
+    bitwise = all(np.array_equal(a[k], r[k]) for k in a)
+    _check(diff <= 1e-6, f"resume: params differ by {diff:.3g}")
+    print(f"train resume [{smi}]: qwen3-1.7b widths, 2 layers: 4 steps "
+          f"straight against 2 + checkpoint ({size:.2f} GiB on disk, save "
+          f"and restore {t_ckpt:.1f} s) + 2: params "
+          f"{'bitwise equal' if bitwise else f'within {diff:.3g}'} "
+          f"(limit 1e-6)")
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return {"flash_attention_f32": counts["flash_attention"],
+            "flash_attention_bwd": counts["flash_attention_bwd"]}
+
+
+def phase_train_refusal() -> None:
+    """Phase 17d: a training forward of the SSM and hybrid families on
+    CUDA raises ``NotImplementedError`` (the SSD scan has no backward
+    kernel yet, ROADMAP A11b)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry as R
+    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+        model = R.init_params(cfg, seed=0).requires_grad_(True)
+        batch = _train_batch(cfg, 2, 2 * cfg.ssm_chunk, 0, "cuda")
+        try:
+            R.forward(model, batch, cfg, train=True)
+        except NotImplementedError as e:
+            _check("A11b" in str(e), f"train refusal {arch}: {e}")
+            print(f"train refusal {arch}: NotImplementedError ({e})")
+        else:
+            raise AssertionError(f"train refusal {arch}: the training "
+                                 f"forward ran on CUDA")
+        lg, _ = R.forward(model, batch, cfg)           # inference still runs
+        _check(bool(torch.isfinite(lg).all()), f"{arch}: inference forward")
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -3399,6 +3867,10 @@ KERNELS = (
     ("ssd_chunked",
      "src/repro_torch/kernels/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:72"),
+    ("flash_attention_bwd",
+     "src/repro_torch/kernels/csrc/flash_backward.cu",
+     "the gradient of src/repro/kernels/flash_attention.py:80 (the "
+     "reference differentiates jnp blocked_attention; no Pallas backward)"),
 )
 
 
@@ -3457,6 +3929,13 @@ def main() -> int:
     vl = phase_vl(smi)
     encdec_vl_parity = phase_encdec_vl_parity()
     t19 = time.perf_counter()
+    torch.cuda.empty_cache()
+    records.update(phase_train_kernels())
+    launches["flash_attention_bwd"] = 0
+    train_parity = phase_train_parity()
+    train_full = phase_train_full(smi)
+    phase_train_refusal()
+    t20 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
@@ -3480,6 +3959,9 @@ def main() -> int:
     for name, n in (list(encdec.items()) + list(vl.items())
                     + list(encdec_vl_parity.items())):
         launches[name] += n
+    # training: the SMOKE steps on the card and the full-width steps
+    for name, n in list(train_parity.items()) + list(train_full.items()):
+        launches[name] += n
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "
@@ -3490,7 +3972,8 @@ def main() -> int:
           f"{t13 - t12:.1f} s, dense {t14 - t13:.1f} s, dense parity "
           f"{t15 - t14:.1f} s, moe {t16 - t15:.1f} s, moe parity "
           f"{t17 - t16:.1f} s, disagg {t18 - t17:.1f} s, encdec/vl "
-          f"{t19 - t18:.1f} s, total {t19 - t0:.1f} s")
+          f"{t19 - t18:.1f} s, training {t20 - t19:.1f} s, total "
+          f"{t20 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

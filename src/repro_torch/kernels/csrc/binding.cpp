@@ -67,15 +67,33 @@ void decode(const torch::Tensor& q, const torch::Tensor& k_cache,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// lse: an empty tensor when the caller needs none
 void flash(const torch::Tensor& q, const torch::Tensor& k,
-           const torch::Tensor& v, torch::Tensor out, int64_t tq, bool causal,
-           int64_t window, double sm_scale) {
+           const torch::Tensor& v, torch::Tensor out, torch::Tensor lse,
+           int64_t tq, bool causal, int64_t window, double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(repro_torch::launch_flash(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k.data_ptr(),
-      v.data_ptr(), out.data_ptr(), q.size(0), q.size(1), k.size(1),
-      q.size(2), k.size(2), q.size(3), tq, causal, window,
+      v.data_ptr(), out.data_ptr(), scratch(lse), q.size(0), q.size(1),
+      k.size(1), q.size(2), k.size(2), q.size(3), tq, causal, window,
       static_cast<float>(sm_scale), at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
+               const torch::Tensor& v, const torch::Tensor& out,
+               const torch::Tensor& dout, const torch::Tensor& lse,
+               torch::Tensor delta, torch::Tensor dq, torch::Tensor dk,
+               torch::Tensor dv, int64_t tq, bool causal, int64_t window,
+               double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(repro_torch::launch_flash_bwd(
+      q.scalar_type() == at::kBFloat16, q.data_ptr(), k.data_ptr(),
+      v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(),
+      delta.data_ptr<float>(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+      q.size(0), q.size(1), k.size(1), q.size(2), k.size(2), q.size(3), tq,
+      causal, window, static_cast<float>(sm_scale),
+      at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -99,5 +117,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "split-KV paged chunked-prefill attention (CUDA)");
   m.def("decode", &decode, "split-KV contiguous flash-decode (CUDA)");
   m.def("flash", &flash, "contiguous flash attention (CUDA)");
+  m.def("flash_bwd", &flash_bwd,
+        "gradient of the contiguous flash attention (CUDA)");
   m.def("ssd", &ssd, "Mamba2 SSD chunked scan (CUDA)");
 }

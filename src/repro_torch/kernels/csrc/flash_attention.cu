@@ -56,6 +56,11 @@
 //         block's keys with its own online softmax, the two halves' states
 //         merged in shared memory at the end — half the chain per block,
 //         and the split shared by 256 threads.
+//   * For training the caller may ask for each row's log-sum-exp (lse, b x
+//     H x sq f32, natural units of the scaled scores), written beside the
+//     output from the row's final (m, l) when the pointer is not null; the
+//     backward (flash_backward.cu) rebuilds P from it.  Inference passes
+//     null and runs the same code.
 //   * The head dim is padded to a multiple of 16 with zeros in shared
 //     memory (one instantiation per padded width, 16 .. 128).  mma.sync
 //     rather than wgmma: a warp's 16 rows and its softmax state stay in one
@@ -84,9 +89,10 @@ struct FaWarps {
 template <typename T, int DP>
 __global__ void __launch_bounds__(32 * FaWarps<T>::value)
     flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out, int sq,
-                    int skv, int H, int K, int dh, int tq, int causal,
-                    int window, float sm_scale, int vec) {
+                    const T* __restrict__ v, T* __restrict__ out,
+                    float* __restrict__ lse, int sq, int skv, int H, int K,
+                    int dh, int tq, int causal, int window, float sm_scale,
+                    int vec) {
   using S = TileSmem<T, DP, kFaRows, kFaKeys>;
   using bf16 = __nv_bfloat16;
   constexpr bool kF32 = S::kF32;
@@ -378,6 +384,7 @@ __global__ void __launch_bounds__(32 * FaWarps<T>::value)
       const float base = M == -INFINITY ? 0.f : M;
       const float c0 = exp2f(m[h] - base), c1 = exp2f(m1 - base);
       l[h] = l[h] * c0 + xl[r] * c1;
+      m[h] = M;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const float2 a =
@@ -394,6 +401,11 @@ __global__ void __launch_bounds__(32 * FaWarps<T>::value)
     const int r = rw * 16 + gr + 8 * h;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
     T* o = out + (((long)bi * sq + qp[h]) * H + kvh * g + r % g) * dh;
+    // the row's log-sum-exp of the scaled scores, natural units, for the
+    // backward (flash_backward.cu); +inf for a row that sees no key
+    if (lse != nullptr && t4 == 0)
+      lse[((long)bi * H + kvh * g + r % g) * sq + qp[h]] =
+          l[h] > 0.f ? (m[h] + log2f(l[h])) * 0.6931471805599453f : INFINITY;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int d = 8 * n + 2 * t4;
@@ -410,9 +422,9 @@ __global__ void __launch_bounds__(32 * FaWarps<T>::value)
 
 template <typename T, int DP>
 cudaError_t launch_flash_tc(const void* q, const void* k, const void* v,
-                            void* out, int b, int sq, int skv, int H, int K,
-                            int dh, int tq, bool causal, int window,
-                            float sm_scale, cudaStream_t stream) {
+                            void* out, float* lse, int b, int sq, int skv,
+                            int H, int K, int dh, int tq, bool causal,
+                            int window, float sm_scale, cudaStream_t stream) {
   constexpr int smem = TileSmem<T, DP, kFaRows, kFaKeys>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -428,21 +440,22 @@ cudaError_t launch_flash_tc(const void* q, const void* k, const void* v,
   const dim3 grid((sq + tq - 1) / tq, K, b);
   flash_tc_kernel<T, DP><<<grid, 32 * FaWarps<T>::value, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, H, K, dh, tq,
-      causal ? 1 : 0, window, sm_scale, (wide ? 16 : 8) / (int)sizeof(T));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, skv, H, K, dh,
+      tq, causal ? 1 : 0, window, sm_scale, (wide ? 16 : 8) / (int)sizeof(T));
   return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch_flash_typed(const void* q, const void* k, const void* v,
-                               void* out, int b, int sq, int skv, int H,
-                               int K, int dh, int tq, bool causal, int window,
-                               float sm_scale, cudaStream_t stream) {
+                               void* out, float* lse, int b, int sq, int skv,
+                               int H, int K, int dh, int tq, bool causal,
+                               int window, float sm_scale,
+                               cudaStream_t stream) {
   // the head dim padded to the tensor cores' depth of 16
 #define REPRO_FLASH(DP)                                                       \
   case DP / 16:                                                               \
-    return launch_flash_tc<T, DP>(q, k, v, out, b, sq, skv, H, K, dh, tq,     \
-                                  causal, window, sm_scale, stream);
+    return launch_flash_tc<T, DP>(q, k, v, out, lse, b, sq, skv, H, K, dh,    \
+                                  tq, causal, window, sm_scale, stream);
   switch ((dh + 15) / 16) {
     REPRO_FLASH(16)
     REPRO_FLASH(32)
@@ -459,15 +472,15 @@ cudaError_t launch_flash_typed(const void* q, const void* k, const void* v,
 }
 
 cudaError_t launch_flash(bool bf16, const void* q, const void* k,
-                         const void* v, void* out, int b, int sq, int skv,
-                         int H, int K, int dh, int tq, bool causal, int window,
-                         float sm_scale, cudaStream_t stream) {
+                         const void* v, void* out, float* lse, int b, int sq,
+                         int skv, int H, int K, int dh, int tq, bool causal,
+                         int window, float sm_scale, cudaStream_t stream) {
   if (bf16)
-    return launch_flash_typed<__nv_bfloat16>(q, k, v, out, b, sq, skv, H, K,
-                                             dh, tq, causal, window, sm_scale,
-                                             stream);
-  return launch_flash_typed<float>(q, k, v, out, b, sq, skv, H, K, dh, tq,
-                                   causal, window, sm_scale, stream);
+    return launch_flash_typed<__nv_bfloat16>(q, k, v, out, lse, b, sq, skv, H,
+                                             K, dh, tq, causal, window,
+                                             sm_scale, stream);
+  return launch_flash_typed<float>(q, k, v, out, lse, b, sq, skv, H, K, dh,
+                                   tq, causal, window, sm_scale, stream);
 }
 
 }  // namespace repro_torch

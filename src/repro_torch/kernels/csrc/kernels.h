@@ -55,11 +55,25 @@ cudaError_t launch_decode(bool bf16, const void* q, const void* k_cache,
 // Contiguous flash attention, one tensor-core body for both types: q (b,
 // sq, H, dh); k, v (b, skv, K, dh); out (b, sq, H, dh); tq queries per CTA;
 // dh a multiple of 4, f32 tensors 16-byte aligned and bf16 8-byte aligned.
+// lse (b, H, sq) f32, written when not null: each row's log-sum-exp of its
+// scaled scores (+inf for a row that sees no key), for the backward.
 // Returns the error of raising the kernel's shared-memory limit.
 cudaError_t launch_flash(bool bf16, const void* q, const void* k,
-                         const void* v, void* out, int b, int sq, int skv,
-                         int H, int K, int dh, int tq, bool causal, int window,
-                         float sm_scale, cudaStream_t stream);
+                         const void* v, void* out, float* lse, int b, int sq,
+                         int skv, int H, int K, int dh, int tq, bool causal,
+                         int window, float sm_scale, cudaStream_t stream);
+
+// Its gradient (flash_backward.cu), three kernels on the CUDA cores in f32:
+// q, out, dout, dq (b, sq, H, dh); k, v, dk, dv (b, skv, K, dh), all of one
+// type; lse (b, H, sq) f32 from launch_flash; delta (b, H, sq) f32 scratch;
+// tq queries per dQ CTA (64 / g); dh at most 128.  Returns the error of
+// raising a kernel's shared-memory limit or of a launch.
+cudaError_t launch_flash_bwd(bool bf16, const void* q, const void* k,
+                             const void* v, const void* out, const void* dout,
+                             const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, int b, int sq, int skv, int H,
+                             int K, int dh, int tq, bool causal, int window,
+                             float sm_scale, cudaStream_t stream);
 
 // x (b, s, H, P), B and C (b, s, G, N), all of one type (f32 or bf16);
 // dt (b, s, H) and A (H,) f32; y (b, s, H, P) and state (b, H, P, N) f32.

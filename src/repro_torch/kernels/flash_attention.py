@@ -23,6 +23,19 @@ flops per visible (query head, key) pair; 344 GFLOP at the hybrid
 forward's 4 × 4096 tokens, 32 heads of 80), at the bf16 peak, or a third
 of it for f32 inputs.
 
+**Its gradient** (:class:`FlashAttentionFn`, :func:`flash_attention_bwd`,
+``csrc/flash_backward.cu``): the reference has no Pallas backward — it
+trains through the jnp ``blocked_attention`` — so this is the gradient of
+the function the contiguous form computes.  With ``return_lse`` the
+forward also writes each row's log-sum-exp (b, H, sq) f32; the backward
+takes q, k, v, the output, the lse and dO and runs three kernels on the
+CUDA cores in f32: ``delta = rowsum(dO ∘ O)``; dK/dV, one CTA per (64
+keys, KV head, batch row) walking its group's heads and the query blocks
+that see its keys (P recomputed as ``exp(S·scale − lse)``), summed over
+the group in registers and written once, without atomics; and dQ on the
+forward's tiling.  Its bound is its operations, ``10 dh`` flops per
+visible (query head, key) pair.
+
 **Paged chunked prefill** (:func:`paged_prefill_attention`,
 ``csrc/paged_prefill.cu``): the C queries of one prompt chunk, at absolute
 positions ``n_past..``, attend causally over the sequence's K/V read
@@ -49,25 +62,28 @@ f32 chunk does about 32 flops per K/V byte; on the tensor cores the bytes
 bound it.
 
 The plain PyTorch versions are :func:`~repro_torch.kernels.ref.
-flash_attention_ref` and :func:`~repro_torch.kernels.ref.
+flash_attention_ref`, :func:`~repro_torch.kernels.ref.
+flash_attention_bwd_ref` and :func:`~repro_torch.kernels.ref.
 paged_prefill_attention_ref`; ``kernels/ops.py`` sends CPU tensors there
-and CUDA tensors here.  ``flash_attention.launches`` and
-``paged_prefill_attention.launches`` count launches, and their
+(autograd through the plain forward for a gradient) and CUDA tensors here.
+``flash_attention.launches``, ``flash_attention_bwd.launches`` and
+``paged_prefill_attention.launches`` count launches, and the forwards'
 ``windowed_launches`` those with a window.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import PREFILL_CTAS_PER_SM, \
     partial_floats, split_plan
-from repro_torch.kernels.ref import flash_attention_ref, \
-    paged_prefill_attention_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, \
+    flash_attention_ref, paged_prefill_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref",
+__all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "FlashAttentionFn",
            "paged_prefill_attention", "paged_prefill_attention_ref",
            "flash_queries_per_cta"]
 
@@ -78,37 +94,112 @@ def flash_queries_per_cta(g: int) -> int:
     return _build.FA_ROWS // g
 
 
+def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the contiguous kernels (forward and
+    backward) take q, k and v."""
+    _build.check_inputs(name, q, k, v, (), max_group=_build.FA_ROWS)
+    if q.dim() != 4 or k.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: q must be (b, sq, H, dh) and k, v (b, "
+                         f"skv, K, dh), got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    align = 4 * q.element_size()         # the kernel reads 4 elements at once
+    if q.shape[3] % 4 or any(t.data_ptr() % align for t in (q, k, v)):
+        raise ValueError(f"{name}: the kernel takes dh divisible by 4 and "
+                         f"{align}-byte aligned tensors; got "
+                         f"dh={q.shape[3]}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None,
+                    return_lse: bool = False):
     """q: (b, sq, H, dh); k, v: (b, skv, K, dh), q's type (f32 or bf16),
     dh a multiple of 4 (at most 128).  Causal on positions from 0 (``q_pos
     >= kv_pos``) when ``causal``; sliding window ``q_pos - kv_pos <
     window`` when ``window > 0``.  Scores are q·k * sm_scale (default
-    dh**-0.5).  CUDA tensors only; returns (b, sq, H, dh) in q's type."""
-    _build.check_inputs("flash_attention", q, k, v, (),
-                        max_group=_build.FA_ROWS)
-    if q.dim() != 4 or k.shape[0] != q.shape[0]:
-        raise ValueError(f"flash_attention: q must be (b, sq, H, dh) and "
-                         f"k, v (b, skv, K, dh), got {tuple(q.shape)} and "
-                         f"{tuple(k.shape)}")
+    dh**-0.5).  CUDA tensors only; returns (b, sq, H, dh) in q's type, and
+    with ``return_lse`` also each row's log-sum-exp of its scaled scores,
+    (b, H, sq) f32 (what :func:`flash_attention_bwd` needs)."""
+    _check_flash("flash_attention", q, k, v)
     b, sq, H, dh = q.shape
-    align = 4 * q.element_size()         # the kernel reads 4 elements at once
-    if dh % 4 or any(t.data_ptr() % align for t in (q, k, v)):
-        raise ValueError(f"flash_attention: the kernel takes dh divisible by "
-                         f"4 and {align}-byte aligned tensors; got dh={dh}")
     out = torch.empty_like(q)
+    lse = torch.empty((b, H, sq) if return_lse else (0,),
+                      dtype=torch.float32, device=q.device)
     scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
     tq = flash_queries_per_cta(H // k.shape[2])
-    _build.extension().flash(q, k, v, out, tq, bool(causal), int(window),
-                             scale)
+    _build.extension().flash(q, k, v, out, lse, tq, bool(causal),
+                             int(window), scale)
     flash_attention.launches += 1
     flash_attention.windowed_launches += int(window > 0)
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.windowed_launches = 0    # of them, with a window
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, sm_scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_attention` (``csrc/flash_backward.cu``):
+    q, k, v as there; ``out`` and ``lse`` (b, H, sq) f32 from its forward
+    with ``return_lse``; ``dout`` the gradient of ``out``.  Takes what the
+    forward takes (f32 or bf16, g <= 64, dh a multiple of 4 up to 128,
+    causal, full or windowed, sq != skv).  CUDA tensors only; returns (dq,
+    dk, dv) in the inputs' type, dk and dv summed over each KV head's group
+    in f32 and written once (deterministic)."""
+    _check_flash("flash_attention_bwd", q, k, v)
+    b, sq, H, dh = q.shape
+    if any(t.shape != q.shape or t.dtype != q.dtype
+           or not t.is_contiguous() or t.device != q.device
+           for t in (out, dout)):
+        raise ValueError(f"flash_attention_bwd: out and dout must be "
+                         f"contiguous {tuple(q.shape)} {q.dtype} tensors on "
+                         f"q's device")
+    if tuple(lse.shape) != (b, H, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"{(b, H, sq)} float32 tensor on q's device, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
+    delta = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.extension().flash_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                 flash_queries_per_cta(H // k.shape[2]),
+                                 bool(causal), int(window), scale)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient: the forward keeps the
+    rows' log-sum-exp beside q, k, v and the output, and the backward runs
+    :func:`flash_attention_bwd` on them.  ``kernels/ops.py`` takes it for
+    CUDA tensors when grad is enabled and an input requires it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                sm_scale: Optional[float]):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   sm_scale=sm_scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.flags = (causal, window, sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, sm_scale = ctx.flags
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), causal=causal,
+                                         window=window, sm_scale=sm_scale)
+        return dq, dk, dv, None, None, None
 
 
 def paged_prefill_attention(q: torch.Tensor, k_arena: torch.Tensor,

@@ -28,12 +28,22 @@ def _on_cuda(name: str, q: torch.Tensor) -> bool:
                      f"{q.device}")
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Contiguous prefill attention: q (b, sq, H, dh) against k, v (b, skv,
-    K, dh), causal on positions from 0, sliding window when window > 0."""
+    K, dh), causal on positions from 0, sliding window when window > 0.
+    Differentiable: on CUDA through ``FlashAttentionFn`` (the backward
+    kernel) when grad is enabled and an input requires it; on the CPU by
+    autograd through the plain version."""
     if _on_cuda("flash_attention", q):
+        if _needs_grad(q, k, v):
+            return _fa.FlashAttentionFn.apply(q, k, v, causal, window,
+                                              sm_scale)
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    sm_scale=sm_scale)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -94,7 +104,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD chunked scan: x (b, s, H, P), dt (b, s, H) f32, A (H,)
     f32, B, C (b, s, G, N), s a multiple of chunk -> (y (b, s, H, P) f32,
-    final state (b, H, P, N) f32)."""
+    final state (b, H, P, N) f32).  Differentiable on the CPU (autograd
+    through the plain version); on CUDA a call that needs a gradient
+    raises ``NotImplementedError``: the scan's backward kernel is not
+    written yet."""
     if _on_cuda("ssd_chunked", x):
+        if _needs_grad(x, dt, A, B, C):
+            raise NotImplementedError(
+                "ssd_chunked: the SSD scan has no backward kernel yet "
+                "(ROADMAP A11b), so the SSM and hybrid families train on "
+                "the CPU only")
         return _ssd.ssd_chunked(x, dt, A, B, C, chunk=chunk)
     return _ref.ssd_chunked_ref(x, dt, A, B, C, chunk)

@@ -54,15 +54,73 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, H, dh = q.shape
     skv, K = k.shape[1], k.shape[2]
     scale = dh ** -0.5 if sm_scale is None else sm_scale
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    mask = _flash_mask(sq, skv, causal, window, q.device)
+    o = _attend(q.reshape(b, sq, K, H // K, dh), k, v, mask, scale)
+    return o.reshape(b, sq, H, dh).to(q.dtype)
+
+
+def _flash_mask(sq: int, skv: int, causal: bool, window: int,
+                device: torch.device) -> torch.Tensor:
+    """(sq, skv) visible keys of the contiguous flash attention."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
         mask &= qpos >= kpos
     if window > 0:
         mask &= (qpos - kpos) < window
-    o = _attend(q.reshape(b, sq, K, H // K, dh), k, v, mask, scale)
-    return o.reshape(b, sq, H, dh).to(q.dtype)
+    return mask
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            sm_scale: Optional[float] = None
+                            ) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled, masked scores (b, H, sq) f32:
+    what the flash kernel writes beside its output for the backward."""
+    b, sq, H, dh = q.shape
+    skv, K = k.shape[1], k.shape[2]
+    scale = dh ** -0.5 if sm_scale is None else sm_scale
+    s = torch.einsum("bqkgd,bnkd->bkgqn",
+                     q.float().reshape(b, sq, K, H // K, dh), k.float())
+    s = torch.where(_flash_mask(sq, skv, causal, window, q.device),
+                    s * scale, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, dim=-1).reshape(b, H, sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            sm_scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The backward kernel's formulas, step by step, in f32: P = exp(S ·
+    scale − lse) on the visible keys (0 elsewhere), delta = rowsum(dO ∘ O),
+    dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − delta), dK = dSᵀ q · scale and
+    dQ = dS K · scale, dK and dV summed over each KV head's group.  q, o,
+    do (b, sq, H, dh); k, v (b, skv, K, dh); lse (b, H, sq) f32.  Returns
+    (dq, dk, dv) in the inputs' types."""
+    b, sq, H, dh = q.shape
+    skv, K = k.shape[1], k.shape[2]
+    g = H // K
+    scale = dh ** -0.5 if sm_scale is None else sm_scale
+    qf = q.float().reshape(b, sq, K, g, dh)
+    of = o.float().reshape(b, sq, K, g, dh)
+    dof = do.float().reshape(b, sq, K, g, dh)
+    kf, vf = k.float(), v.float()
+    mask = _flash_mask(sq, skv, causal, window, q.device)
+    s = torch.einsum("bqkgd,bnkd->bkgqn", qf, kf) * scale
+    lse_g = lse.float().reshape(b, K, g, sq)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), torch.zeros_like(s))
+    delta = (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None]   # (b,K,g,sq,1)
+    dp = torch.einsum("bqkgd,bnkd->bkgqn", dof, vf)
+    ds = p * (dp - delta)
+    dv = torch.einsum("bkgqn,bqkgd->bnkd", p, dof)
+    dk = torch.einsum("bkgqn,bqkgd->bnkd", ds, qf) * scale
+    dq = torch.einsum("bkgqn,bnkd->bqkgd", ds, kf) * scale
+    return (dq.reshape(b, sq, H, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _decode_mask(n_pos: int, lengths, window: int,

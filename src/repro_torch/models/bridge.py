@@ -17,11 +17,14 @@ beside the top leaves.  :func:`load_reference` splits the stacked leaves
 along axis 0 into the port's per-layer modules (dense weights transposed
 to PyTorch's (out, in); conv kernels stay (k, channels), expert weights as
 they are), and :func:`export_reference` is its exact inverse, so weights
-round-trip.
+round-trip.  Both go through :func:`leaf_map` (:func:`to_reference`,
+:func:`from_reference`), which maps any tensors keyed by the model's
+parameter names — the training state's gradients and Adam moments too —
+and gives the reference's weight-decay mask (:func:`decay_mask`).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple, Union
+from typing import Dict, Iterator, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -115,64 +118,104 @@ def _top_leaves(model: Union[LM, EncDec]
             yield f"shared/{key}", f"shared.{attr}", dense
 
 
+def leaf_map(model: Union[LM, EncDec]
+             ) -> List[Tuple[str, Tuple[str, ...], bool, bool]]:
+    """Every leaf of the reference's flattened params with its place in
+    the port: (reference key, the port's parameter names — one per layer,
+    in order, for a stacked leaf —, is a dense weight (transposed between
+    the two), is stacked).  The names are ``model.named_parameters()``'s,
+    so any per-parameter tensors (weights, gradients, Adam's moments) go
+    through the same map (:func:`to_reference`, :func:`from_reference`)."""
+    out = [(key, (attr,), dense, False)
+           for key, attr, dense in _top_leaves(model)]
+    for prefix, layers, leaves in _stacks(model):
+        for key, attr, dense in leaves:
+            out.append((f"{prefix}/{key}",
+                        tuple(f"{prefix}.{i}.{attr}"
+                              for i in range(len(layers))), dense, True))
+    return out
+
+
+def to_reference(model: Union[LM, EncDec],
+                 tensors: Mapping[str, torch.Tensor]) -> Arrays:
+    """Per-parameter tensors keyed by ``model``'s parameter names (every
+    one present) -> the reference's flattened layout: stacked layers on a
+    leading axis, dense weights (in, out), on the host in their own dtype
+    (bf16 as f32, which holds it exactly)."""
+    def host(t: torch.Tensor, dense: bool) -> np.ndarray:
+        t = t.detach()
+        t = t.T if dense else t
+        return t.float().cpu().numpy().astype(_np_dtype(t.dtype))
+
+    out: Arrays = {}
+    for key, names, dense, stacked in leaf_map(model):
+        parts = [host(tensors[n], dense) for n in names]
+        out[key] = np.stack(parts) if stacked else parts[0]
+    return out
+
+
+def from_reference(model: Union[LM, EncDec], arrays: Mapping[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`to_reference`: the reference's flattened
+    arrays -> CPU tensors keyed by ``model``'s parameter names, each of
+    its parameter's shape, in the arrays' dtype (bf16 as f32).  Every leaf
+    must be present with the reference's shape; extra keys are an error
+    too."""
+    params = dict(model.named_parameters())
+    out: Dict[str, torch.Tensor] = {}
+    for key, names, dense, stacked in leaf_map(model):
+        value = np.asarray(arrays[key])
+        if value.dtype.name == "bfloat16":       # ml_dtypes: torch can't read
+            value = value.astype(np.float32)
+        if stacked and value.shape[0] != len(names):
+            raise ValueError(f"{key}: {value.shape[0]} layers in the "
+                             f"reference, {len(names)} here")
+        for i, name in enumerate(names):
+            src = torch.tensor(value[i] if stacked else value)
+            if dense:
+                src = src.T
+            if tuple(src.shape) != tuple(params[name].shape):
+                raise ValueError(f"{key}: reference shape "
+                                 f"{tuple(src.shape)} != port shape "
+                                 f"{tuple(params[name].shape)}")
+            out[name] = src
+    extra = set(arrays) - {key for key, *_ in leaf_map(model)}
+    if extra:
+        raise ValueError(f"reference leaves the port has no place for: "
+                         f"{sorted(extra)}")
+    return out
+
+
+def decay_mask(model: Union[LM, EncDec]) -> Dict[str, bool]:
+    """Which parameters the reference's AdamW decays: a leaf of two or
+    more dimensions in ITS layout (``train/optimizer.py``'s ``p.ndim >=
+    2``), so every stacked per-layer leaf — norm scales, biases, the SSM's
+    ``A_log`` / ``D`` / ``dt_bias`` of shape (L, ...) — decays, and of the
+    unstacked leaves (the embedding, the final and encoder norms, the LM
+    head, the hybrid's ``shared`` block) only the matrices."""
+    params = dict(model.named_parameters())
+    return {name: stacked or params[name].dim() >= 2
+            for _, names, _, stacked in leaf_map(model) for name in names}
+
+
 @torch.no_grad()
 def load_reference(model: Union[LM, EncDec],
                    arrays: Arrays) -> Union[LM, EncDec]:
     """Copy the reference's flattened params into ``model`` (its device and
     dtype).  Every leaf of the model must be present with the reference's
     shape; extra keys are an error too."""
-    used = set()
-
-    def put(key: str, attr_owner, attr: str, dense: bool, value) -> None:
-        dst = _get(attr_owner, attr)
-        value = np.asarray(value)
-        if value.dtype.name == "bfloat16":       # ml_dtypes: torch can't read
-            value = value.astype(np.float32)
-        src = torch.tensor(value)
-        if dense:
-            src = src.T
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{key}: reference shape {tuple(src.shape)} "
-                             f"!= port shape {tuple(dst.shape)}")
+    params = dict(model.named_parameters())
+    for name, src in from_reference(model, arrays).items():
+        dst = params[name]
         dst.copy_(src.to(dtype=dst.dtype, device=dst.device))
-        used.add(key)
-
-    for key, attr, dense in _top_leaves(model):
-        put(key, model, attr, dense, arrays[key])
-    for prefix, layers, leaves in _stacks(model):
-        for key, attr, dense in leaves:
-            stacked = arrays[f"{prefix}/{key}"]
-            if stacked.shape[0] != len(layers):
-                raise ValueError(f"{prefix}/{key}: {stacked.shape[0]} "
-                                 f"layers in the reference, {len(layers)} "
-                                 f"here")
-            for i, layer in enumerate(layers):
-                put(f"{prefix}/{key}", layer, attr, dense, stacked[i])
-    extra = set(arrays) - used
-    if extra:
-        raise ValueError(f"reference leaves the port has no place for: "
-                         f"{sorted(extra)}")
     return model
 
 
-@torch.no_grad()
 def export_reference(model: Union[LM, EncDec]) -> Arrays:
     """The inverse of :func:`load_reference`: the model's weights as the
     reference's flattened params (stacked layers, (in, out) dense
     weights), in their own dtype on the host."""
-    def host(t: torch.Tensor, dense: bool) -> np.ndarray:
-        t = t.T if dense else t
-        return t.detach().float().cpu().numpy().astype(
-            _np_dtype(t.dtype))
-
-    out: Arrays = {}
-    for key, attr, dense in _top_leaves(model):
-        out[key] = host(_get(model, attr), dense)
-    for prefix, layers, leaves in _stacks(model):
-        for key, attr, dense in leaves:
-            out[f"{prefix}/{key}"] = np.stack(
-                [host(_get(layer, attr), dense) for layer in layers])
-    return out
+    return to_reference(model, dict(model.named_parameters()))
 
 
 def _np_dtype(dtype: torch.dtype):

@@ -111,44 +111,61 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
                         cfg.rope_theta)
 
 
-@torch.no_grad()
-def encode(model: EncDec, src_embeds: torch.Tensor) -> torch.Tensor:
+def _enc_layer(x, layer, cos, sin):
+    x = x + L.attention_apply(layer.attn, layer.ln1(x), cos, sin,
+                              causal=False)
+    return x + layer.mlp(layer.ln2(x))
+
+
+def _dec_layer(x, layer, cos, sin, memory):
+    x = x + L.attention_apply(layer.attn, layer.ln1(x), cos, sin)
+    x = x + L.attention_apply(layer.xattn, layer.lnx(x), None, None,
+                              kv=L.cross_kv(layer.xattn, memory))
+    return x + layer.mlp(layer.ln2(x))
+
+
+def encode(model: EncDec, src_embeds: torch.Tensor, *,
+           train: bool = False) -> torch.Tensor:
     """src_embeds (b, s_src, d), cast to the model's type -> the encoder
     memory (b, s_src, d): every layer's full self-attention at rotary
-    positions ``0 .. s_src - 1``, then the encoder's final norm."""
+    positions ``0 .. s_src - 1``, then the encoder's final norm.  ``train``
+    records gradients, each layer under ``layers.remat``; without it the
+    encoder runs under ``no_grad``."""
     cfg = model.cfg
-    x = src_embeds.to(cfg.dtype)
-    cos, sin = _rope(cfg, _positions(x.shape[1], x.device))
-    for layer in model.enc_layers:
-        x = x + L.attention_apply(layer.attn, layer.ln1(x), cos, sin,
-                                  causal=False)
-        x = x + layer.mlp(layer.ln2(x))
-    return model.enc_norm(x)
+    with L.grad_mode(train):
+        x = src_embeds.to(cfg.dtype)
+        cos, sin = _rope(cfg, _positions(x.shape[1], x.device))
+        layer_fn = L.remat(_enc_layer, cfg, train)
+        for layer in model.enc_layers:
+            x = layer_fn(x, layer, cos, sin)
+        return model.enc_norm(x)
 
 
-@torch.no_grad()
 def forward_encdec(model: EncDec, src_embeds: torch.Tensor,
-                   tokens: torch.Tensor, *, return_hidden: bool = False
+                   tokens: torch.Tensor, *, return_hidden: bool = False,
+                   train: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced seq2seq forward: src_embeds (b, s_src, d), tokens
     (b, s_tgt) int -> (logits (b, s_tgt, V_padded), aux 0); with
     ``return_hidden`` the final-normed hidden states (b, s_tgt, d) in
     place of the logits.  Each decoder layer: causal self-attention, then
     cross-attention over its own K/V of the encoder memory, then the
-    MLP."""
+    MLP.  ``train`` records gradients with per-layer checkpointing
+    (``layers.remat``: "full", "dots" or "none"; "collectives" recomputes
+    a layer whole, as the reference's enc-dec); without it the forward
+    runs under ``no_grad``."""
     cfg = model.cfg
-    memory = encode(model, src_embeds)
-    x = L.embedding_apply(model.embed, tokens)
-    cos, sin = _rope(cfg, _positions(tokens.shape[1], x.device))
-    for layer in model.dec_layers:
-        x = x + L.attention_apply(layer.attn, layer.ln1(x), cos, sin)
-        x = x + L.attention_apply(layer.xattn, layer.lnx(x), None, None,
-                                  kv=L.cross_kv(layer.xattn, memory))
-        x = x + layer.mlp(layer.ln2(x))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if return_hidden:
-        return model.final_norm(x), aux
-    return model.logits(x), aux
+    with L.grad_mode(train):
+        memory = encode(model, src_embeds, train=train)
+        x = L.embedding_apply(model.embed, tokens)
+        cos, sin = _rope(cfg, _positions(tokens.shape[1], x.device))
+        layer_fn = L.remat(_dec_layer, cfg, train)
+        for layer in model.dec_layers:
+            x = layer_fn(x, layer, cos, sin, memory)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if return_hidden:
+            return model.final_norm(x), aux
+        return model.logits(x), aux
 
 
 @torch.no_grad()

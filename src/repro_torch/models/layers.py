@@ -16,11 +16,13 @@ Hopper kernels for CUDA tensors, their plain versions on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_paged_kv
@@ -33,7 +35,8 @@ __all__ = ["RMSNorm", "Attention", "MLP", "rmsnorm_apply", "rope_table",
            "attention_apply", "attention_prefill_apply",
            "attention_decode_apply", "attention_decode_slots_apply",
            "gather_paged_kv", "attention_decode_paged_apply",
-           "attention_prefill_paged_apply", "init_dense", "trunc_normal"]
+           "attention_prefill_paged_apply", "init_dense", "trunc_normal",
+           "grad_mode", "remat"]
 
 
 def trunc_normal(shape, stddev: float, dtype: torch.dtype,
@@ -61,6 +64,51 @@ def init_dense(d_in: int, d_out: int, cfg: ModelConfig, device, gen,
         if bias:
             lin.bias.zero_()
     return lin
+
+
+# =============================================================================
+# training: grad mode and per-layer activation checkpointing
+# =============================================================================
+def grad_mode(train: bool):
+    """The context of a forward: gradients recorded for a training forward,
+    none for inference (the serving paths' ``no_grad``)."""
+    return torch.enable_grad() if train else torch.no_grad()
+
+
+# the products whose outputs the "dots" policy keeps: matrix products
+# without a batch dimension (every projection, in its 2-D form), as the
+# reference's dots_with_no_batch_dims_saveable keeps its dot_generals;
+# batched products (the MoE experts' bmm) and attention are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, cfg: ModelConfig, train: bool) -> Callable:
+    """``fn`` (a layer's forward) under the activation checkpointing of a
+    training forward, the reference's ``_maybe_remat``: with ``cfg.remat``
+    and ``cfg.remat_policy`` "full" the backward recomputes the whole of
+    ``fn`` from its inputs; "dots" keeps the outputs of its products
+    without a batch dimension and recomputes the rest; "none", ``remat``
+    False or inference (``train`` False) run ``fn`` as it is.  The
+    decoder's "collectives" (keep each layer's attention output and block
+    output) is its caller's: it checkpoints the attention and the MLP
+    halves of a layer apart; for any other ``fn`` it recomputes the whole,
+    as the reference's enc-dec does.  Checkpointing changes what the
+    backward keeps, never the numbers."""
+    if not train or not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 # =============================================================================

@@ -53,17 +53,29 @@ def forward(params: Params, batch: dict, cfg: ModelConfig,
     ``return_hidden`` the final hidden states (b, s, d) in place of the
     logits.  ``aux_loss`` is the MoE layers' summed load-balance loss (0
     for the other families).  The SSM and hybrid families need ``s`` to
-    be a multiple of ``cfg.ssm_chunk``.  ``train=True`` (the training step)
-    is not ported."""
+    be a multiple of ``cfg.ssm_chunk``.  ``train=True`` is the training
+    forward: it records gradients, with per-layer activation
+    checkpointing by ``cfg.remat`` / ``cfg.remat_policy``; on CUDA the SSM
+    and hybrid families raise ``NotImplementedError`` (the SSD scan has no
+    backward kernel yet).  Without it the forward runs under
+    ``no_grad``."""
     _check_cfg(params, cfg)
-    if train:
-        raise NotImplementedError("the training forward is not ported yet")
     if cfg.n_enc_layers > 0:
         return ED.forward_encdec(params, batch["src_embeds"],
-                                 batch["tokens"], return_hidden=return_hidden)
+                                 batch["tokens"], return_hidden=return_hidden,
+                                 train=train)
     return T.forward_lm(params, batch["tokens"],
                         mrope_positions=batch.get("mrope_positions"),
-                        return_hidden=return_hidden)
+                        return_hidden=return_hidden, train=train)
+
+
+def head_weights(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The LM head as a (d, V_padded) matrix, as the reference's: the
+    embedding table's transpose when tied (a view), else the head's."""
+    _check_cfg(params, cfg)
+    if params.lm_head is None:
+        return params.embed.T
+    return params.lm_head.weight.T
 
 
 def make_cache(params: Params, cfg: ModelConfig, batch_size: int,

@@ -240,11 +240,10 @@ def _mlp_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig
 # =============================================================================
 # full-sequence forward and the generic decode
 # =============================================================================
-@torch.no_grad()
 def forward_lm(model: LM, tokens: Optional[torch.Tensor], *,
                mrope_positions: Optional[torch.Tensor] = None,
                inputs_embeds: Optional[torch.Tensor] = None,
-               return_hidden: bool = False
+               return_hidden: bool = False, train: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (b, s) int -> (logits (b, s, V_padded), aux ()); with
     ``return_hidden`` the final-normed hidden states (b, s, d) in place of
@@ -258,9 +257,26 @@ def forward_lm(model: LM, tokens: Optional[torch.Tensor], *,
     a multiple of ``ssm_chunk``; the hybrid runs each group of
     ``attn_every`` Mamba2 layers, then the shared attention (causal) and
     MLP.  No decode state is returned, as in the reference: a generation
-    replays the prompt through :func:`decode_step_lm`."""
+    replays the prompt through :func:`decode_step_lm`.
+
+    ``train`` (the training forward) records gradients, on CUDA through
+    the flash kernel's backward (the SSD scan has none yet: the SSM and
+    hybrid families train on the CPU only), with per-layer activation
+    checkpointing by ``cfg.remat`` / ``cfg.remat_policy``
+    (:func:`~repro_torch.models.layers.remat`; "collectives" checkpoints a
+    decoder layer's attention and MLP halves apart, keeping their outputs;
+    the SSM families recompute a layer, the hybrid a group with its shared
+    block); without it the forward runs under ``no_grad``."""
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
+    with L.grad_mode(train):
+        return _forward_lm(model, tokens, mrope_positions, inputs_embeds,
+                           return_hidden, train)
+
+
+def _forward_lm(model: LM, tokens, mrope_positions, inputs_embeds,
+                return_hidden: bool, train: bool):
+    cfg = model.cfg
     if inputs_embeds is not None:
         x = inputs_embeds.to(cfg.dtype)
     else:
@@ -268,24 +284,47 @@ def forward_lm(model: LM, tokens: Optional[torch.Tensor], *,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in _DENSE_BODY:
+        def attn(x, layer, w, cos, sin):
+            return L.attention_apply(layer.attn, layer.ln1(x), cos, sin,
+                                     window=w)
+
+        def mlp(x, layer):
+            return _mlp_residual(layer, x, cfg)
+
+        # "collectives" keeps each half's output: the halves checkpointed
+        # apart; any other policy checkpoints the layer whole
+        halves = cfg.remat_policy == "collectives"
+        if halves:
+            attn, mlp = L.remat(attn, cfg, train), L.remat(mlp, cfg, train)
+
+        def block(x, layer, w, cos, sin):
+            return mlp(x + attn(x, layer, w, cos, sin), layer)
+
+        if not halves:
+            block = L.remat(block, cfg, train)
         for layer, (w, (cos, sin)) in zip(
                 model.layers, _layer_specs(cfg, positions, mrope_positions)):
-            x = x + L.attention_apply(layer.attn, layer.ln1(x), cos, sin,
-                                      window=w)
-            x, a = _mlp_residual(layer, x, cfg)
+            x, a = block(x, layer, w, cos, sin)
             if a is not None:
                 aux = aux + a
     else:
         sh = model.shared
+        cos = sin = None
         if sh is not None:
             cos, sin = _rope_tables(cfg, positions)[0]
-        per = cfg.attn_every if sh is not None else cfg.n_layers
-        for g0 in range(0, cfg.n_layers, per):
-            for layer in model.layers[g0:g0 + per]:
+        per = cfg.attn_every if sh is not None else 1
+
+        def group(x, layers, cos, sin):
+            for layer in layers:
                 x = x + S.mamba2_apply(layer.mamba, layer.ln(x))
             if sh is not None:
                 x = x + L.attention_apply(sh.attn, sh.ln1(x), cos, sin)
                 x = x + sh.mlp(sh.ln2(x))
+            return x
+
+        group = L.remat(group, cfg, train)
+        for g0 in range(0, cfg.n_layers, per):
+            x = group(x, model.layers[g0:g0 + per], cos, sin)
     if return_hidden:
         return model.final_norm(x), aux
     return model.logits(x), aux

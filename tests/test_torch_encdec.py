@@ -186,16 +186,22 @@ def test_decode_matches_own_forward(pair, case):
 
 
 def test_training_forward_and_engines_refuse_encdec(pair):
-    """``forward(train=True)`` is not ported; the slot cache, the arena
+    """``forward(train=True)`` runs (the training slice ported it: the
+    same logits as the inference forward, with a graph; its parity is
+    ``tests/test_torch_train_families.py``'s); the slot cache, the arena
     and the engines (both layouts) refuse enc-dec, as the reference's
     ``supports_slots`` does."""
     model = pair[3]
     cfg = model.cfg
-    src = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="training"):
-        RT.forward(model, {"src_embeds": src,
-                           "tokens": torch.zeros(1, 4, dtype=torch.long)},
-                   cfg, train=True)
+    batch = {"src_embeds": torch.zeros(1, 4, cfg.d_model),
+             "tokens": torch.zeros(1, 4, dtype=torch.long)}
+    lg, _ = RT.forward(model, batch, cfg)
+    model.requires_grad_(True)
+    try:
+        lg_t, _ = RT.forward(model, batch, cfg, train=True)
+    finally:
+        model.requires_grad_(False)
+    assert lg_t.grad_fn is not None and torch.equal(lg_t, lg)
     assert not RT.supports_slots(cfg)
     with pytest.raises((AssertionError, NotImplementedError)):
         RT.make_slot_cache(cfg, 2, 16, device="cpu")

@@ -41,7 +41,11 @@ def test_importing_every_port_module_leaves_jax_out():
                 "repro_torch.obs.export", "repro_torch.obs.slo",
                 "repro_torch.obs.validate", "repro_torch.models.encdec",
                 "repro_torch.configs.seamless_m4t_large_v2",
-                "repro_torch.configs.qwen2_vl_7b"):
+                "repro_torch.configs.qwen2_vl_7b", "repro_torch.train",
+                "repro_torch.train.data", "repro_torch.train.optimizer",
+                "repro_torch.train.compression",
+                "repro_torch.train.train_loop",
+                "repro_torch.train.checkpoint", "repro_torch.launch.train"):
         assert mod in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

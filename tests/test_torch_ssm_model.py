@@ -24,6 +24,7 @@ from repro.models import registry as RJ
 from repro.models import ssm as SSMJ
 from repro.train.checkpoint import _flatten
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as SSDT
 from repro_torch.models import bridge
 from repro_torch.models import registry as RT
@@ -230,19 +231,30 @@ def test_decode_matches_forward(pair):
     _close(torch.stack(outs, dim=1), full.numpy(), TOL_DECODE_VS_FORWARD)
 
 
-def test_forward_on_cpu_launches_nothing_and_checks_its_arguments(pair):
+def test_forward_on_cpu_launches_nothing_and_checks_its_arguments(
+        pair, monkeypatch):
     """On the CPU the forward takes the plain scan and launches no kernel;
-    a config mismatch and the training forward raise."""
+    a config mismatch raises.  The training forward runs on the CPU (the
+    same logits, with a graph); on CUDA, where the scan has no backward
+    kernel yet, it raises before any launch."""
     arch, cfg_j, p_j, model, step_j = pair
     before = SSDT.ssd_chunked.launches
-    RT.forward(model, {"tokens": torch.tensor(_tokens(cfg_j))}, model.cfg)
+    toks = {"tokens": torch.tensor(_tokens(cfg_j))}
+    lg, _ = RT.forward(model, toks, model.cfg)
     assert SSDT.ssd_chunked.launches == before
     with pytest.raises(ValueError, match="not the config"):
         RT.forward(model, {"tokens": torch.zeros(1, 8, dtype=torch.long)},
                    model.cfg.with_(n_layers=model.cfg.n_layers + 2))
-    with pytest.raises(NotImplementedError, match="training"):
-        RT.forward(model, {"tokens": torch.zeros(1, 8, dtype=torch.long)},
-                   model.cfg, train=True)
+    model.requires_grad_(True)
+    try:
+        lg_t, _ = RT.forward(model, toks, model.cfg, train=True)
+        assert lg_t.grad_fn is not None and torch.equal(lg_t, lg)
+        assert SSDT.ssd_chunked.launches == before
+        monkeypatch.setattr(ops, "_on_cuda", lambda name, q: True)
+        with pytest.raises(NotImplementedError, match="A11b"):
+            RT.forward(model, toks, model.cfg, train=True)
+    finally:
+        model.requires_grad_(False)
 
 
 def test_generic_entry_points_refuse_unported_dense_options():
