@@ -143,21 +143,29 @@ Phases, each printing its result lines:
    attention widths (``BWD_CASES``: qwen3-1.7b 4 x 1024, gemma3 with and
    without its window, glm4's g = 16, qwen2's g = 7, seamless full and
    cross, zamba2 1 x 4096, a ragged 1000), each timed beside the plain
-   backward, one SDPA backward and its bound; (b) four SMOKE configs
-   (dense, MoE, VL with M-RoPE positions, enc-dec) trained on the card
-   against the CPU from the same weights; (c) qwen3-1.7b at full width in
-   f32, 4 steps of 4 x 1024 tokens (28 backward and 56 forward flash
-   launches a step, ms a step, tokens/s, peak memory, a profiled step),
-   then a checkpoint resume at its widths cut to 2 layers; (d) the SSM
-   and hybrid families' training forward on CUDA refused;
+   backward, one SDPA backward and its bound; then the SSD scan's forward
+   with its chunk states and its backward (``csrc/ssd_backward.cu``)
+   against autograd through the plain scan, dx / ddt / dA / dB / dC in
+   f32 and bf16 (``SSD_BWD_CASES``: mamba2's and zamba2's training shape
+   4 x 1024, mamba2 1 x 4096 with 32-column slices, a SMOKE shape, a G =
+   2 case), each timed beside the plain backward and its bound; (b) six
+   SMOKE configs (dense, MoE, VL with M-RoPE positions, enc-dec, SSM,
+   hybrid) trained on the card against the CPU from the same weights; (c)
+   qwen3-1.7b at full width in f32, 4 steps of 4 x 1024 tokens (28
+   backward and 56 forward flash launches a step, ms a step, tokens/s,
+   peak memory, a profiled step), then a checkpoint resume at its widths
+   cut to 2 layers; then mamba2-2.7b (64 backward and 128 forward scan
+   launches a step) and zamba2-2.7b (54 and 108, and 9 and 18 flash) at
+   full width in f32 the same way;
 18. the ``kernels`` line: every ported kernel with its launches on the main
    paths that run it (phases 3, 9, 11a, 12, 14 and 15 for the paged kernels,
    phases 4, 11b, 13, 14d, 16b-d for the contiguous decode and, with
    17b-c, the f32 contiguous prefill, whose record is the slotted serve's
-   1024-token shape, phase 7 for the scan, phase 8's, phase 12's, phase
-   14b's and phase 16's forwards for the bf16 contiguous prefill, whose
-   record is phase 8's forward shape, phases 17b-c for the backward, whose
-   record is the full-width training step's shape).
+   1024-token shape, phases 7 and 17b-c for the scan, phase 8's, phase
+   12's, phase 14b's and phase 16's forwards for the bf16 contiguous
+   prefill, whose record is phase 8's forward shape, phases 17b-c for the
+   two backwards, whose records are the full-width training steps'
+   shapes).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is ``{"ok": true, "device": {...}}``.
@@ -687,6 +695,7 @@ def _kernel_cases(cases, headlines: dict) -> dict:
 SSD_SHAPES = {"mamba2": dict(H=80, P=64, G=1, N=128, chunk=128),
               "zamba2": dict(H=80, P=64, G=1, N=64, chunk=128),
               "grouped": dict(H=80, P=64, G=8, N=64, chunk=128),
+              "g2": dict(H=80, P=64, G=2, N=64, chunk=128),
               "smoke": dict(H=16, P=8, G=1, N=8, chunk=8)}
 # (model, b, s, dtype name); the mamba2 bf16 case at 4 x 4096 is the shape
 # of the SSM phase's forward, the headline of the kernels line
@@ -1338,6 +1347,7 @@ def _counters() -> dict:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SSD
     return {"ssd_chunked": SSD.ssd_chunked,
+            "ssd_chunked_bwd": SSD.ssd_chunked_bwd,
             "flash_attention": FA.flash_attention,
             "flash_attention_bwd": FA.flash_attention_bwd,
             "decode_attention": DA.decode_attention}
@@ -3393,8 +3403,8 @@ def phase_encdec_vl_parity() -> dict:
 
 
 # =============================================================================
-# phase 17: training — the flash backward kernel, train steps card against
-# CPU, qwen3-1.7b at full width, the SSM refusal
+# phase 17: training — the flash and SSD backward kernels, train steps card
+# against CPU, qwen3-1.7b, mamba2-2.7b and zamba2-2.7b at full width
 # =============================================================================
 # (attention shape, sq, skv, causal, window) of the backward's cases: the
 # training paths' attention at each family's widths
@@ -3568,6 +3578,163 @@ def phase_train_kernels() -> dict:
     return records
 
 
+# the SSD scan's gradient (model of SSD_SHAPES, b, s), each in f32 and
+# bf16: mamba2's and zamba2's full-width training step (4 x 1024), mamba2
+# 1 x 4096 (its forward cuts P into 32-column slices), a SMOKE shape (c 8)
+# and a G = 2 case
+SSD_BWD_CASES = (("mamba2", 4, 1024), ("zamba2", 4, 1024),
+                 ("mamba2", 1, 4096), ("smoke", 2, 64), ("g2", 2, 1024))
+# the scan's backward against autograd through the plain scan: the largest
+# |difference| over the plain gradient's largest magnitude, per gradient.
+# f32: BWD_TOL's 1e-4 (orders of summation; the plain version's f32
+# cumsum of dt A, whose rounding exp turns into relative error, where the
+# kernel takes it in f64): on the H100 the readings reach 4.5e-5 (ddt).
+# bf16: both widen the bf16 inputs and sum in f32, and round dx, dB and
+# dC to bf16 (relative 2**-8); the limit is set by the plain version's
+# own spread between bf16 inputs and the f32 inputs they were rounded
+# from, which phase 17a prints beside each case: 1.9e-3 to 6.1e-3 at
+# these shapes on the card, the kernel up to 2.7e-3 from the plain
+# version; the limit is about three times the largest spread
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def _ssd_fwd_ops(b: int, s: int, H: int, P: int, N: int, c: int) -> float:
+    """Flops of the scan's forward (phase 7's count: the within-chunk
+    products on the c (c + 1) / 2 pairs j <= i, the state products)."""
+    return b * H * (s // c) * (c * (c + 1) * (N + P) + 4 * c * N * P)
+
+
+def _ssd_bwd_ops(b: int, s: int, H: int, P: int, N: int, c: int) -> float:
+    """Flops of the scan's gradient: per (head, chunk) c (c + 1) / 2 (2 P +
+    3 N) multiply-adds within the chunk (dy X^T, S, dC, dB, dX on the pairs
+    j <= i) and 4 c P N for the states' (dy C^T, dy h0, X dh1, dh1 B)."""
+    return 2 * b * H * (s // c) * (c * (c + 1) // 2 * (2 * P + 3 * N)
+                                   + 4 * c * P * N)
+
+
+def phase_train_ssd_kernels() -> dict:
+    """Phase 17a, the scan: the SSD forward with its chunk states and its
+    backward (``ssd_chunked_bwd``, ``csrc/ssd_backward.cu``) against
+    autograd through ``ssd_chunked_ref`` at ``SSD_BWD_CASES``, f32 and
+    bf16: the chunk states within ``SSD_TOL`` of the plain forward's, each
+    of dx, ddt, dA, dB and dC within ``SSD_BWD_TOL`` of the plain one's
+    largest magnitude.  Prints, for each case, the backward's time, the
+    plain backward's and the bound (no single PyTorch call computes the
+    scan or its gradient, so there is no library time), and the forward's
+    with and without the states.  The bound: ``_ssd_bwd_ops`` over the
+    peak for the input type (f32: the CUDA cores' 67 TFLOP/s, where this
+    kernel computes), or the bytes (x, B, C, dt, A, dy and the chunk
+    states read, dx, ddt, dA, dB and dC written) over 3.35 TB/s.  Returns
+    the record of mamba2's 4 x 1024 f32 case, the full-width training
+    step's shape."""
+    import torch
+    from repro_torch.kernels import ref as REF
+    from repro_torch.kernels import ssd_scan as SSD
+    records = {}
+    for i, (model, b, s) in enumerate(SSD_BWD_CASES):
+        chunk = SSD_SHAPES[model]["chunk"]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            # f32 draws, x, B and C rounded for bf16: the spread below reads
+            # the plain version on the unrounded inputs
+            x32 = _ssd_case(model, b, s, torch.float32, seed=300 + i)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(400 + i)
+            dy = torch.randn(x32[0].shape, device="cuda", generator=gen)
+            args = tuple(t.to(dtype) if j in (0, 3, 4) else t
+                         for j, t in enumerate(x32))
+            x, dt, A, B, C = args
+            H, P, G, N = x.shape[2], x.shape[3], B.shape[2], B.shape[3]
+            label = (f"{model} b={b} s={s} H={H} P={P} G={G} N={N} "
+                     f"c={chunk} {dname}")
+            _, _, states = SSD.ssd_chunked(*args, chunk=chunk,
+                                           return_states=True)
+            grads = SSD.ssd_chunked_bwd(*args, states, dy, chunk=chunk)
+            torch.cuda.synchronize()
+            _, _, states_ref = REF.ssd_chunked_ref(*args, chunk,
+                                                   return_states=True)
+            st_err = (states - states_ref).abs().max().item()
+            st_lim = SSD_TOL * states_ref.abs().max().item()
+            _check(st_err <= st_lim, f"ssd_chunked states {label}: max "
+                                     f"|err| {st_err:.3g} beyond {st_lim:.3g}")
+            # the backward on the plain forward's chunk states: what of its
+            # error the tensor-core forward's states bring
+            grads_ps = SSD.ssd_chunked_bwd(*args, states_ref, dy, chunk=chunk)
+            del states_ref
+
+            def plain_grads(args):
+                leaves = [t.detach().requires_grad_() for t in args]
+                y, _ = REF.ssd_chunked_ref(*leaves, chunk)
+                return y, leaves, torch.autograd.grad(y, leaves, dy,
+                                                      retain_graph=True)
+            y_ref, leaves, ref = plain_grads(args)
+            errs, abs_err = [], 0.0
+            errs_ps = [(g.float() - w.float()).abs().max().item()
+                       / w.float().abs().max().item()
+                       for g, w in zip(grads_ps, ref)]
+            del grads_ps
+            for name, got, want in zip(SSD_GRADS, grads, ref):
+                _check(got.dtype == want.dtype and got.shape == want.shape,
+                       f"ssd_chunked_bwd {label}: {name} {got.dtype} "
+                       f"{tuple(got.shape)}")
+                _check(bool(torch.isfinite(got).all()),
+                       f"ssd_chunked_bwd {label}: non-finite {name}")
+                diff = (got.float() - want.float()).abs().max().item()
+                err = diff / want.float().abs().max().item()
+                abs_err = max(abs_err, diff)
+                _check(err <= SSD_BWD_TOL[dname],
+                       f"ssd_chunked_bwd {label}: {name} off by {err:.3g} of "
+                       f"its largest magnitude (limit {SSD_BWD_TOL[dname]})")
+                errs.append(err)
+            spread = ""
+            if dtype == torch.bfloat16:
+                ref32 = plain_grads(x32)[2]
+                spreads = [(a.float() - w).abs().max().item()
+                           / w.abs().max().item() for a, w in zip(ref, ref32)]
+                spread = (", plain bf16-vs-f32 spread " + " ".join(
+                    f"{n} {v:.3g}" for n, v in zip(SSD_GRADS, spreads)))
+                del ref32
+            errs_s = " ".join(f"{n} {e:.3g}" for n, e in zip(SSD_GRADS, errs))
+            ps_s = " ".join(f"{n} {e:.3g}" for n, e in zip(SSD_GRADS, errs_ps))
+            print(f"kernel ssd_chunked_bwd {label}: max err / max |plain| "
+                  f"{errs_s} (limit {SSD_BWD_TOL[dname]}{spread}; on the "
+                  f"plain forward's chunk states {ps_s}); max_abs_err "
+                  f"{abs_err:.3g}; chunk states max |err| {st_err:.3g} "
+                  f"(limit {st_lim:.3g})")
+            bwd_ms = _time_ms(lambda: SSD.ssd_chunked_bwd(
+                *args, states, dy, chunk=chunk), reps=10, warmup=2)
+            plain_ms = _time_ms(lambda: torch.autograd.grad(
+                y_ref, leaves, dy, retain_graph=True), reps=3, warmup=1)
+            fwd_ms = _time_ms(lambda: SSD.ssd_chunked(*args, chunk=chunk),
+                              reps=10, warmup=2)
+            fwd_st_ms = _time_ms(lambda: SSD.ssd_chunked(
+                *args, chunk=chunk, return_states=True), reps=10, warmup=2)
+            elt = x.element_size()
+            n_bytes = (2 * elt * (x.numel() + B.numel() + C.numel())
+                       + 4 * (2 * dt.numel() + 2 * A.numel() + dy.numel()
+                              + states.numel()))
+            n_ops = _ssd_bwd_ops(b, s, H, P, N, chunk)
+            bound_ms, bound_by = _bound_ms(n_bytes, n_ops, dname,
+                                           "ssd_chunked_bwd")
+            cc_ms, _ = _bound_ms(n_bytes, n_ops, dname, "ssd_chunked_bwd",
+                                 "float32")
+            print(f"kernel ssd_chunked_bwd {label}: backward ms {bwd_ms:.4f} "
+                  f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} "
+                  f"({bound_by}; {n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f}"
+                  f" MB; at the CUDA cores' f32 peak {cc_ms:.5f}); no single "
+                  f"PyTorch call computes it; forward ms {fwd_ms:.4f}, with "
+                  f"the chunk states {fwd_st_ms:.4f}")
+            if i == 0 and dtype == torch.float32:
+                records["ssd_chunked_bwd"] = {
+                    "max_abs_err": abs_err, "ms": bwd_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None}
+            del x32, dy, args, x, B, C, states, grads, y_ref, leaves, ref
+            torch.cuda.empty_cache()
+    return records
+
+
 # the SMOKE training on the card against the CPU (f32).  The first
 # step's gradients: within GRAD_TOL of each leaf's largest magnitude (the
 # sums run in another order).  After three steps and an accum-2 step:
@@ -3585,9 +3752,15 @@ TRAIN_TOL = (2e-4, 2e-5)
 TRAIN_OFF = 1e-3
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100)
 TRAIN_SMOKE = ("qwen3-1.7b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
-               "seamless-m4t-large-v2")
-# phase 17c: qwen3-1.7b at full width in f32, 4 x 1024 tokens a step
+               "seamless-m4t-large-v2", "mamba2-2.7b", "zamba2-2.7b")
+# phase 17c: qwen3-1.7b, mamba2-2.7b and zamba2-2.7b at full width in f32,
+# 4 x 1024 tokens a step
 TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, TRAIN_FULL_STEPS = 4, 1024, 4
+# the SSM and hybrid steps' optimizer: zamba2 starts near the uniform loss
+# (ln 32000 = 10.37), and at TRAIN_OPT's lr 1e-3 its first AdamW steps
+# raise the loss; at 1e-4 both models' losses fall over the first steps
+# (scripts/train_lr_sensitivity.py prints the losses at 1e-3 down to 3e-5)
+TRAIN_SSM_OPT = dict(TRAIN_OPT, lr=1e-4)
 
 
 def _train_batch(cfg, b: int, s: int, step: int, device) -> dict:
@@ -3639,17 +3812,19 @@ def _first_grads(cfg, model, device) -> dict:
 
 def phase_train_parity() -> dict:
     """Phase 17b: the SMOKE configs of ``TRAIN_SMOKE`` (dense, MoE, VL with
-    M-RoPE positions, enc-dec) in f32, from the same seeded weights on the
-    card and on the CPU: the first step's gradients within ``GRAD_TOL``,
-    then three train steps and one accum-2 step, every loss within 1e-5
-    relative and the parameters within ``TRAIN_TOL`` but for at most
-    ``TRAIN_OFF`` of them, each within 2 ``lr`` a step.  Returns the
-    card's launches."""
+    M-RoPE positions, enc-dec, SSM, hybrid) in f32, from the same seeded
+    weights on the card and on the CPU: the first step's gradients within
+    ``GRAD_TOL``, then three train steps and one accum-2 step, every loss
+    within 1e-5 relative and the parameters within ``TRAIN_TOL`` but for
+    at most ``TRAIN_OFF`` of them, each within 2 ``lr`` a step; each
+    config's attention (flash) and scan (ssd_chunked) forward and backward
+    launched on the card.  Returns the card's launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import registry as R
-    counts = {"flash_attention_f32": 0, "flash_attention_bwd": 0}
+    counts = {"flash_attention_f32": 0, "flash_attention_bwd": 0,
+              "ssd_chunked": 0, "ssd_chunked_bwd": 0}
     for arch in TRAIN_SMOKE:
         cfg = get_smoke_config(arch).with_(dtype=torch.float32)
         cpu = R.init_params(cfg, seed=5, device="cpu")
@@ -3665,10 +3840,15 @@ def phase_train_parity() -> dict:
                                   f"{g_err:.3g} of a leaf's largest")
         lg, pg = _train_run(cfg, gpu, "cuda")
         n = _counts()
-        _check(n["flash_attention_bwd"] > 0 and n["flash_attention"] > 0,
-               f"train parity {arch}: launches {n}")
+        kernels = ((("flash_attention", "flash_attention_bwd")
+                    if cfg.n_heads else ())
+                   + (("ssd_chunked", "ssd_chunked_bwd")
+                      if cfg.ssm_state else ()))
+        _check(all(n[k] > 0 for k in kernels),
+               f"train parity {arch}: launches {n}, expected {kernels}")
         counts["flash_attention_f32"] += n["flash_attention"]
-        counts["flash_attention_bwd"] += n["flash_attention_bwd"]
+        for k in ("flash_attention_bwd", "ssd_chunked", "ssd_chunked_bwd"):
+            counts[k] += n[k]
         lc, pc = _train_run(cfg, cpu, "cpu")
         _check(np.allclose(lg, lc, rtol=1e-5, atol=0),
                f"train parity {arch}: losses {lg} on the card, {lc} on the "
@@ -3694,6 +3874,75 @@ def phase_train_parity() -> dict:
     return counts
 
 
+def _train_full_steps(tag: str, cfg, opt_kw: dict, per_step: dict,
+                      flops_fn, parts: dict):
+    """``TRAIN_FULL_STEPS`` steps of ``cfg`` in f32 at full width, AdamW
+    with ``opt_kw``, weights from the port's seeded init, full activation
+    checkpointing, on
+    ``TRAIN_FULL_BATCH`` x ``TRAIN_FULL_SEQ`` tokens of the synthetic
+    stream: each loss finite and the last below the first, each kernel of
+    ``per_step`` launched exactly that often a step; prints ms a step,
+    tokens/s, the step's bound at the CUDA cores' f32 peak
+    (``flops_fn(model)`` operations a step), peak memory and a profiled
+    step's device time with the kernels ``parts`` picks.  Returns (the
+    timed steps' launches, the model, the train state, the step)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as R
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_loop as TL
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, seed=0)
+    opt = O.AdamWConfig(**opt_kw)
+    state = TL.make_train_state(model, opt)
+    step = TL.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{tag}: {cfg.name} {n_params / 1e6:.1f} M params f32, remat "
+          f"{cfg.remat_policy}, lr {opt.lr:g}, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    b, s = TRAIN_FULL_BATCH, TRAIN_FULL_SEQ
+    batches = [_train_batch(cfg, b, s, i, "cuda")
+               for i in range(TRAIN_FULL_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, walls = [], []
+    for i in range(TRAIN_FULL_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, batches[i])
+        losses.append(m["loss"].item())            # waits for the step
+        walls.append(time.perf_counter() - t)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"{tag}: losses {losses}")
+    for name, n in per_step.items():
+        want = n * TRAIN_FULL_STEPS
+        _check(counts[name] == want, f"{tag}: {counts[name]} {name} launches "
+                                     f"in {TRAIN_FULL_STEPS} steps, expected "
+                                     f"{want}")
+    steady = walls[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    flops = flops_fn(model)
+    bound_ms = flops / PEAK_OPS_S["float32"] * 1e3
+    t = time.perf_counter()
+    state, m = step(state, batches[-1])
+    m["loss"].item()
+    t_wall = time.perf_counter() - t
+    device = _device_profile(lambda: step(state, batches[-1]), 1, t_wall,
+                             parts)
+    per = ", ".join(f"{n} {k}" for k, n in per_step.items())
+    print(f"{tag}: {TRAIN_FULL_STEPS} steps of {b} x {s} tokens, losses "
+          f"{[round(x, 4) for x in losses]}; steps {[round(w * 1e3, 1) for w in walls]} "
+          f"ms (the first with the warm-up), {ms:.1f} ms a step, "
+          f"{b * s / ms * 1e3:.1f} tokens/s ({flops / 1e12:.1f} TFLOP a "
+          f"step: bound {bound_ms:.1f} ms at the f32 peak, "
+          f"{bound_ms / ms:.3f} of it); peak device memory {peak:.2f} "
+          f"GiB; launches {counts} ({per} a step); a profiled step "
+          f"({t_wall * 1e3:.1f} ms wall): {device}")
+    return counts, model, state, step
+
+
 def phase_train_full(smi: str) -> dict:
     """Phase 17c: qwen3-1.7b at full width (28 layers, 1.72 B params) in
     f32, as ``launch/train`` casts it, weights from the port's seeded
@@ -3717,66 +3966,26 @@ def phase_train_full(smi: str) -> dict:
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_loop as TL
     cfg = get_config("qwen3-1.7b").with_(dtype=torch.float32)
-    tag = f"train full [{smi}]"
-    t0 = time.perf_counter()
-    model = R.init_params(cfg, seed=0)
-    opt = O.AdamWConfig(**TRAIN_OPT)
-    state = TL.make_train_state(model, opt)
-    step = TL.make_train_step(cfg, opt)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"{tag}: {cfg.name} {n_params / 1e6:.1f} M params f32, remat "
-          f"{cfg.remat_policy}, init {time.perf_counter() - t0:.1f} s")
     b, s, L = TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, cfg.n_layers
-    batches = [_train_batch(cfg, b, s, i, "cuda")
-               for i in range(TRAIN_FULL_STEPS + 1)]
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    losses, walls = [], []
-    for i in range(TRAIN_FULL_STEPS):
-        t = time.perf_counter()
-        state, m = step(state, batches[i])
-        losses.append(m["loss"].item())            # waits for the step
-        walls.append(time.perf_counter() - t)
-    counts = _counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-           f"{tag}: losses {losses}")
-    want = {"flash_attention_bwd": L * TRAIN_FULL_STEPS,
-            "flash_attention": 2 * L * TRAIN_FULL_STEPS}
-    for name, n in want.items():
-        _check(counts[name] == n, f"{tag}: {counts[name]} {name} launches in "
-                                  f"{TRAIN_FULL_STEPS} steps, expected {n}")
-    steady = walls[1:]
-    ms = 1e3 * sum(steady) / len(steady)
-    # the step's operations: every product of the forward, of its
-    # recompute and of the backward (twice the forward's) — 8 flops a
-    # parameter a token for the layers' products and the tied head — and
-    # the attention's 4 dh (forward, twice) + 10 dh (backward) a visible
-    # (query head, key) pair; its bound at the CUDA cores' f32 peak (the
-    # f32 products do not use the tensor cores: TF32 is off)
-    n_embed = model.embed.numel()
-    pairs = b * cfg.n_heads * s * (s + 1) // 2
-    flops = (8 * (n_params - n_embed) * b * s + 8 * n_embed * b * s
-             + 18 * cfg.d_head * pairs * L)
-    bound_ms = flops / PEAK_OPS_S["float32"] * 1e3
-    t = time.perf_counter()
-    state, m = step(state, batches[-1])
-    m["loss"].item()
-    t_wall = time.perf_counter() - t
-    device = _device_profile(lambda: step(state, batches[-1]), 1, t_wall, {
-        "flash forward": lambda key: "flash_tc_kernel" in key,
-        "flash backward": lambda key: "flash_bwd" in key})
-    print(f"{tag}: {TRAIN_FULL_STEPS} steps of {b} x {s} tokens, losses "
-          f"{[round(x, 4) for x in losses]}; steps {[round(w * 1e3, 1) for w in walls]} "
-          f"ms (the first with the warm-up), {ms:.1f} ms a step, "
-          f"{b * s / ms * 1e3:.1f} tokens/s ({flops / 1e12:.1f} TFLOP a "
-          f"step: bound {bound_ms:.1f} ms at the f32 peak, "
-          f"{bound_ms / ms:.3f} of it); peak device memory {peak:.2f} "
-          f"GiB; launches {counts} ({L} backward and {2 * L} forward a "
-          f"step); a profiled step ({t_wall * 1e3:.1f} ms wall): {device}")
-    del state, step, model, batches, m
+
+    def flops(model):
+        # every product of the forward, of its recompute and of the
+        # backward (twice the forward's) — 8 flops a parameter a token for
+        # the layers' products and the tied head — and the attention's 4
+        # dh (forward, twice) + 10 dh (backward) a visible (query head,
+        # key) pair; its bound at the CUDA cores' f32 peak (the f32
+        # products do not use the tensor cores: TF32 is off)
+        n_params = sum(p.numel() for p in model.parameters())
+        pairs = b * cfg.n_heads * s * (s + 1) // 2
+        return 8 * n_params * b * s + 18 * cfg.d_head * pairs * L
+    counts, model, state, step = _train_full_steps(
+        f"train full [{smi}]", cfg, TRAIN_OPT,
+        {"flash_attention_bwd": L, "flash_attention": 2 * L}, flops, {
+            "flash forward": lambda key: "flash_tc_kernel" in key,
+            "flash backward": lambda key: "flash_bwd" in key})
+    del state, step, model
     torch.cuda.empty_cache()
+    opt = O.AdamWConfig(**TRAIN_OPT)
 
     # the resume check at qwen3-1.7b's widths cut to 2 layers
     small = cfg.with_(n_layers=2)
@@ -3822,27 +4031,57 @@ def phase_train_full(smi: str) -> dict:
             "flash_attention_bwd": counts["flash_attention_bwd"]}
 
 
-def phase_train_refusal() -> None:
-    """Phase 17d: a training forward of the SSM and hybrid families on
-    CUDA raises ``NotImplementedError`` (the SSD scan has no backward
-    kernel yet, ROADMAP A11b)."""
+def phase_train_full_ssm(smi: str) -> dict:
+    """Phase 17c, the scan: mamba2-2.7b (64 Mamba2 layers, 2.7 B params)
+    and then zamba2-2.7b (54 Mamba2 layers and the shared attention + MLP
+    block after every 6) at full width in f32, as ``launch/train`` casts
+    them, ``TRAIN_FULL_STEPS`` steps of 4 x 1024 tokens with full
+    activation checkpointing, as ``phase_train_full``: per step exactly one
+    scan backward and two scan forwards a Mamba2 layer (the forward and its
+    recompute), and for zamba2 one flash backward and two forwards a shared
+    block application; ms a step, tokens/s, peak memory and a profiled
+    step's idle share and the scan backward's share of busy time; AdamW
+    at ``TRAIN_SSM_OPT``'s lr.  Returns the timed steps' launches."""
     import torch
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models import registry as R
+    from repro_torch.configs import get_config
+    b, s = TRAIN_FULL_BATCH, TRAIN_FULL_SEQ
+    launches = {"ssd_chunked": 0, "ssd_chunked_bwd": 0,
+                "flash_attention_f32": 0, "flash_attention_bwd": 0}
     for arch in ("mamba2-2.7b", "zamba2-2.7b"):
-        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
-        model = R.init_params(cfg, seed=0).requires_grad_(True)
-        batch = _train_batch(cfg, 2, 2 * cfg.ssm_chunk, 0, "cuda")
-        try:
-            R.forward(model, batch, cfg, train=True)
-        except NotImplementedError as e:
-            _check("A11b" in str(e), f"train refusal {arch}: {e}")
-            print(f"train refusal {arch}: NotImplementedError ({e})")
-        else:
-            raise AssertionError(f"train refusal {arch}: the training "
-                                 f"forward ran on CUDA")
-        lg, _ = R.forward(model, batch, cfg)           # inference still runs
-        _check(bool(torch.isfinite(lg).all()), f"{arch}: inference forward")
+        cfg = get_config(arch).with_(dtype=torch.float32)
+        L, H, P, N, c = (cfg.n_layers, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state, cfg.ssm_chunk)
+        G = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        per_step = {"ssd_chunked_bwd": L, "ssd_chunked": 2 * L,
+                    "flash_attention_bwd": G, "flash_attention": 2 * G}
+
+        def flops(model, cfg=cfg, L=L, H=H, P=P, N=N, c=c, G=G):
+            # 8 flops a parameter a token (the shared block's counted at
+            # each of its G applications), the scan's forward twice and
+            # its backward a layer, and the shared attention's 18 dh a
+            # visible (query head, key) pair
+            n_params = sum(p.numel() for p in model.parameters())
+            if G:
+                n_params += (G - 1) * sum(p.numel()
+                                          for p in model.shared.parameters())
+            pairs = b * cfg.n_heads * s * (s + 1) // 2
+            return (8 * n_params * b * s
+                    + L * (2 * _ssd_fwd_ops(b, s, H, P, N, c)
+                           + _ssd_bwd_ops(b, s, H, P, N, c))
+                    + 18 * cfg.d_head * pairs * G)
+        counts, model, state, step = _train_full_steps(
+            f"train full [{smi}]", cfg, TRAIN_SSM_OPT, per_step, flops, {
+                "ssd forward": lambda key: "ssd_kernel" in key,
+                "ssd backward": lambda key: "ssd_bwd" in key,
+                "flash forward": lambda key: "flash_tc_kernel" in key,
+                "flash backward": lambda key: "flash_bwd" in key})
+        launches["ssd_chunked"] += counts["ssd_chunked"]
+        launches["ssd_chunked_bwd"] += counts["ssd_chunked_bwd"]
+        launches["flash_attention_f32"] += counts["flash_attention"]
+        launches["flash_attention_bwd"] += counts["flash_attention_bwd"]
+        del state, step, model
+        torch.cuda.empty_cache()
+    return launches
 
 
 # =============================================================================
@@ -3871,6 +4110,10 @@ KERNELS = (
      "src/repro_torch/kernels/csrc/flash_backward.cu",
      "the gradient of src/repro/kernels/flash_attention.py:80 (the "
      "reference differentiates jnp blocked_attention; no Pallas backward)"),
+    ("ssd_chunked_bwd",
+     "src/repro_torch/kernels/csrc/ssd_backward.cu",
+     "the gradient of src/repro/kernels/ssd_scan.py:72 (the reference "
+     "differentiates jnp ssd_ref; no Pallas backward)"),
 )
 
 
@@ -3931,10 +4174,12 @@ def main() -> int:
     t19 = time.perf_counter()
     torch.cuda.empty_cache()
     records.update(phase_train_kernels())
+    records.update(phase_train_ssd_kernels())
     launches["flash_attention_bwd"] = 0
+    launches["ssd_chunked_bwd"] = 0
     train_parity = phase_train_parity()
     train_full = phase_train_full(smi)
-    phase_train_refusal()
+    train_full_ssm = phase_train_full_ssm(smi)
     t20 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
@@ -3960,7 +4205,8 @@ def main() -> int:
                     + list(encdec_vl_parity.items())):
         launches[name] += n
     # training: the SMOKE steps on the card and the full-width steps
-    for name, n in list(train_parity.items()) + list(train_full.items()):
+    for name, n in (list(train_parity.items()) + list(train_full.items())
+                    + list(train_full_ssm.items())):
         launches[name] += n
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "

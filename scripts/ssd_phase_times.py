@@ -38,8 +38,9 @@ extern "C" int run_ssd(int bf16, const void* x, const float* dt,
                        const float* A, const void* B, const void* C, float* y,
                        float* st, int b, int s, int H, int P, int G, int N,
                        int chunk, int ps, void* stream) {
-  return (int)repro_torch::launch_ssd(bf16, x, dt, A, B, C, y, st, b, s, H, P,
-                                      G, N, chunk, ps, (cudaStream_t)stream);
+  return (int)repro_torch::launch_ssd(bf16, x, dt, A, B, C, y, st, nullptr, b,
+                                      s, H, P, G, N, chunk, ps,
+                                      (cudaStream_t)stream);
 }
 """
 # variant -> (text in ssd_scan.cu, its replacement)

@@ -1,9 +1,9 @@
-// PyTorch binding of the attention kernels and the SSD scan — the only
-// source that includes PyTorch's headers.  The Python wrappers
-// (kernels/paged_attention.py, kernels/flash_attention.py,
-// kernels/decode_attention.py, kernels/ssd_scan.py) have already
-// checked device, dtype, shape and contiguity; this file launches on
-// PyTorch's current stream and checks the launch.
+// PyTorch binding of the attention kernels and the SSD scan, and of their
+// gradients — the only source that includes PyTorch's headers.  The Python
+// wrappers (kernels/paged_attention.py, kernels/flash_attention.py,
+// kernels/decode_attention.py, kernels/ssd_scan.py) have already checked
+// device, dtype, shape and contiguity; this file launches on PyTorch's
+// current stream and checks the launch.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -97,15 +97,41 @@ void flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// states: an empty tensor when the caller needs none
 void ssd(const torch::Tensor& x, const torch::Tensor& dt,
          const torch::Tensor& A, const torch::Tensor& B, const torch::Tensor& C,
-         torch::Tensor y, torch::Tensor state, int64_t chunk, int64_t ps) {
+         torch::Tensor y, torch::Tensor state, torch::Tensor states,
+         int64_t chunk, int64_t ps) {
   const c10::cuda::CUDAGuard guard(x.device());
   C10_CUDA_CHECK(repro_torch::launch_ssd(
       x.scalar_type() == at::kBFloat16, x.data_ptr(), dt.data_ptr<float>(),
       A.data_ptr<float>(), B.data_ptr(), C.data_ptr(), y.data_ptr<float>(),
-      state.data_ptr<float>(), x.size(0), x.size(1), x.size(2), x.size(3),
-      B.size(2), B.size(3), chunk, ps, at::cuda::getCurrentCUDAStream()));
+      state.data_ptr<float>(), scratch(states), x.size(0), x.size(1),
+      x.size(2), x.size(3), B.size(2), B.size(3), chunk, ps,
+      at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// dstate: an empty tensor for a zero gradient of the final state
+void ssd_bwd(const torch::Tensor& x, const torch::Tensor& dt,
+             const torch::Tensor& A, const torch::Tensor& B,
+             const torch::Tensor& C, const torch::Tensor& states,
+             const torch::Tensor& dy, const torch::Tensor& dstate,
+             torch::Tensor dh1, torch::Tensor dx, torch::Tensor ddt,
+             torch::Tensor dA_part, torch::Tensor dB_part,
+             torch::Tensor dC_part, torch::Tensor dA, torch::Tensor dB,
+             torch::Tensor dC, int64_t chunk, int64_t ps) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(repro_torch::launch_ssd_bwd(
+      x.scalar_type() == at::kBFloat16, x.data_ptr(), dt.data_ptr<float>(),
+      A.data_ptr<float>(), B.data_ptr(), C.data_ptr(),
+      states.data_ptr<float>(), dy.data_ptr<float>(),
+      dstate.numel() ? dstate.data_ptr<float>() : nullptr,
+      dh1.data_ptr<float>(), dx.data_ptr(), ddt.data_ptr<float>(),
+      dA_part.data_ptr<float>(), dB_part.data_ptr<float>(),
+      dC_part.data_ptr<float>(), dA.data_ptr<float>(), dB.data_ptr(),
+      dC.data_ptr(), x.size(0), x.size(1), x.size(2), x.size(3), B.size(2),
+      B.size(3), chunk, ps, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -120,4 +146,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_bwd", &flash_bwd,
         "gradient of the contiguous flash attention (CUDA)");
   m.def("ssd", &ssd, "Mamba2 SSD chunked scan (CUDA)");
+  m.def("ssd_bwd", &ssd_bwd, "gradient of the Mamba2 SSD chunked scan (CUDA)");
 }

@@ -1,4 +1,5 @@
-// Plain C++ launchers of the attention kernels and the SSD scan.  They take raw
+// Plain C++ launchers of the attention kernels and the SSD scan (and their
+// gradients).  They take raw
 // pointers and the stream, so no CUDA source includes PyTorch's headers;
 // binding.cpp alone does, and checks the launch right after each call.
 #pragma once
@@ -76,12 +77,31 @@ cudaError_t launch_flash_bwd(bool bf16, const void* q, const void* k,
                              float sm_scale, cudaStream_t stream);
 
 // x (b, s, H, P), B and C (b, s, G, N), all of one type (f32 or bf16);
-// dt (b, s, H) and A (H,) f32; y (b, s, H, P) and state (b, H, P, N) f32.
-// s a multiple of chunk; ps the P columns per CTA.  Returns the error of
-// raising the kernel's shared-memory limit.
+// dt (b, s, H) and A (H,) f32; y (b, s, H, P) and state (b, H, P, N) f32;
+// states (b, s / chunk, H, P, N) f32, the state entering each chunk,
+// written when not null (for the backward).  s a multiple of chunk; ps the
+// P columns per CTA.  Returns the error of raising the kernel's
+// shared-memory limit.
 cudaError_t launch_ssd(bool bf16, const void* x, const float* dt,
                        const float* A, const void* B, const void* C, float* y,
-                       float* state, int b, int s, int H, int P, int G, int N,
-                       int chunk, int ps, cudaStream_t stream);
+                       float* state, float* states, int b, int s, int H, int P,
+                       int G, int N, int chunk, int ps, cudaStream_t stream);
+
+// Its gradient (ssd_backward.cu), three kernels on the CUDA cores in f32:
+// x, dx (b, s, H, P) and B, C, dB, dC (b, s, G, N), all of one type; dt,
+// ddt (b, s, H), A, dA (H,), dy (b, s, H, P) f32; states from launch_ssd;
+// dstate (b, H, P, N) f32, the final state's gradient, or null for zero.
+// Scratch, f32: dh1 (b, nc, H, P, N); dA_part (b, nc, H); dB_part, dC_part
+// (b, s, H, N).  chunk and N at most 128, P at most 64, ps the P columns
+// of a reverse-pass CTA.  Returns the error of raising a kernel's
+// shared-memory limit or of a launch.
+cudaError_t launch_ssd_bwd(bool bf16, const void* x, const float* dt,
+                           const float* A, const void* B, const void* C,
+                           const float* states, const float* dy,
+                           const float* dstate, float* dh1, void* dx,
+                           float* ddt, float* dA_part, float* dB_part,
+                           float* dC_part, float* dA, void* dB, void* dC,
+                           int b, int s, int H, int P, int G, int N,
+                           int chunk, int ps, cudaStream_t stream);
 
 }  // namespace repro_torch

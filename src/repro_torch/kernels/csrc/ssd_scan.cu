@@ -54,6 +54,11 @@
 // of 64 or 32 columns) are template arguments, so the tile loops unroll
 // and the shared-memory offsets fold; other shapes read them at run time.
 //
+// For training the kernel also writes, when given the buffer, the state
+// entering each chunk (b, nc, H, P, N) f32: zero for the first chunk, the
+// P5 warps' f32 accumulators for the others.  ssd_backward.cu reads it;
+// inference passes none and its launch is unchanged.
+//
 // Bound on the H100 at the SSM forward's 4 x 4096 tokens (mamba2, bf16):
 // 527 MB of x, B, C and the f32 y, 0.157 ms at the HBM rate, against ~146
 // GFLOP of bf16 MMAs with the splits and the 16-tile triangle counted,
@@ -159,8 +164,8 @@ __global__ void __launch_bounds__(kSsdThreads, sizeof(T) == 2 ? 2 : 1)
     ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const T* __restrict__ Bm,
                const T* __restrict__ Cm, float* __restrict__ y,
-               float* __restrict__ state_out, int s, int H, int G, int P,
-               int N, int c, int ps, int bw) {
+               float* __restrict__ state_out, float* __restrict__ states_out,
+               int s, int H, int G, int P, int N, int c, int ps, int bw) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int NB = kBf16 ? 1 : 2;          // B copies in shared memory
   extern __shared__ __align__(16) __nv_bfloat16 ssm[];
@@ -193,6 +198,15 @@ __global__ void __launch_bounds__(kSsdThreads, sizeof(T) == 2 ? 2 : 1)
     Bs[e] = __float2bfloat16(0.f);
   for (int e = tid; e < 2 * P16 * LB; e += kSsdThreads)
     Sh[e] = __float2bfloat16(0.f);
+  // the state entering each chunk (the backward's input), when asked for:
+  // zero for the first, the f32 accumulators below for the others
+  const long st_row = (long)H * P * N;        // one chunk's states
+  float* st_slice = states_out == nullptr
+                        ? nullptr
+                        : states_out + (long)bi * (s / c) * st_row +
+                              ((long)h * P + p0) * N;
+  if (st_slice != nullptr)
+    for (int e = tid; e < ps * N; e += kSsdThreads) st_slice[e] = 0.f;
   __syncthreads();
 
   const long tok_stride = (long)G * N;        // B and C: one token's row
@@ -488,6 +502,10 @@ __global__ void __launch_bounds__(kSsdThreads, sizeof(T) == 2 ? 2 : 1)
                     state_out + (((long)bi * H + h) * P + p0 + p) * N + n) =
                     make_float2(v0, v1);
             } else {
+              if (st_slice != nullptr && p < ps && n < N)
+                *reinterpret_cast<float2*>(
+                    st_slice + (t0 / c + 1) * st_row + (long)p * N + n) =
+                    make_float2(v0, v1);
               uint32_t vh, vl;
               split_bf16(v0, v1, vh, vl);
               *reinterpret_cast<uint32_t*>(Sh + p * LB + n) = vh;
@@ -509,8 +527,8 @@ __global__ void __launch_bounds__(kSsdThreads, sizeof(T) == 2 ? 2 : 1)
 template <typename T, int KNS, int KNQ>
 cudaError_t launch_ssd_t(const void* x, const float* dt, const float* A,
                          const void* B, const void* C, float* y, float* state,
-                         int b, int s, int H, int P, int G, int N, int chunk,
-                         int ps, cudaStream_t stream) {
+                         float* states, int b, int s, int H, int P, int G,
+                         int N, int chunk, int ps, cudaStream_t stream) {
   const int smem = ssd_smem_bytes(sizeof(T) == 2, chunk, N, ps);
   const cudaError_t err = cudaFuncSetAttribute(
       ssd_kernel<T, KNS, KNQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -524,7 +542,8 @@ cudaError_t launch_ssd_t(const void* x, const float* dt, const float* A,
   const dim3 grid(P / ps, H, b);
   ssd_kernel<T, KNS, KNQ><<<grid, kSsdThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(B),
-      static_cast<const T*>(C), y, state, s, H, G, P, N, chunk, ps, bw);
+      static_cast<const T*>(C), y, state, states, s, H, G, P, N, chunk, ps,
+      bw);
   return cudaSuccess;
 }
 
@@ -532,26 +551,26 @@ cudaError_t launch_ssd_t(const void* x, const float* dt, const float* A,
 
 cudaError_t launch_ssd(bool bf16, const void* x, const float* dt,
                        const float* A, const void* B, const void* C, float* y,
-                       float* state, int b, int s, int H, int P, int G, int N,
-                       int chunk, int ps, cudaStream_t stream) {
+                       float* state, float* states, int b, int s, int H, int P,
+                       int G, int N, int chunk, int ps, cudaStream_t stream) {
   if (!bf16)
-    return launch_ssd_t<float, 0, 0>(x, dt, A, B, C, y, state, b, s, H, P, G,
-                                     N, chunk, ps, stream);
+    return launch_ssd_t<float, 0, 0>(x, dt, A, B, C, y, state, states, b, s,
+                                     H, P, G, N, chunk, ps, stream);
   // the bf16 forwards' shapes: N 128 (mamba2) or 64 (zamba2), slices of 64
   // or 32 columns
   using bf = __nv_bfloat16;
   const int ns = (N + 15) / 16, nq = (ps + 15) / 16;
 #define REPRO_SSD_SHAPE(NS_, NQ_)                                             \
   if (ns == NS_ && nq == NQ_)                                                 \
-    return launch_ssd_t<bf, NS_, NQ_>(x, dt, A, B, C, y, state, b, s, H, P,   \
-                                      G, N, chunk, ps, stream);
+    return launch_ssd_t<bf, NS_, NQ_>(x, dt, A, B, C, y, state, states, b, s, \
+                                      H, P, G, N, chunk, ps, stream);
   REPRO_SSD_SHAPE(8, 4)
   REPRO_SSD_SHAPE(8, 2)
   REPRO_SSD_SHAPE(4, 4)
   REPRO_SSD_SHAPE(4, 2)
 #undef REPRO_SSD_SHAPE
-  return launch_ssd_t<bf, 0, 0>(x, dt, A, B, C, y, state, b, s, H, P, G, N,
-                                chunk, ps, stream);
+  return launch_ssd_t<bf, 0, 0>(x, dt, A, B, C, y, state, states, b, s, H, P,
+                                G, N, chunk, ps, stream);
 }
 
 }  // namespace repro_torch

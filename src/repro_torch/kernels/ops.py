@@ -104,15 +104,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD chunked scan: x (b, s, H, P), dt (b, s, H) f32, A (H,)
     f32, B, C (b, s, G, N), s a multiple of chunk -> (y (b, s, H, P) f32,
-    final state (b, H, P, N) f32).  Differentiable on the CPU (autograd
-    through the plain version); on CUDA a call that needs a gradient
-    raises ``NotImplementedError``: the scan's backward kernel is not
-    written yet."""
+    final state (b, H, P, N) f32).  Differentiable: on CUDA through
+    ``SsdChunkedFn`` (the backward kernels) when grad is enabled and an
+    input requires it; on the CPU by autograd through the plain
+    version."""
     if _on_cuda("ssd_chunked", x):
         if _needs_grad(x, dt, A, B, C):
-            raise NotImplementedError(
-                "ssd_chunked: the SSD scan has no backward kernel yet "
-                "(ROADMAP A11b), so the SSM and hybrid families train on "
-                "the CPU only")
+            return _ssd.SsdChunkedFn.apply(x, dt, A, B, C, chunk)
         return _ssd.ssd_chunked(x, dt, A, B, C, chunk=chunk)
     return _ref.ssd_chunked_ref(x, dt, A, B, C, chunk)

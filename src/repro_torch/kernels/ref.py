@@ -218,8 +218,8 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
 
 def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor, chunk: int,
-                    init_state: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    init_state: Optional[torch.Tensor] = None,
+                    return_states: bool = False):
     """Chunked state-space-duality scan (arXiv:2405.21060 §6).
 
     x: (b, s, H, P) head inputs; dt: (b, s, H) positive step sizes (already
@@ -227,7 +227,9 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     group ``h // (H / G)`` serving head h.  ``s`` must be a multiple of
     ``chunk``.  Within a chunk the quadratic dual form, across chunks the
     linear recurrence over chunk states.  Returns (y (b, s, H, P) f32,
-    final_state (b, H, P, N) f32)."""
+    final_state (b, H, P, N) f32), and with ``return_states`` also the
+    state entering each chunk, (b, nc, H, P, N) f32 (what
+    :func:`ssd_chunked_bwd_ref` needs)."""
     b, s, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if s % chunk:
@@ -270,7 +272,88 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Ch = Cc.repeat_interleave(hpg, dim=3)                            # (b, nc, l, H, N)
     Y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Ch, prev_states,
                          state_decay_out)
-    return (Y_diag + Y_off).reshape(b, s, H, P), h
+    y = (Y_diag + Y_off).reshape(b, s, H, P)
+    return (y, h, prev_states) if return_states else (y, h)
+
+
+def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor,
+                        chunk_states: torch.Tensor, dy: torch.Tensor,
+                        dstate: Optional[torch.Tensor], chunk: int
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_chunked_ref` (zero initial state), chunk
+    by chunk as ``csrc/ssd_backward.cu`` computes it.  ``chunk_states``:
+    the state entering each chunk (``return_states``); ``dy`` (b, s, H, P)
+    the cotangent of y; ``dstate`` (b, H, P, N) that of the final state,
+    or None for zero.  Returns (dx, ddt, dA, dB, dC) in x's, dt's, A's,
+    B's and C's types.
+
+    Per head and chunk, with a = dt A, cum its inclusive cumsum, X = dt x,
+    L_ij = exp(cum_i - cum_j) for j <= i, S = C Bᵀ, w_j = exp(cum_last -
+    cum_j), h0 / h1 the states entering / leaving the chunk: the reverse
+    carry dh0 = exp(cum_last) dh1 + Σ_i exp(cum_i) dy_i C_iᵀ gives each
+    chunk's dh1; then M = L ∘ (dy Xᵀ), dX = (S∘L)ᵀ dy + w (dh1 B), dC = M B
+    + exp(cum) (dy h0), dB = Mᵀ C + w (X dh1), and dcum = rowsum(S∘M) -
+    colsum(S∘M) + o - r (o_i = exp(cum_i) dy_i·h0 C_i, r_j = w_j X_jᵀ dh1
+    B_j), the last position also taking exp(cum_last) <dh1, h0> + Σ r; da
+    is dcum's reverse cumsum.  The cumsum and the differences that go into
+    exp are f64, the rest f32."""
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc, hpg = s // chunk, H // G
+    xc = x.float().reshape(b, nc, chunk, H, P)
+    dtc = dt.float().reshape(b, nc, chunk, H)
+    Bh = B.float().repeat_interleave(hpg, dim=2).reshape(b, nc, chunk, H, N)
+    Ch = C.float().repeat_interleave(hpg, dim=2).reshape(b, nc, chunk, H, N)
+    dyc = dy.float().reshape(b, nc, chunk, H, P)
+    X = xc * dtc[..., None]
+    # the chunk's cumsum and the differences that go into exp in f64, as
+    # the kernel takes them: exp turns cum's rounding into relative error
+    cum = torch.cumsum((dtc * A.float()).double(), dim=2)            # (b, nc, l, H)
+    ecum = torch.exp(cum).float()
+    w = torch.exp(cum[:, :, -1:] - cum).float()
+    h0 = chunk_states.float()                                        # (b, nc, H, P, N)
+
+    # the reverse carry over chunks: dh1 of each chunk
+    dh = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+          if dstate is None else dstate.float())
+    dh1 = [None] * nc
+    for k in reversed(range(nc)):
+        dh1[k] = dh
+        dh = ecum[:, k, -1, :, None, None] * dh + torch.einsum(
+            "bihp,bihn->bhpn", ecum[:, k, :, :, None] * dyc[:, k], Ch[:, k])
+    dh1 = torch.stack(dh1, dim=1)                                    # (b, nc, H, P, N)
+
+    # each chunk on its own
+    ct = cum.permute(0, 1, 3, 2)                                     # (b, nc, H, l)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    Lm = torch.exp((ct[..., :, None] - ct[..., None, :]).float()
+                   .masked_fill(~mask, float("-inf")))               # (b, nc, H, i, j)
+    S = torch.einsum("bkihn,bkjhn->bkhij", Ch, Bh)
+    M = Lm * torch.einsum("bkihp,bkjhp->bkhij", dyc, X)
+    R = S * M
+    dyh0 = torch.einsum("bkihp,bkhpn->bkihn", dyc, h0)
+    xdh1 = torch.einsum("bkjhp,bkhpn->bkjhn", X, dh1)
+    dX = torch.einsum("bkhij,bkihp->bkjhp", S * Lm, dyc) + \
+        w[..., None] * torch.einsum("bkhpn,bkjhn->bkjhp", dh1, Bh)
+    dC = torch.einsum("bkhij,bkjhn->bkihn", M, Bh) + ecum[..., None] * dyh0
+    dB = torch.einsum("bkhij,bkihn->bkjhn", M, Ch) + w[..., None] * xdh1
+    o = ecum * (dyh0 * Ch).sum(-1)                                   # (b, nc, l, H)
+    r = w * (xdh1 * Bh).sum(-1)
+    dcum = (R.sum(-1) - R.sum(-2)).permute(0, 1, 3, 2) + o - r
+    last = ecum[:, :, -1] * (dh1 * h0).sum((-1, -2)) + r.sum(2)      # (b, nc, H)
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + last[:, :, None]],
+                     dim=2)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+
+    dx = (dtc[..., None] * dX).reshape(b, s, H, P)
+    ddt = ((xc * dX).sum(-1) + A.float() * da).reshape(b, s, H)
+    dA = (dtc * da).sum((0, 1, 2))
+    dB = dB.reshape(b, s, G, hpg, N).sum(3)
+    dC = dC.reshape(b, s, G, hpg, N).sum(3)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype))
 
 
 def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -27,20 +27,30 @@ f32 y written: 0.157 ms at mamba2's 4 × 4096 tokens, against ~146 GFLOP
 of split bf16 MMAs, 0.148 ms at the tensor cores' peak).  One C·Bᵀ per
 group rather than per head is later work.
 
-The plain PyTorch version is :func:`~repro_torch.kernels.ref.
-ssd_chunked_ref`; ``kernels/ops.py`` sends CPU tensors there and CUDA
-tensors here.  ``ssd_chunked.launches`` counts launches.
+Training: the forward also writes the state entering each chunk when
+asked (``return_states``), and :func:`ssd_chunked_bwd` runs the scan's
+gradient (``csrc/ssd_backward.cu``: a reverse pass over the chunks for
+the states' gradients, a chunk-parallel pass for dx, ddt and per-head
+partials of dB, dC and dA, and a fixed-order sum of the partials, all on
+the CUDA cores in f32 and without atomics).  :class:`SsdChunkedFn` joins
+the two for autograd.
+
+The plain PyTorch versions are :func:`~repro_torch.kernels.ref.
+ssd_chunked_ref` and :func:`~repro_torch.kernels.ref.ssd_chunked_bwd_ref`;
+``kernels/ops.py`` sends CPU tensors there and CUDA tensors here.
+``ssd_chunked.launches`` and ``ssd_chunked_bwd.launches`` count launches.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_chunked_ref
+from repro_torch.kernels.ref import ssd_chunked_bwd_ref, ssd_chunked_ref
 
-__all__ = ["ssd_chunked", "ssd_chunked_ref", "check_ssd_inputs",
+__all__ = ["ssd_chunked", "ssd_chunked_ref", "ssd_chunked_bwd",
+           "ssd_chunked_bwd_ref", "SsdChunkedFn", "check_ssd_inputs",
            "p_slice"]
 
 
@@ -96,9 +106,7 @@ def check_ssd_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"up to 64 or of 64; got chunk={chunk}, N={N}, "
                          f"P={P}")
     tensors = (x, dt, A, B, C)
-    if not all(t.is_cuda and t.device == x.device for t in tensors):
-        raise ValueError(f"ssd_chunked: every tensor must be on one CUDA "
-                         f"device, got {[str(t.device) for t in tensors]}")
+    _build.on_one_cuda_device("ssd_chunked", tensors)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_chunked: every tensor must be contiguous")
     align = 4 * x.element_size()
@@ -108,22 +116,104 @@ def check_ssd_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+                return_states: bool = False):
     """x: (b, s, H, P); dt: (b, s, H) f32; A: (H,) f32; B, C: (b, s, G, N)
     in x's type (f32 or bf16); ``s`` a multiple of ``chunk``.  CUDA tensors
     only.  Returns (y (b, s, H, P) f32, final_state (b, H, P, N) f32), the
-    state starting from zero."""
+    state starting from zero, and with ``return_states`` also the state
+    entering each chunk, (b, s / chunk, H, P, N) f32 (what
+    :func:`ssd_chunked_bwd` needs)."""
     check_ssd_inputs(x, dt, A, B, C, chunk)
     b, s, H, P = x.shape
+    N = B.shape[3]
     y = torch.empty((b, s, H, P), dtype=torch.float32, device=x.device)
-    state = torch.empty((b, H, P, B.shape[3]), dtype=torch.float32,
-                        device=x.device)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    _build.extension().ssd(x, dt, A, B, C, y, state, int(chunk),
-                           p_slice(P, b * H, n_sm))
+    state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    states = torch.empty((b, s // chunk, H, P, N) if return_states else (0,),
+                         dtype=torch.float32, device=x.device)
+    _build.extension().ssd(x, dt, A, B, C, y, state, states, int(chunk),
+                           p_slice(P, b * H, _build.sm_count(x.device)))
     ssd_chunked.launches += 1
-    return y, state
+    return (y, state, states) if return_states else (y, state)
 
 
 ssd_chunked.launches = 0
+
+
+def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, states: torch.Tensor,
+                    dy: torch.Tensor, dstate: Optional[torch.Tensor] = None,
+                    *, chunk: int = 128) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_chunked` (``csrc/ssd_backward.cu``): x,
+    dt, A, B, C as there; ``states`` the chunk states from its forward
+    with ``return_states``; ``dy`` (b, s, H, P) f32 the gradient of y;
+    ``dstate`` (b, H, P, N) f32 that of the final state, or None for zero.
+    Takes what the forward takes, with P at most 64 (the chunk-parallel
+    pass holds all of P in one CTA).  CUDA tensors only; returns (dx, ddt,
+    dA, dB, dC) in x's, dt's, A's, B's and C's types, every sum in a
+    fixed order (deterministic)."""
+    check_ssd_inputs(x, dt, A, B, C, chunk)
+    b, s, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = s // chunk
+    if P > _build.SSD_SLICE:
+        raise ValueError(f"ssd_chunked_bwd: the kernel takes P up to "
+                         f"{_build.SSD_SLICE}, got P={P}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    for name, t, shape in (("dy", dy, (b, s, H, P)),
+                           ("states", states, (b, nc, H, P, N)),
+                           ("dstate", dstate, (b, H, P, N))):
+        if t is None and name == "dstate":
+            continue
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape \
+                or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != x.device:
+            got = (f"{tuple(t.shape)} {t.dtype} on {t.device}"
+                   if isinstance(t, torch.Tensor) else repr(t))
+            raise ValueError(f"ssd_chunked_bwd: {name} must be a contiguous "
+                             f"{shape} float32 tensor on x's device, got "
+                             f"{got}")
+    dh1 = torch.empty((b, nc, H, P, N), **f32)
+    dA_part = torch.empty((b, nc, H), **f32)
+    dB_part = torch.empty((b, s, H, N), **f32)
+    dC_part = torch.empty((b, s, H, N), **f32)
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
+    ddt, dA = torch.empty_like(dt), torch.empty_like(A)
+    _build.extension().ssd_bwd(
+        x, dt, A, B, C, states, dy,
+        torch.empty((0,), **f32) if dstate is None else dstate, dh1, dx, ddt,
+        dA_part, dB_part, dC_part, dA, dB, dC, int(chunk),
+        p_slice(P, b * H, _build.sm_count(x.device)))
+    ssd_chunked_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_chunked_bwd.launches = 0
+
+
+class SsdChunkedFn(torch.autograd.Function):
+    """:func:`ssd_chunked` with its gradient: the forward keeps the state
+    entering each chunk beside its inputs, and the backward runs
+    :func:`ssd_chunked_bwd` on them, a missing gradient of y or of the
+    final state taken as zero.  ``kernels/ops.py`` takes it for CUDA
+    tensors when grad is enabled and an input requires it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        y, state, states = ssd_chunked(x, dt, A, B, C, chunk=chunk,
+                                       return_states=True)
+        ctx.save_for_backward(x, dt, A, B, C, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, states = ctx.saved_tensors
+        dy = (torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+              if dy is None else dy.float().contiguous())
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        grads = ssd_chunked_bwd(x, dt, A, B, C, states, dy, dstate,
+                                chunk=ctx.chunk)
+        return grads + (None,)

@@ -55,10 +55,9 @@ def forward(params: Params, batch: dict, cfg: ModelConfig,
     for the other families).  The SSM and hybrid families need ``s`` to
     be a multiple of ``cfg.ssm_chunk``.  ``train=True`` is the training
     forward: it records gradients, with per-layer activation
-    checkpointing by ``cfg.remat`` / ``cfg.remat_policy``; on CUDA the SSM
-    and hybrid families raise ``NotImplementedError`` (the SSD scan has no
-    backward kernel yet).  Without it the forward runs under
-    ``no_grad``."""
+    checkpointing by ``cfg.remat`` / ``cfg.remat_policy`` (on CUDA the
+    attention's and the SSD scan's gradients are their backward kernels).
+    Without it the forward runs under ``no_grad``."""
     _check_cfg(params, cfg)
     if cfg.n_enc_layers > 0:
         return ED.forward_encdec(params, batch["src_embeds"],

@@ -260,9 +260,8 @@ def forward_lm(model: LM, tokens: Optional[torch.Tensor], *,
     replays the prompt through :func:`decode_step_lm`.
 
     ``train`` (the training forward) records gradients, on CUDA through
-    the flash kernel's backward (the SSD scan has none yet: the SSM and
-    hybrid families train on the CPU only), with per-layer activation
-    checkpointing by ``cfg.remat`` / ``cfg.remat_policy``
+    the flash kernel's and the SSD scan's backward kernels, with per-layer
+    activation checkpointing by ``cfg.remat`` / ``cfg.remat_policy``
     (:func:`~repro_torch.models.layers.remat`; "collectives" checkpoints a
     decoder layer's attention and MLP halves apart, keeping their outputs;
     the SSM families recompute a layer, the hybrid a group with its shared

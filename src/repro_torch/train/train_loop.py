@@ -17,9 +17,8 @@ card.  Three steps, as in the reference:
     global batch, and the gradients are averaged by
     ``compression.all_reduce_mean`` (f32, bf16 or int8).
 
-On CUDA the attention's gradient is the flash kernel's backward; the SSM
-and hybrid families train on the CPU only (the SSD scan has no backward
-kernel yet).
+On CUDA the attention's gradient is the flash kernel's backward and the
+SSD scan's (the SSM and hybrid families) the scan's backward kernels.
 """
 from __future__ import annotations
 

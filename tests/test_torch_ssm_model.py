@@ -24,7 +24,9 @@ from repro.models import registry as RJ
 from repro.models import ssm as SSMJ
 from repro.train.checkpoint import _flatten
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import flash_attention as FAT
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as REFT
 from repro_torch.kernels import ssd_scan as SSDT
 from repro_torch.models import bridge
 from repro_torch.models import registry as RT
@@ -235,8 +237,11 @@ def test_forward_on_cpu_launches_nothing_and_checks_its_arguments(
         pair, monkeypatch):
     """On the CPU the forward takes the plain scan and launches no kernel;
     a config mismatch raises.  The training forward runs on the CPU (the
-    same logits, with a graph); on CUDA, where the scan has no backward
-    kernel yet, it raises before any launch."""
+    same logits, with a graph); on CUDA (``ops._on_cuda`` patched) it
+    goes through the scan's autograd Function, once a Mamba2 layer, and
+    the hybrid's shared attention through the flash one (both stood in
+    for by their plain versions here; ``tests/test_torch_ssd_bwd.py``
+    runs them through a plain-version extension)."""
     arch, cfg_j, p_j, model, step_j = pair
     before = SSDT.ssd_chunked.launches
     toks = {"tokens": torch.tensor(_tokens(cfg_j))}
@@ -251,8 +256,21 @@ def test_forward_on_cpu_launches_nothing_and_checks_its_arguments(
         assert lg_t.grad_fn is not None and torch.equal(lg_t, lg)
         assert SSDT.ssd_chunked.launches == before
         monkeypatch.setattr(ops, "_on_cuda", lambda name, q: True)
-        with pytest.raises(NotImplementedError, match="A11b"):
-            RT.forward(model, toks, model.cfg, train=True)
+        seen = []
+
+        def scan(x, dt, A, B, C, chunk):
+            seen.append(chunk)
+            return REFT.ssd_chunked_ref(x, dt, A, B, C, chunk)
+
+        def attend(q, k, v, causal, window, sm_scale):
+            return REFT.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, sm_scale=sm_scale)
+        monkeypatch.setattr(SSDT.SsdChunkedFn, "apply", scan)
+        monkeypatch.setattr(FAT.FlashAttentionFn, "apply", attend)
+        lg_c, _ = RT.forward(model, toks, model.cfg, train=True)
+        assert lg_c.grad_fn is not None and torch.equal(lg_c, lg)
+        assert seen == [model.cfg.ssm_chunk] * model.cfg.n_layers
+        assert SSDT.ssd_chunked.launches == before
     finally:
         model.requires_grad_(False)
 

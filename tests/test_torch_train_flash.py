@@ -9,8 +9,8 @@ backward), on the same numpy inputs: causal, windowed, full and cross
 wrapper and its autograd Function on CPU tensors with the device check
 and the build patched out (an extension that computes with the plain
 versions): the lse it asks the forward for, the arguments it hands the
-backward, its refusals, the dispatch in ``kernels/ops.py``, and the SSD
-scan's refusal of a gradient on CUDA.
+backward, its refusals and the dispatch in ``kernels/ops.py``.  The SSD
+scan's gradient has its own file, ``test_torch_ssd_bwd.py``.
 
 Tolerance: f32 2e-5 absolute and relative (the sums run in another
 order; the gradients are O(1))."""
@@ -25,7 +25,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as FAT
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as REFT
-from repro_torch.kernels import ssd_scan as SSDT
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -233,21 +232,3 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(no_card):
                                 v[:, :, :1].contiguous(), big,
                                 torch.zeros((1, 65, 4)), big)
 
-
-def test_ssd_scan_refuses_a_gradient_on_cuda(monkeypatch):
-    """On CUDA the SSD scan has no backward: a call that needs a gradient
-    raises ``NotImplementedError`` naming A11b, before any launch; without
-    one it goes to the kernel's wrapper."""
-    monkeypatch.setattr(ops, "_on_cuda", lambda name, q: True)
-    seen = []
-    monkeypatch.setattr(SSDT, "ssd_chunked",
-                        lambda *a, **kw: seen.append(kw) or ("y", "h"))
-    x = torch.zeros((1, 8, 2, 4), requires_grad=True)
-    dt, A = torch.ones((1, 8, 2)), -torch.ones(2)
-    B = C = torch.zeros((1, 8, 1, 4))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        ops.ssd_chunked(x, dt, A, B, C, chunk=8)
-    assert not seen
-    with torch.no_grad():
-        assert ops.ssd_chunked(x, dt, A, B, C, chunk=8) == ("y", "h")
-    assert seen == [{"chunk": 8}]
