@@ -37,9 +37,9 @@ Phases, each printing its result lines:
    yardstick (none computes the scan), and the least time the card could
    take (for f32 work multiplied as split bf16, also at the CUDA cores'
    f32 peak);
-3. the paged engine serving 8 requests at the full width of qwen3-1.7b
-   (28 layers, bf16 random weights from a seed), with both paged kernels
-   counted; then the profiles of one fused 8-step decode dispatch and of
+3. the paged engine serving 8 requests of 24 new tokens at the full width
+   of qwen3-1.7b (28 layers, bf16 random weights from a seed), with both
+   paged kernels counted; then the profiles of one fused 8-step decode dispatch and of
    one prefill chunk at n_past 992;
 4. the slotted engine (the default layout) serving the same 8 requests at
    full width with f32 weights (the layout serves f32 models only), with
@@ -83,7 +83,7 @@ Phases, each printing its result lines:
 12. the rest of the dense family at full width, bf16: gemma3-27b (62
    layers, 52 of them local with a window of 1024) through the paged
    engine serving 4 requests of 1040-1400 prompt tokens (a shared
-   256-token prefix) and 24 new, both paged kernels counted with their
+   256-token prefix) and 16 new, both paged kernels counted with their
    windowed launches; the profiles of one fused decode dispatch and one
    128-token prefill chunk; the chunked paged prefill of a 1400-token
    prompt held to ``registry.forward`` (the contiguous flash) within
@@ -95,7 +95,7 @@ Phases, each printing its result lines:
    and ``decode_step``'s greedy tokens;
 14. the MoE family at full width, bf16: (a) qwen3-moe-30b-a3b (48 layers,
    128 experts top-8, 30.5 B params) through the paged engine serving 6
-   requests of 300-1400 prompt tokens (a shared 256-token prefix) and 32
+   requests of 300-1400 prompt tokens (a shared 256-token prefix) and 16
    new, 4 rows at a time (decode drop-free, prefill chunks dropping pairs),
    with the phase 12 checks, its peak memory and the profiles of one fused
    decode dispatch and one prefill chunk (the MoE pieces' and attention's
@@ -128,12 +128,12 @@ Phases, each printing its result lines:
    g = 7), f32 and bf16, in phase 2's style; (b) seamless at full width,
    bf16: ``registry.forward`` over 4 x (1000 source frames + 256 target
    tokens) with 72 flash launches, ``make_cache(src_embeds=)`` with 24,
-   greedy decode (64 replayed + 32 new) with 48 decode launches a step,
+   greedy decode (64 replayed + 16 new) with 48 decode launches a step,
    its replay held to the forward, and the f32 replay; (c) qwen2-vl at
    full width, bf16: ``forward_lm`` on merged patch embeddings (64 text
    tokens, a 24 x 24 image, 384 text tokens) at M-RoPE grid positions
-   with 28 flash launches, greedy decode (a 320-token prompt with a 16 x
-   16 grid, replayed with per-step positions, + 32 new) with 28 decode
+   with 28 flash launches, greedy decode (a 128-token prompt with an 8 x
+   8 grid, replayed with per-step positions, + 16 new) with 28 decode
    launches a step, its replay held to the forward, and the f32 replay
    (batch 1, 128 tokens); (d) both SMOKE configs on the card against the
    CPU: forward logits and greedy tokens;
@@ -151,15 +151,35 @@ Phases, each printing its result lines:
    2 case), each timed beside the plain backward and its bound; (b) six
    SMOKE configs (dense, MoE, VL with M-RoPE positions, enc-dec, SSM,
    hybrid) trained on the card against the CPU from the same weights; (c)
-   qwen3-1.7b at full width in f32, 4 steps of 4 x 1024 tokens (28
+   qwen3-1.7b at full width in f32, 2 steps of 4 x 1024 tokens (28
    backward and 56 forward flash launches a step, ms a step, tokens/s,
    peak memory, a profiled step), then a checkpoint resume at its widths
    cut to 2 layers; then mamba2-2.7b (64 backward and 128 forward scan
    launches a step) and zamba2-2.7b (54 and 108, and 9 and 18 flash) at
    full width in f32 the same way;
-18. the ``kernels`` line: every ported kernel with its launches on the main
-   paths that run it (phases 3, 9, 11a, 12, 14 and 15 for the paged kernels,
-   phases 4, 11b, 13, 14d, 16b-d for the contiguous decode and, with
+18. the append-buffer decode and ``mesh=`` on one rank: (a) after phase
+   2, the contiguous decode kernel with its window end and its
+   log-sum-exp (``SPLIT_ATTN``: glm4-9b's, gemma3-27b's with its window,
+   qwen3-moe's and qwen2-vl's widths, f32 and bf16, batch 4, one shared
+   length): the prefix segment of 2048 positions with the query at 2048
+   and 2303, an empty prefix, and the suffix ring of 256 at slots 0, 100
+   and 255, the output held to the plain version at ``TOL`` and the lse
+   at ``LSE_TOL`` (-inf exactly where the plain version's is), each timed
+   beside the plain version, one SDPA call and its bound; (b) inside
+   phase 12, on its glm4-9b (full width, bf16), ``decode_step`` with
+   ``get_optimized_config``'s ``decode_window=256`` against the regular
+   decode: 4 rows, 64 replayed and 64 greedy tokens with the prefix empty,
+   then 32 more with ``prefix_len = 128`` taken from the regular decode's
+   cache; logits within ``SPLIT_TOL`` and greedy tokens equal, the decode
+   kernel counted twice a layer a step; (c) inside phase 3,
+   ``RealEngine(kv_layout="paged", mesh=make_mesh_for(1))`` on its family
+   serving its 8 requests with streams equal to its engine's, both paged
+   kernels counted, then the SMOKE config disaggregated on the (1, 1)
+   mesh, card against CPU, strictly;
+19. the ``kernels`` line: every ported kernel with its launches on the main
+   paths that run it (phases 3, 9, 11a, 12, 14, 15 and 18c for the paged
+   kernels, phases 4, 11b, 13, 14d, 16b-d and 18b for the contiguous
+   decode and, with
    17b-c, the f32 contiguous prefill, whose record is the slotted serve's
    1024-token shape, phases 7 and 17b-c for the scan, phase 8's, phase
    12's, phase 14b's and phase 16's forwards for the bf16 contiguous
@@ -414,8 +434,8 @@ def _sdpa_flash(q, k, v, window: int, causal: bool = True):
 
 
 # zamba2's shared attention: 32 heads of 80 over 32 KV heads (g = 1); its
-# decode step reads a cache of 128 prompt + 32 new positions at one shared
-# length (lengths=160 in a case)
+# decode step reads a cache of 128 prompt positions and its new ones at one
+# shared length (lengths=160 in a case)
 ZAMBA2_ATTN = dict(K=32, g=1, dh=80)
 # zamba2 SMOKE's: 4 heads of 16 over 4 KV heads
 ZAMBA2_SMOKE_ATTN = dict(K=4, g=1, dh=16)
@@ -882,8 +902,9 @@ def _serve_prompts(vocab: int, seed: int = 0):
 
 def phase_serve() -> dict:
     """qwen3-1.7b at full width (28 layers, d=2048, 16 heads over 8 KV
-    heads, bf16 weights, f32 arena) serving 8 requests of 32 new tokens;
-    returns each kernel's launches during the serve."""
+    heads, bf16 weights, f32 arena) serving 8 requests of 24 new tokens,
+    then phase 18c on the same family; returns each kernel's launches
+    during the serve."""
     import numpy as np
     import torch
     from repro_torch.configs import qwen3_1_7b
@@ -904,7 +925,7 @@ def phase_serve() -> dict:
           f"configure (warmup) {t_cfg:.1f} s, "
           f"{family[0].variant.params_m:.1f} M params")
     prompts = _serve_prompts(cfg.vocab_size)
-    n_new = 32
+    n_new = 24
     PA.paged_decode_attention.launches = 0
     FA.paged_prefill_attention.launches = 0
     m = serve_prompts(eng, prompts, n_new=n_new)
@@ -940,6 +961,8 @@ def phase_serve() -> dict:
           f"{m['j_per_token']:.3f} J/token (reference power model)")
     print(f"serve: launches {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _add_launches(phase_mesh_serve(family, prompts, dict(eng.last_outputs),
+                                   n_new))
     # one fused 8-step decode dispatch at the full batch, 300 tokens of
     # context per row (inactive rows: every write goes to the junk block):
     # it must not synchronise with the host; then its wall time per step
@@ -1026,7 +1049,7 @@ def phase_serve() -> dict:
 # =============================================================================
 def phase_slotted_serve() -> dict:
     """qwen3-1.7b at full width with f32 weights through the slotted engine
-    (8 slots of 2048 positions) serving the 8 requests of phase 3, 32 new
+    (8 slots of 2048 positions) serving the 8 requests of phase 3, 24 new
     tokens each; returns each contiguous kernel's launches during the
     serve."""
     import torch
@@ -1050,7 +1073,7 @@ def phase_slotted_serve() -> dict:
           f"buckets + 1 decode step) {t_cfg:.1f} s, "
           f"{family[0].variant.params_m:.1f} M f32 params")
     prompts = _serve_prompts(cfg.vocab_size)
-    n_new = 32
+    n_new = 24
     DA.decode_attention.launches = 0
     FA.flash_attention.launches = 0
     m = serve_prompts(eng, prompts, n_new=n_new)
@@ -1570,7 +1593,7 @@ def phase_ssm() -> dict:
     5120 = 80 heads of 64, N 128, vocab 50280 padded to 50688, tied), bf16
     weights from the port's seeded init: ``registry.forward`` over 4 x
     4096 and 1 x 32768 tokens (64 ``ssd_chunked`` launches each), and
-    greedy generation for 4 prompts of 128 tokens (replayed) plus 32 new
+    greedy generation for 4 prompts of 128 tokens (replayed) plus 8 new
     through ``make_cache`` and ``decode_step``; then the f32 replay check
     (``_f32_replay_run``); returns the scan's launches over the two timed
     forwards."""
@@ -1589,7 +1612,7 @@ def phase_ssm() -> dict:
     for b, s in ((4, 4096), (1, 32768)):
         total += _forward_run("ssm", model, b, s, {
             "ssd_chunked": L, "flash_attention": 0}, seed=b)["ssd_chunked"]
-    _greedy_run("ssm", model, 128, 32, {"ssd_chunked": 0,
+    _greedy_run("ssm", model, 128, 8, {"ssd_chunked": 0,
                                         "decode_attention": 0}, seed=7)
     del model
     torch.cuda.empty_cache()
@@ -1603,7 +1626,7 @@ def phase_hybrid() -> dict:
     vocab 32000, untied), bf16 weights from the port's seeded init:
     ``registry.forward`` over 4 x 4096 tokens (54 ``ssd_chunked`` and 9
     ``flash_attention`` launches) and greedy generation for 4 prompts of
-    128 tokens plus 32 new (9 ``decode_attention`` launches a step); then
+    128 tokens plus 8 new (9 ``decode_attention`` launches a step); then
     the f32 replay check; returns the timed forward's launches."""
     import torch
     from repro_torch.configs import zamba2_2_7b
@@ -1618,7 +1641,7 @@ def phase_hybrid() -> dict:
     G = cfg.n_layers // cfg.attn_every
     counts = _forward_run("hybrid", model, 4, 4096, {
         "ssd_chunked": cfg.n_layers, "flash_attention": G}, seed=11)
-    _greedy_run("hybrid", model, 128, 32, {"ssd_chunked": 0,
+    _greedy_run("hybrid", model, 128, 8, {"ssd_chunked": 0,
                                            "decode_attention": G}, seed=13)
     del model
     torch.cuda.empty_cache()
@@ -2560,7 +2583,7 @@ def phase_dense() -> dict:
     (62 layers, d 5376, 32 heads over 16 KV heads, 52 local layers of
     window 1024 and 10 global) through the paged engine (``DENSE_BLOCKS``
     of f32 arena, chunks of 128 tokens) serving 4 requests of 1040-1400
-    prompt tokens and 24 new; the profiles of one fused 8-step decode
+    prompt tokens and 16 new; the profiles of one fused 8-step decode
     dispatch and one prefill chunk; the chunked prefill of a 1400-token
     prompt held to ``registry.forward`` (``DENSE_PREFILL_TOL``), and the
     same with the window dropped rejected; then a short paged serve of
@@ -2574,7 +2597,7 @@ def phase_dense() -> dict:
     torch.cuda.reset_peak_memory_stats()
     prompts = _dense_prompts(cfg.vocab_size)
     eng, m, launches, windowed = _dense_serve(
-        "dense gemma3-27b", cfg, prompts, 24, 3, n_blocks=DENSE_BLOCKS,
+        "dense gemma3-27b", cfg, prompts, 16, 3, n_blocks=DENSE_BLOCKS,
         chunk_blocks=8)
     L = cfg.n_layers
     for name in launches:
@@ -2622,6 +2645,8 @@ def phase_dense() -> dict:
                                        chunk_blocks=8)
         print(f"{tag}: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if c is glm4_9b.FULL:        # phase 18b on this model
+            _add_launches(phase_split_decode_full(eng.family["x1"].params))
         for name, n in more.items():
             launches[name] += n
         del eng
@@ -2812,7 +2837,7 @@ def phase_moe() -> dict:
     """The MoE family at full width, bf16 weights from seed 0.  (a)
     qwen3-moe-30b-a3b (48 layers, 128 experts top-8, 32 heads over 4)
     through the paged engine (``MOE_BLOCKS`` of f32 arena, chunks of 128
-    tokens, 4 rows) serving 6 requests of 300-1400 prompt tokens and 32
+    tokens, 4 rows) serving 6 requests of 300-1400 prompt tokens and 16
     new, with the ``_dense_serve`` checks; peak memory; the profiles of one
     fused decode dispatch and one prefill chunk.  (b) The chunked prefill
     of a 1400-token prompt held to ``registry.forward`` at a drop-free
@@ -2829,7 +2854,7 @@ def phase_moe() -> dict:
     tag = "moe qwen3-moe-30b-a3b"
     torch.cuda.reset_peak_memory_stats()
     prompts = _dense_prompts(cfg.vocab_size, lengths=MOE_LENGTHS)
-    eng, _, launches, _ = _dense_serve(tag, cfg, prompts, 32, 4,
+    eng, _, launches, _ = _dense_serve(tag, cfg, prompts, 16, 4,
                                        n_blocks=MOE_BLOCKS, chunk_blocks=8)
     print(f"{tag}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -3231,7 +3256,7 @@ def phase_encdec(smi: str) -> dict:
     ``registry.forward`` over 4 x (1000 seeded source frames + 256 target
     tokens): 72 flash launches (24 encoder, 24 decoder self, 24 cross);
     ``make_cache(src_embeds=)``: 24 (its encoder pass); greedy decode of 4
-    prompts of 64 replayed tokens and 32 new: 48 decode launches a step (24
+    prompts of 64 replayed tokens and 16 new: 48 decode launches a step (24
     self, 24 cross) and no flash, the replay held to the forward; then the
     f32 replay (batch 2, 64 tokens).  Returns the launches counted."""
     import numpy as np
@@ -3273,7 +3298,7 @@ def phase_encdec(smi: str) -> dict:
     print(f"encdec make_cache: encoder pass and cross K/V of {L} layers "
           f"{t_cache * 1e3:.1f} ms; launches {enc}")
     del cache
-    rep = _greedy_run(tag, model, 64, 32, {
+    rep = _greedy_run(tag, model, 64, 16, {
         "decode_attention": 2 * L, "flash_attention": 0}, seed=23, b=b,
         src_embeds=src)
     del model, src
@@ -3292,10 +3317,10 @@ def phase_vl(smi: str) -> dict:
     ``forward_lm`` on ``inputs_embeds = merge_patch_embeds(...)`` over 2 x
     1024 positions — 64 text tokens, a 24 x 24 grid of 576 seeded patch
     embeddings, 384 text tokens — at ``_grid_positions``: 28 flash
-    launches.  Greedy decode of 4 prompts of 320 tokens (64 text and a
-    16 x 16 grid of token ids at grid positions) replayed with each
-    step's positions, then 32 new tokens whose positions continue from
-    80: 28 decode launches a step, the replay held to ``registry.forward``
+    launches.  Greedy decode of 4 prompts of 128 tokens (64 text and an
+    8 x 8 grid of token ids at grid positions) replayed with each step's
+    positions, then 16 new tokens whose positions continue from 72: 28
+    decode launches a step, the replay held to ``registry.forward``
     on the same tokens and positions; then the f32 replay (batch 1, 64
     text tokens and an 8 x 8 grid).  Returns the launches counted."""
     import numpy as np
@@ -3333,8 +3358,8 @@ def phase_vl(smi: str) -> dict:
                           b, s, {"flash_attention": cfg.n_layers,
                                  "decode_attention": 0}, seed=32, fwd=fwd)
     del pos, mask, tokens, patches
-    n_prompt, n_new, b = 64 + 16 * 16, 32, 4
-    steps = torch.as_tensor(_grid_positions(b, 64, 16, 16, n_new + 1)[0],
+    n_prompt, n_new, b = 64 + 8 * 8, 16, 4
+    steps = torch.as_tensor(_grid_positions(b, 64, 8, 8, n_new + 1)[0],
                             device="cuda")
     rep = _greedy_run(tag, model, n_prompt, n_new, {
         "decode_attention": cfg.n_layers, "flash_attention": 0}, seed=33,
@@ -3710,7 +3735,17 @@ def phase_train_ssd_kernels() -> dict:
                               reps=10, warmup=2)
             fwd_st_ms = _time_ms(lambda: SSD.ssd_chunked(
                 *args, chunk=chunk, return_states=True), reps=10, warmup=2)
+            fwd_st_plain_ms = _time_ms(lambda: REF.ssd_chunked_ref(
+                *args, chunk, return_states=True), reps=3, warmup=1)
             elt = x.element_size()
+            # the forward with its chunk states: the inputs read, y, the
+            # final state and the states written
+            st_bytes = (elt * (x.numel() + B.numel() + C.numel())
+                        + 4 * (dt.numel() + A.numel() + x.numel()
+                               + states.numel() + b * H * P * N))
+            st_bound_ms, st_bound_by = _bound_ms(
+                st_bytes, _ssd_fwd_ops(b, s, H, P, N, chunk), dname,
+                "ssd_chunked")
             n_bytes = (2 * elt * (x.numel() + B.numel() + C.numel())
                        + 4 * (2 * dt.numel() + 2 * A.numel() + dy.numel()
                               + states.numel()))
@@ -3724,7 +3759,9 @@ def phase_train_ssd_kernels() -> dict:
                   f"({bound_by}; {n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f}"
                   f" MB; at the CUDA cores' f32 peak {cc_ms:.5f}); no single "
                   f"PyTorch call computes it; forward ms {fwd_ms:.4f}, with "
-                  f"the chunk states {fwd_st_ms:.4f}")
+                  f"the chunk states {fwd_st_ms:.4f} (plain_ms "
+                  f"{fwd_st_plain_ms:.4f} bound_ms {st_bound_ms:.5f} "
+                  f"({st_bound_by}))")
             if i == 0 and dtype == torch.float32:
                 records["ssd_chunked_bwd"] = {
                     "max_abs_err": abs_err, "ms": bwd_ms,
@@ -3755,7 +3792,7 @@ TRAIN_SMOKE = ("qwen3-1.7b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
                "seamless-m4t-large-v2", "mamba2-2.7b", "zamba2-2.7b")
 # phase 17c: qwen3-1.7b, mamba2-2.7b and zamba2-2.7b at full width in f32,
 # 4 x 1024 tokens a step
-TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, TRAIN_FULL_STEPS = 4, 1024, 4
+TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, TRAIN_FULL_STEPS = 4, 1024, 2
 # the SSM and hybrid steps' optimizer: zamba2 starts near the uniform loss
 # (ln 32000 = 10.37), and at TRAIN_OPT's lr 1e-3 its first AdamW steps
 # raise the loss; at 1e-4 both models' losses fall over the first steps
@@ -4085,6 +4122,356 @@ def phase_train_full_ssm(smi: str) -> dict:
 
 
 # =============================================================================
+# phase 18: the append-buffer decode and mesh= on one rank
+# =============================================================================
+# phase 18's wall seconds: its three parts run beside the phases whose
+# models they reuse (18a after phase 2's kernels, 18b inside phase 12 on its
+# glm4-9b, 18c inside phase 3 on its family)
+SPLIT_SECONDS = {"a": 0.0, "b": 0.0, "c": 0.0}
+# phase 18b-c's launches of each kernel on their main paths (the kernels
+# line adds them)
+SPLIT_LAUNCHES: dict = {}
+
+
+def _add_launches(counts: dict) -> None:
+    for name, n in counts.items():
+        SPLIT_LAUNCHES[name] = SPLIT_LAUNCHES.get(name, 0) + n
+# the append-buffer decode's kernel widths: glm4-9b (32 heads over 2: two
+# row-chunks a group), gemma3-27b (32 over 16, its local layers' window of
+# 1024), qwen3-moe-30b-a3b (32 over 4) and qwen2-vl-7b (28 over 4, g = 7)
+SPLIT_ATTN = {"glm4": dict(K=2, g=16, dh=128, window=0),
+              "gemma3": dict(K=16, g=2, dh=128, window=1024),
+              "qwen3-moe": dict(K=4, g=8, dh=128, window=0),
+              "qwen2-vl": dict(K=4, g=7, dh=128, window=0)}
+SPLIT_PREFIX, SPLIT_RING = 2048, 256
+# the log-sum-exp against the plain version's, absolute, in both types:
+# the two score the same inputs in f32 and differ only in the order of
+# their sums (the lse is ~10 here, so f32 rounding is ~1e-6), tighter than
+# the output's bf16 limit
+LSE_TOL = 1e-4
+
+
+def _split_segments(shape: dict):
+    """The cases of one width: the prefix segment of SPLIT_PREFIX positions
+    with the query at 2048 and 2303 (its window ends past the prefix), an
+    empty prefix (length 0: the reference's own flow), and the suffix ring
+    of SPLIT_RING positions at slots 0, 100 and 255 (lengths slot + 1, the
+    default window end)."""
+    return ([(SPLIT_PREFIX, SPLIT_PREFIX, pos + 1) for pos in (2048, 2303)]
+            + [(SPLIT_PREFIX, 0, 1)]
+            + [(SPLIT_RING, slot + 1, None) for slot in (0, 100, 255)])
+
+
+def phase_split_decode_kernels() -> dict:
+    """Phase 18a: the contiguous decode kernel with its window end and its
+    log-sum-exp (the append-buffer decode's two segments) at the widths of
+    the four archs whose optimized configs set ``decode_window``
+    (``SPLIT_ATTN``), batch 4 (the decode of 18b), one () length shared by
+    every row as the generic decode step gives it, f32 and bf16: the
+    output held to the plain version at ``TOL``, the lse at ``LSE_TOL``
+    (-inf exactly where the plain version's is: a row that sees nothing),
+    then timed beside the plain version, one SDPA call and its bound.
+    Returns the phase's launches of the kernel (the checks' own)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref as REF
+    n0 = DA.decode_attention.launches
+    b = 4
+    for model, shape in SPLIT_ATTN.items():
+        K, g, dh, window = (shape[k] for k in ("K", "g", "dh", "window"))
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            elt = torch.tensor([], dtype=dtype).element_size()
+            for i, (S, length, wend) in enumerate(_split_segments(shape)):
+                torch.manual_seed(i)
+                q = torch.randn(b, K * g, dh, device="cuda").to(dtype)
+                kc = torch.randn(b, S, K, dh, device="cuda").to(dtype)
+                vc = torch.randn(b, S, K, dh, device="cuda").to(dtype)
+                i32 = dict(dtype=torch.int32, device="cuda")
+                ln = torch.tensor(length, **i32)
+                we = None if wend is None else torch.tensor(wend, **i32)
+                kern = lambda: DA.decode_attention(
+                    q, kc, vc, ln, window=window, window_end=we,
+                    return_lse=True)
+                plain = lambda: REF.decode_attention_ref(
+                    q, kc, vc, ln, window=window, window_end=we,
+                    return_lse=True)
+                end = length if wend is None else wend
+                lo = max(end - window, 0) if window > 0 else 0
+                seen = max(min(length, S) - lo, 0)
+                mask = torch.zeros(S, dtype=torch.bool, device="cuda")
+                mask[lo:min(length, S)] = True
+                kq, vq = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+                lib = lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kq, vq, attn_mask=mask[None, None, None],
+                    enable_gqa=True)
+                out, lse = kern()
+                torch.cuda.synchronize()
+                want, want_lse = plain()
+                label = (f"{model} S={S} length {length} window {window} "
+                         f"window_end {wend} {dname}")
+                err = (out - want).abs().max().item()
+                atol, rtol = TOL[dname]
+                _check(bool(torch.isfinite(out).all()),
+                       f"split decode {label}: non-finite output")
+                _check(torch.allclose(out, want, atol=atol, rtol=rtol),
+                       f"split decode {label}: max |err| {err:.3g} beyond "
+                       f"atol {atol} rtol {rtol}")
+                empty = torch.isneginf(want_lse)
+                _check(torch.equal(torch.isneginf(lse), empty),
+                       f"split decode {label}: lse -inf at other rows")
+                lse_err = ((lse - want_lse)[~empty].abs().max().item()
+                           if bool((~empty).any()) else 0.0)
+                _check(lse_err <= LSE_TOL,
+                       f"split decode {label}: lse |err| {lse_err:.3g} "
+                       f"beyond {LSE_TOL}")
+                _check(seen > 0 or (not out.any() and bool(empty.all())),
+                       f"split decode {label}: an empty segment must give "
+                       f"0 and lse -inf")
+                ms, plain_ms, lib_ms = (_time_ms(kern), _time_ms(plain),
+                                        _time_ms(lib))
+                # q read, the visible K/V read, the f32 output and lse
+                # written
+                n_bytes = (q.numel() * elt + 2 * b * seen * K * dh * elt
+                           + 4 * (q.numel() + b * K * g) + 8)
+                bound_ms, bound_by = _bound_ms(
+                    n_bytes, 4 * b * seen * K * g * dh, dname,
+                    "decode_attention")
+                print(f"kernel decode_attention (window end, lse) {label}: "
+                      f"max_abs_err {err:.3g} lse_err {lse_err:.3g} ms "
+                      f"{ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
+                      f"{lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+    return {"decode_attention": DA.decode_attention.launches - n0}
+
+
+# glm4-9b's append-buffer decode against its regular decode at full width
+# in bf16: the largest relative rms difference of a step's logits
+# (rms(split - regular) / rms(regular)).  The two read the same K/V in
+# another order and the split rounds its output once, from f32 (the
+# regular decode from its own f32 accumulators); a bf16 rounding that flips
+# anywhere grows through the residual stream of 40 random layers, the
+# floor of a bf16 comparison that phases 7-8 read at ~3-4% of the layers'
+# part (REPLAY_TOL).  The limit is REPLAY_TOL's bf16 value.
+SPLIT_TOL = REPLAY_TOL["bfloat16"]
+SPLIT_ROWS, SPLIT_PROMPT, SPLIT_NEW, SPLIT_MORE = 4, 64, 64, 32
+
+
+def _teacher_decode(model, cfg, cache, tokens, start: int):
+    """Feed ``tokens[:, start:]`` (b, n) one column a step through
+    ``decode_step`` with ``cfg``; returns each step's logits (f32, on the
+    card) and the cache."""
+    from repro_torch.models import registry as R
+    model.cfg = cfg
+    out = []
+    for t in range(start, tokens.shape[1]):
+        lg, cache = R.decode_step(model, cache, {"tokens": tokens[:, t:t + 1]},
+                                  cfg)
+        out.append(lg.float())
+    return out, cache
+
+
+def _split_vs_regular(tag: str, split, regular) -> tuple:
+    """Hold the split decode's logits of each step to the regular decode's
+    (SPLIT_TOL) and their greedy tokens equal: where the argmax differs,
+    the regular logits' top-2 gap must be within the step's max |diff|
+    (a near-tie that the difference can flip).  Returns (the largest
+    relative rms difference, the near-ties)."""
+    import torch
+    worst, ties = 0.0, 0
+    for step, (a, r) in enumerate(zip(split, regular)):
+        _check(bool(torch.isfinite(a).all()), f"{tag}: non-finite logits")
+        rel = ((a - r).norm() / r.norm()).item()
+        worst = max(worst, rel)
+        _check(rel <= SPLIT_TOL, f"{tag}: step {step} logits differ by "
+                                 f"{rel:.4g} (rms, relative), beyond "
+                                 f"{SPLIT_TOL}")
+        for row in (a.argmax(-1) != r.argmax(-1)).nonzero().flatten():
+            top = torch.topk(r[row], 2).values
+            gap = float(top[0] - top[1])
+            diff = float((a[row] - r[row]).abs().max())
+            _check(gap <= diff, f"{tag}: step {step} row {int(row)} greedy "
+                                f"token differs with a top-2 gap of "
+                                f"{gap:.4g} above the logits' max |diff| "
+                                f"{diff:.4g}: not a near-tie")
+            print(f"{tag}: step {step} row {int(row)}: a near-tie, top-2 "
+                  f"gap {gap:.4g} within the step's max |diff| {diff:.4g}")
+            ties += 1
+    return worst, ties
+
+
+def phase_split_decode_full(model) -> dict:
+    """Phase 18b: glm4-9b at full width (40 layers, 32 heads over 2 KV
+    heads, bf16 weights: phase 12's model) through ``make_cache`` /
+    ``decode_step`` with ``get_optimized_config``'s ``decode_window=256``
+    (the append-buffer decode: two contiguous-decode launches a layer, the
+    prefix's and the ring's, merged by their lse) against the same model's
+    regular decode.  4 rows of 64 prompt tokens, replayed token by token,
+    then 64 greedy tokens (the regular decode's, fed to both: teacher
+    forcing keeps the two contexts equal), with the prefix empty (the
+    reference's own flow: the whole context in the ring); then the
+    regular decode's next 32 tokens again with ``prefix_len = 128``, the
+    prefix K/V taken from the regular decode's cache after 128 tokens and
+    the rest in the ring.  Each step's logits are held to the regular
+    decode's within ``SPLIT_TOL`` and its greedy tokens equal
+    (``_split_vs_regular``).  Returns the split decodes' launches of the
+    contiguous decode kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_optimized_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import registry as R
+    t0 = time.perf_counter()
+    from repro_torch.configs import glm4_9b
+    cfg = model.cfg                   # the engine's rung: FULL, renamed
+    _check(cfg.with_(name=glm4_9b.FULL.name) == glm4_9b.FULL,
+           f"phase 12's glm4 model is not glm4-9b FULL: {cfg}")
+    opt = get_optimized_config("glm4-9b")
+    _check(opt == glm4_9b.FULL.with_(decode_window=256),
+           f"glm4-9b's optimized config is not FULL with "
+           f"decode_window=256: {opt}")
+    cfg_w = cfg.with_(decode_window=opt.decode_window)
+    b, n0, n1, n2 = SPLIT_ROWS, SPLIT_PROMPT, SPLIT_NEW, SPLIT_MORE
+    L, max_len = cfg.n_layers, n0 + n1 + n2
+    rng = np.random.default_rng(13)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, n0))
+                             .astype(np.int32), device="cuda")
+    # the regular decode: the prompt replayed, then n1 + n2 greedy tokens
+    cache = R.make_cache(model, cfg, b, max_len, device="cuda")
+    lg, cache = _teacher_decode(model, cfg, cache, tokens, 0)
+    regular = [lg[-1]]
+    for _ in range(n1 + n2 - 1):
+        tokens = torch.cat([tokens, regular[-1].argmax(-1)[:, None]
+                            .to(torch.int32)], 1)
+        lg, cache = _teacher_decode(model, cfg, cache, tokens,
+                                    tokens.shape[1] - 1)
+        regular.append(lg[0])
+    prefix_k, prefix_v = cache["k"], cache["v"]     # positions < 128 read
+    # (i) the prefix empty: the whole context in the ring
+    DA.decode_attention.launches = 0
+    model.cfg = cfg_w
+    cache_w = R.make_cache(model, cfg_w, b, max_len, device="cuda")
+    split, _ = _teacher_decode(model, cfg_w, cache_w, tokens[:, :n0 + n1],
+                               0)
+    steps_a = n0 + n1
+    launches = DA.decode_attention.launches
+    _check(launches == 2 * L * steps_a,
+           f"split decode (empty prefix): {launches} decode_attention "
+           f"launches, expected {2 * L * steps_a}")
+    worst_a, ties_a = _split_vs_regular(
+        "split decode glm4-9b (empty prefix)", split[n0 - 1:], regular[:n1 + 1])
+    # (ii) prefix_len = 128 from the regular decode's cache
+    DA.decode_attention.launches = 0
+    model.cfg = cfg_w
+    cache_w = R.make_cache(model, cfg_w, b, max_len, device="cuda")
+    cache_w["k"], cache_w["v"] = prefix_k, prefix_v
+    n_pre = n0 + n1
+    cache_w["prefix_len"] = torch.tensor(n_pre, dtype=torch.int32,
+                                         device="cuda")
+    cache_w["pos"] = torch.tensor(n_pre, dtype=torch.int32, device="cuda")
+    split_b, cache_w = _teacher_decode(model, cfg_w, cache_w, tokens, n_pre)
+    n_b = tokens.shape[1] - n_pre
+    launches_b = DA.decode_attention.launches
+    _check(launches_b == 2 * L * n_b,
+           f"split decode (prefix 128): {launches_b} decode_attention "
+           f"launches, expected {2 * L * n_b}")
+    _check(int(cache_w["pos"]) == tokens.shape[1], "split decode: position")
+    worst_b, ties_b = _split_vs_regular(
+        "split decode glm4-9b (prefix 128)", split_b, regular[n1 + 1:])
+    model.cfg = cfg
+    SPLIT_SECONDS["b"] += time.perf_counter() - t0
+    print(f"split decode glm4-9b (decode_window 256, bf16, {b} rows): "
+          f"empty prefix, {n0} replayed + {n1} greedy tokens: logits within "
+          f"{worst_a:.4g} of the regular decode's (rms, relative; tol "
+          f"{SPLIT_TOL}), greedy tokens equal ({ties_a} near-ties); prefix "
+          f"128 + {n_b} tokens in the ring: within {worst_b:.4g} ({ties_b} "
+          f"near-ties); {launches} + {launches_b} decode_attention launches "
+          f"(2 a layer a step); {time.perf_counter() - t0:.1f} s")
+    return {"decode_attention": launches + launches_b}
+
+
+def phase_mesh_serve(family, prompts, streams: dict, n_new: int) -> dict:
+    """Phase 18c: ``RealEngine(kv_layout="paged", mesh=make_mesh_for(1))``
+    on phase 3's qwen3-1.7b family (full width, bf16) serving phase 3's 8
+    requests: every stream equal to phase 3's engine without a mesh
+    (``streams``), both paged kernels launched, the weights shared with
+    the family (a (1, 1) mesh's shard is the whole tensor).  Then the
+    SMOKE config disaggregated (``roles=(1, 1)``) on the (1, 1) mesh on
+    the card against the same on the CPU, strictly: streams and handoffs.
+    Returns the paged kernels' launches in the card's serves."""
+    import torch
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.core.config_graph import ConfigGraph
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving.api import serve_prompts
+    t0 = time.perf_counter()
+    cfg = family[0].cfg
+    mesh = make_mesh_for(1)
+    eng = ENG.RealEngine(family, max_len=2048, kv_layout="paged",
+                         block_size=16, n_blocks=160, max_seqs=8, mesh=mesh)
+    eng.configure(ConfigGraph.from_dict(cfg.name, {("x1", 1): 1}))
+    PA.paged_decode_attention.launches = 0
+    FA.paged_prefill_attention.launches = 0
+    m = serve_prompts(eng, prompts, n_new=n_new)
+    torch.cuda.synchronize()
+    launches = {"paged_decode_attention": PA.paged_decode_attention.launches,
+                "paged_prefill_attention":
+                    FA.paged_prefill_attention.launches}
+    _check(all(n > 0 for n in launches.values()),
+           f"mesh serve: a paged kernel was not launched: {launches}")
+    _check(m["served"] == len(prompts), f"mesh serve: served {m['served']}")
+    _check(eng.instances[0].params is family[0].params,
+           "mesh serve: a (1, 1) mesh must keep the family's weights")
+    for rid, toks in streams.items():
+        _check(bool((eng.last_outputs[rid] == toks).all()),
+               f"mesh serve: rid {rid} differs from the engine without a "
+               f"mesh: {eng.last_outputs[rid]} against {toks}")
+    print(f"mesh serve: qwen3-1.7b on {mesh}: {m['served']} requests, "
+          f"streams equal to the engine without a mesh; {m['tokens']} "
+          f"tokens in {m['wall_s']:.2f} s = {m['tokens_per_s']:.1f} tok/s; "
+          f"launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    # the SMOKE config disaggregated on the (1, 1) mesh, card against CPU
+    smoke = qwen3_1_7b.SMOKE
+    fam_cpu = ENG.build_engine_family(smoke, fracs=(1.0,), seed=3,
+                                      device="cpu")
+    fam_gpu = ENG.build_engine_family(smoke, fracs=(1.0,), seed=3)
+    fam_gpu[0].params.load_state_dict(fam_cpu[0].params.state_dict())
+    mixed = _mixed_prompts(smoke.vocab_size)[:4]
+    outs, handoffs = {}, {}
+    for fam, dev in ((fam_gpu, None), (fam_cpu, "cpu")):
+        eng = ENG.RealEngine(fam, n_slots=2, max_len=64, block_size=8,
+                             max_seqs=6, kv_layout="paged", roles=(1, 1),
+                             device=dev, mesh=make_mesh_for(1, device=dev))
+        eng.configure(ConfigGraph.from_dict(smoke.name, {("x1", 1): 1}))
+        PA.paged_decode_attention.launches = 0
+        FA.paged_prefill_attention.launches = 0
+        mm = serve_prompts(eng, mixed, n_new=8)
+        if dev is None:              # the card's serve: its launches count
+            launches["paged_decode_attention"] += \
+                PA.paged_decode_attention.launches
+            launches["paged_prefill_attention"] += \
+                FA.paged_prefill_attention.launches
+        outs[dev], handoffs[dev] = dict(eng.last_outputs), mm["handoffs"]
+        del eng
+    _check(handoffs[None] == handoffs["cpu"] == len(mixed),
+           f"mesh disagg: handoffs {handoffs}")
+    for rid, toks in outs["cpu"].items():
+        _check(bool((outs[None][rid] == toks).all()),
+               f"mesh disagg: rid {rid} differs: {outs[None][rid]} on the "
+               f"card, {toks} on the CPU")
+    SPLIT_SECONDS["c"] += time.perf_counter() - t0
+    print(f"mesh disagg: SMOKE disaggregated on the (1, 1) mesh on the card "
+          f"equals the CPU on {len(mixed)} requests x 8 tokens, "
+          f"{handoffs[None]} handoffs; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -4130,6 +4517,9 @@ def main() -> int:
     t1 = time.perf_counter()
     records = phase_kernels()
     records.update(phase_ssd_kernels())
+    t = time.perf_counter()
+    phase_split_decode_kernels()
+    SPLIT_SECONDS["a"] = time.perf_counter() - t
     t2 = time.perf_counter()
     launches = phase_serve()
     t3 = time.perf_counter()
@@ -4208,18 +4598,25 @@ def main() -> int:
     for name, n in (list(train_parity.items()) + list(train_full.items())
                     + list(train_full_ssm.items())):
         launches[name] += n
+    # phase 18: the append-buffer decode's and the mesh serves' launches
+    for name, n in SPLIT_LAUNCHES.items():
+        launches[name] += n
+    split_s = sum(SPLIT_SECONDS.values())
     print(f"hybrid launches (one forward): {hybrid}")
-    print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
-          f"paged serve {t3 - t2:.1f} s, slotted serve {t4 - t3:.1f} s, "
+    print(f"phases: build {t1 - t0:.1f} s, kernels "
+          f"{t2 - t1 - SPLIT_SECONDS['a']:.1f} s, paged serve "
+          f"{t3 - t2 - SPLIT_SECONDS['c']:.1f} s, slotted serve "
+          f"{t4 - t3:.1f} s, "
           f"clover {t5 - t4:.1f} s, parity {t6 - t5:.1f} s, ssm "
           f"{t7 - t6:.1f} s, hybrid {t8 - t7:.1f} s, preempted serve "
           f"{t9 - t8:.1f} s, ssm parity {t10 - t9:.1f} s, fleet "
           f"{t11 - t10:.1f} s, fleet parity {t12 - t11:.1f} s, sim "
-          f"{t13 - t12:.1f} s, dense {t14 - t13:.1f} s, dense parity "
+          f"{t13 - t12:.1f} s, dense {t14 - t13 - SPLIT_SECONDS['b']:.1f} s, "
+          f"dense parity "
           f"{t15 - t14:.1f} s, moe {t16 - t15:.1f} s, moe parity "
           f"{t17 - t16:.1f} s, disagg {t18 - t17:.1f} s, encdec/vl "
-          f"{t19 - t18:.1f} s, training {t20 - t19:.1f} s, total "
-          f"{t20 - t0:.1f} s")
+          f"{t19 - t18:.1f} s, training {t20 - t19:.1f} s, split decode "
+          f"and mesh (18a-c) {split_s:.1f} s, total {t20 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

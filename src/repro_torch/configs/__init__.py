@@ -5,7 +5,10 @@ architecture of the reference: the dense family ``qwen3-1.7b``,
 the generic entry points); ``mamba2-2.7b`` (SSM), ``zamba2-2.7b``
 (hybrid), ``qwen2-vl-7b`` (VLM, M-RoPE) and ``seamless-m4t-large-v2``
 (enc-dec), which run through the generic entry points only, as in the
-reference.  Each has ``FULL`` and ``SMOKE`` (for the CPU tests)."""
+reference.  Each has ``FULL`` and ``SMOKE`` (for the CPU tests);
+:func:`get_optimized_config` applies the reference's measured per-arch
+overrides (:data:`OPTIMIZED_OVERRIDES`), which the dry run reads
+(``launch/dryrun.py --optimized``)."""
 from __future__ import annotations
 
 import importlib
@@ -40,3 +43,31 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCHS}
+
+
+# The reference's optimized per-arch variants, kept as they are:
+#   * remat_policy="collectives" checkpoints a decoder layer's attention and
+#     MLP halves apart, keeping their outputs (models/layers.py remat);
+#   * decode_window: the append-buffer decode (a read-only prefix and a
+#     suffix ring of that many positions, models/layers.py
+#     attention_decode_split_apply).
+OPTIMIZED_OVERRIDES: Dict[str, dict] = {
+    "qwen3-moe-30b-a3b": dict(remat_policy="collectives", decode_window=256),
+    "qwen2-moe-a2.7b": dict(remat_policy="collectives"),
+    "qwen3-1.7b": dict(remat_policy="collectives"),
+    "qwen2-0.5b": dict(remat_policy="collectives"),
+    "seamless-m4t-large-v2": dict(remat_policy="collectives"),
+    "zamba2-2.7b": dict(remat_policy="collectives"),
+    "mamba2-2.7b": dict(remat_policy="collectives"),
+    "glm4-9b": dict(decode_window=256),
+    "gemma3-27b": dict(decode_window=256),
+    "qwen2-vl-7b": dict(decode_window=256),
+}
+
+
+def get_optimized_config(name: str) -> ModelConfig:
+    return get_config(name).with_(**OPTIMIZED_OVERRIDES.get(name, {}))

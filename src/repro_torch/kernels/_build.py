@@ -23,7 +23,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_ext"
 SOURCES = ("binding.cpp", "paged_attention.cu", "paged_prefill.cu",
            "flash_attention.cu", "flash_backward.cu", "decode_attention.cu",
-           "ssd_scan.cu", "ssd_backward.cu")
+           "decode_window_end.cu", "ssd_scan.cu", "ssd_backward.cu")
 
 # limits of the split-KV decode body (csrc/decode_split.cuh, the paged and
 # the contiguous decode): up to 8 query rows per CTA (kDecMaxRows: a group

@@ -51,16 +51,20 @@ void paged_prefill(const torch::Tensor& q, const torch::Tensor& k_arena,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// window_end and lse: empty tensors when the caller gives or needs none
 void decode(const torch::Tensor& q, const torch::Tensor& k_cache,
             const torch::Tensor& v_cache, const torch::Tensor& lengths,
-            torch::Tensor out, torch::Tensor part, torch::Tensor counters,
+            const torch::Tensor& window_end, torch::Tensor out,
+            torch::Tensor lse, torch::Tensor part, torch::Tensor counters,
             int64_t min_pages, int64_t n_split, int64_t ctas,
             double sm_scale, int64_t window) {
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(repro_torch::launch_decode(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k_cache.data_ptr(),
       v_cache.data_ptr(), lengths.data_ptr<int>(), lengths.dim() == 0 ? 0 : 1,
-      out.data_ptr(), scratch(part), counters.data_ptr<int>(), q.size(0),
+      window_end.numel() ? window_end.data_ptr<int>() : nullptr,
+      window_end.dim() == 0 ? 0 : 1, out.data_ptr(), scratch(lse),
+      scratch(part), counters.data_ptr<int>(), q.size(0),
       q.size(1), k_cache.size(2), q.size(2), k_cache.size(1), min_pages,
       n_split, ctas, static_cast<float>(sm_scale), window,
       at::cuda::getCurrentCUDAStream()));

@@ -67,6 +67,21 @@
 //   * Merge: a row with one live split writes its output; otherwise each
 //     CTA stores its partial and the last to arrive merges them
 //     (split_kv.cuh), in the same launch.
+//   * Window end and lse (the contiguous decode only; the append-buffer
+//     decode's two segments, models/layers.py): an optional window end
+//     `wend` per row or shared moves the window's left edge to wend -
+//     window (the prefix segment's edge comes from the query's position,
+//     not from its length), and an optional f32 `lse` (b, H) takes each
+//     row's natural log-sum-exp of its scaled scores, m + log(l), from the
+//     same (m, l) that normalise the output (-inf for a row that sees
+//     nothing, whose output is 0), written by the CTA that writes the
+//     output; with an lse the output is f32, so that the two segments'
+//     combine rounds once.  Both are a compile-time form of the body
+//     (kExt), instantiated for the contiguous decode with one shared
+//     length only: the paged decode and the other contiguous forms
+//     compile as without them (a runtime test of the two pointers made
+//     the f32 contiguous decode at 8-row groups 12-17% slower on the
+//     H100).
 #pragma once
 
 #include <stdint.h>
@@ -114,11 +129,13 @@ __host__ __device__ inline int decode_rows(int g) {
 }
 
 // The pages a row's visible range [lo, min(length, n_pos)) touches, lo =
-// max(length - window, 0) when window > 0, else 0: returns their number (0
-// for an empty range) and sets lo and the first page, lo / bs
-__device__ __forceinline__ int visible_pages(int length, int n_pos, int bs,
-                                             int window, int* lo, int* pf) {
-  *lo = window > 0 ? max(length - window, 0) : 0;
+// max(end - window, 0) when window > 0, else 0 (end: the window's end,
+// the length unless the caller gives one): returns their number (0 for an
+// empty range) and sets lo and the first page, lo / bs
+__device__ __forceinline__ int visible_pages(int length, int end, int n_pos,
+                                             int bs, int window, int* lo,
+                                             int* pf) {
+  *lo = window > 0 ? max(end - window, 0) : 0;
   *pf = *lo > 0 ? *lo / bs : 0;
   return max((min(length, n_pos) + bs - 1) / bs - *pf, 0);
 }
@@ -168,19 +185,28 @@ __host__ inline size_t decode_smem_bytes(int rows, int dh, int elt,
 // and the chunks from H / K in the kernel made the bf16 decodes 1.08-1.14x
 // slower on the H100.  Addr: PagedKV (tables: (b, n_pos / bs) block ids)
 // or ContigKV<LS> (tables unused, K/V (b, n_pos, K, dh)).
-// window: the layer's sliding window, 0 for none.
-template <typename T, int G, typename Addr>
+// window: the layer's sliding window, 0 for none.  kExt: the form that
+// takes wend (null for none: the window's end, per row (we_stride 1) or
+// shared (0)) and lse (null for none: (b, H) f32, and out is then f32);
+// without it both are ignored.
+template <typename T, int G, typename Addr, bool kExt>
 __global__ void __launch_bounds__(kDecThreads)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ tables,
                         const int* __restrict__ lengths,
-                        T* __restrict__ out, float* __restrict__ part,
+                        const int* __restrict__ wend, int we_stride,
+                        void* __restrict__ out_, float* __restrict__ lse,
+                        float* __restrict__ part,
                         int* __restrict__ counters, int H, int K, int dh,
                         int bs, int n_pos, int min_pages, int n_split,
                         int ctas, int ring_bytes, int rows, int window,
                         float sl2) {
   constexpr bool kPaged = std::is_same<Addr, PagedKV>::value;
+  // without kExt neither a window end nor an lse: the code is the same as
+  // without them
+  if constexpr (!kExt) wend = nullptr, lse = nullptr;
+  const bool f32_out = lse != nullptr;
   extern __shared__ __align__(16) unsigned char dsm[];
   T* ring = reinterpret_cast<T*>(dsm);          // [stage][K, V][tile][dh]
   float* fsm = reinterpret_cast<float*>(dsm);
@@ -197,7 +223,9 @@ __global__ void __launch_bounds__(kDecThreads)
   __shared__ int warp_pages[kDecWarps];
   int pages = 0;
   for (int i = threadIdx.x; i < gridDim.z; i += kDecThreads)
-    pages += visible_pages(lengths[i * ls], n_pos, bs, window, &lo, &pf);
+    pages += visible_pages(lengths[i * ls],
+                           wend ? wend[i * we_stride] : lengths[i * ls],
+                           n_pos, bs, window, &lo, &pf);
   pages = __reduce_add_sync(0xffffffffu, pages);
   if (lane == 0) warp_pages[warp] = pages;
   __syncthreads();
@@ -210,8 +238,9 @@ __global__ void __launch_bounds__(kDecThreads)
   // runs, and no shorter than an even share of the batch's pages over
   // `ctas` CTAs.  Live splits are those holding a visible position, split
   // 0 always (a row that sees nothing comes back zero)
-  const int valid =
-      visible_pages(lengths[row * ls], n_pos, bs, window, &lo, &pf);
+  const int valid = visible_pages(
+      lengths[row * ls], wend ? wend[row * we_stride] : lengths[row * ls],
+      n_pos, bs, window, &lo, &pf);
   const int pps = max(max(min_pages, (valid + n_split - 1) / n_split),
                       (total * (int)gridDim.y + ctas - 1) / ctas);
   const int span = pps * bs;
@@ -375,7 +404,10 @@ __global__ void __launch_bounds__(kDecThreads)
   const long ps = partial_floats(rp, dh);
   const int group = row * gridDim.y + blockIdx.y;   // (row, KV head, chunk)
   float* mine = part + ((long)group * n_split + split) * ps;
-  T* o = out + (long)row * H * dh + (long)(kvh * g + r0) * dh;
+  const long o_off = (long)row * H * dh + (long)(kvh * g + r0) * dh;
+  T* o = static_cast<T*>(out_) + o_off;
+  float* of32 = static_cast<float*>(out_) + o_off;
+  float* lse_row = f32_out ? lse + (long)row * H + kvh * g + r0 : nullptr;
   for (int e = threadIdx.x; e < gc * dh; e += kDecThreads) {
     const int r = e / dh;
     float M = -INFINITY;
@@ -388,7 +420,12 @@ __global__ void __launch_bounds__(kDecThreads)
         L += s_l[w * gc + r] * c;
       }
     if (n_live == 1) {
-      o[e] = from_float<T>(A / fmaxf(L, 1e-30f));
+      if (f32_out) {
+        of32[e] = A / fmaxf(L, 1e-30f);
+        if (e - r * dh == 0) lse_row[r] = row_lse(M, L);
+      } else {
+        o[e] = from_float<T>(A / fmaxf(L, 1e-30f));
+      }
     } else {
       mine[e] = A;
       if (e - r * dh == 0) {
@@ -399,14 +436,19 @@ __global__ void __launch_bounds__(kDecThreads)
   }
   if (n_live == 1) return;
   if (!arrive_last(counters + group, n_live, &flag)) return;
-  merge_partials<T>(part + (long)group * n_split * ps, n_live, rp, 0, gc,
-                    dh, o, (long)H * dh, gc, 1, fsm);
+  if (f32_out)
+    merge_partials<float>(part + (long)group * n_split * ps, n_live, rp, 0,
+                          gc, dh, of32, (long)H * dh, gc, 1, fsm, lse_row);
+  else
+    merge_partials<T>(part + (long)group * n_split * ps, n_live, rp, 0, gc,
+                      dh, o, (long)H * dh, gc, 1, fsm);
 }
 
-template <typename T, int G, typename Addr>
+template <typename T, int G, typename Addr, bool kExt>
 cudaError_t launch_decode_split(const void* q, const void* k, const void* v,
                                 const int* tables, const int* lengths,
-                                void* out, float* part,
+                                const int* wend, int we_stride, void* out,
+                                float* lse, float* part,
                                 int* counters, int b, int H, int K, int dh,
                                 int bs, int n_pos, int min_pages, int n_split,
                                 int ctas, float sm_scale, int window,
@@ -426,23 +468,25 @@ cudaError_t launch_decode_split(const void* q, const void* k, const void* v,
   const int ring_bytes = (int)(smem - 4 * (size_t)max_pages);
   if (smem > kDecMaxSmem || n_split > kMaxSplits) return cudaErrorInvalidValue;
   const cudaError_t err =
-      ensure_smem<decode_split_kernel<T, G, Addr>>(kDecMaxSmem);
+      ensure_smem<decode_split_kernel<T, G, Addr, kExt>>(kDecMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_split, K * chunks, b);
-  decode_split_kernel<T, G, Addr><<<grid, kDecThreads, smem, stream>>>(
+  decode_split_kernel<T, G, Addr, kExt><<<grid, kDecThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, lengths, static_cast<T*>(out), part,
-      counters, H, K, dh, bs, n_pos, min_pages, n_split, ctas, ring_bytes,
-      rows, window, sm_scale * kLog2e);
+      static_cast<const T*>(v), tables, lengths, wend, we_stride, out, lse,
+      part, counters, H, K, dh, bs, n_pos, min_pages, n_split, ctas,
+      ring_bytes, rows, window, sm_scale * kLog2e);
   return cudaSuccess;
 }
 
 // The body for q's type (bf16 or f32) and the decode_rows(H / K) <= 8
-// query rows of a CTA
-template <typename Addr>
+// query rows of a CTA; kExt: the form with a window end and an lse
+template <typename Addr, bool kExt = false>
 cudaError_t launch_decode_body(bool bf16, const void* q, const void* k,
                                const void* v, const int* tables,
-                               const int* lengths, void* out, float* part,
+                               const int* lengths, const int* wend,
+                               int we_stride, void* out, float* lse,
+                               float* part,
                                int* counters, int b, int H, int K, int dh,
                                int bs, int n_pos, int min_pages, int n_split,
                                int ctas, float sm_scale, int window,
@@ -450,9 +494,10 @@ cudaError_t launch_decode_body(bool bf16, const void* q, const void* k,
   const int rows = decode_rows(H / K);
 #define REPRO_DECODE_SPLIT(T, G)                                              \
   if (rows <= G)                                                              \
-    return launch_decode_split<T, G, Addr>(                                   \
-        q, k, v, tables, lengths, out, part, counters, b, H, K, dh, bs,       \
-        n_pos, min_pages, n_split, ctas, sm_scale, window, stream);
+    return launch_decode_split<T, G, Addr, kExt>(                             \
+        q, k, v, tables, lengths, wend, we_stride, out, lse, part, counters,  \
+        b, H, K, dh, bs, n_pos, min_pages, n_split, ctas, sm_scale, window,   \
+        stream);
 #define REPRO_DECODE_TYPED(T)                                                 \
   REPRO_DECODE_SPLIT(T, 1)                                                    \
   REPRO_DECODE_SPLIT(T, 2)                                                    \

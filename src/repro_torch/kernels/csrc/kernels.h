@@ -45,13 +45,30 @@ cudaError_t launch_paged_prefill(bool bf16, const void* q, const void* k_arena,
 // dh); caches (b, S, K, dh), read as pages of 16 positions; lengths (b,)
 // i32 (len_stride 1) or one value for every row (len_stride 0); out (b, H,
 // dh); window as for the paged decode.  Splits, scratch and counters as
-// for the paged decode, planned over cdiv(S, 16) pages.
+// for the paged decode, planned over cdiv(S, 16) pages.  window_end (null
+// for none): i32 (b,) (we_stride 1) or one value (0); the window keeps the
+// positions >= window_end - window in place of length - window.  lse (null
+// for none): (b, H) f32, each row's log-sum-exp of its scaled scores
+// (-inf where it sees nothing); out is then f32 whatever q's type.  Either
+// takes one shared length (len_stride 0; cudaErrorInvalidValue else).
 cudaError_t launch_decode(bool bf16, const void* q, const void* k_cache,
                           const void* v_cache, const int* lengths,
-                          int len_stride, void* out, float* part,
+                          int len_stride, const int* window_end,
+                          int we_stride, void* out, float* lse, float* part,
                           int* counters, int b, int H, int K, int dh, int S,
                           int min_pages, int n_split, int ctas,
                           float sm_scale, int window, cudaStream_t stream);
+
+// The form of launch_decode with a window end or an lse
+// (decode_window_end.cu; one shared length), which launch_decode calls.
+cudaError_t launch_decode_window_end(bool bf16, const void* q,
+                                     const void* k_cache, const void* v_cache,
+                                     const int* lengths, const int* window_end,
+                                     int we_stride, void* out, float* lse,
+                                     float* part, int* counters, int b, int H,
+                                     int K, int dh, int S, int min_pages,
+                                     int n_split, int ctas, float sm_scale,
+                                     int window, cudaStream_t stream);
 
 // Contiguous flash attention, one tensor-core body for both types: q (b,
 // sq, H, dh); k, v (b, skv, K, dh); out (b, sq, H, dh); tq queries per CTA;

@@ -24,9 +24,10 @@ cudaError_t launch_paged_decode(bool bf16, const void* q, const void* k_arena,
                                 int n_split, int ctas, float sm_scale,
                                 int window, cudaStream_t stream) {
   return launch_decode_body<PagedKV>(bf16, q, k_arena, v_arena, tables,
-                                     lengths, out, part, counters, b, H, K, dh,
-                                     bs, n_pages * bs, min_pages, n_split,
-                                     ctas, sm_scale, window, stream);
+                                     lengths, nullptr, 0, out, nullptr, part,
+                                     counters, b, H, K, dh, bs, n_pages * bs,
+                                     min_pages, n_split, ctas, sm_scale,
+                                     window, stream);
 }
 
 }  // namespace repro_torch

@@ -51,6 +51,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A row's natural log-sum-exp of its scaled scores from its (m in log2
+// units, l): m ln 2 + log l, -inf for a row that saw no key
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == -INFINITY ? -INFINITY : (m + log2f(l)) * kLn2;
+}
 constexpr int kMaxSplits = 32;   // splits per group (kernels/paged_attention.py)
 
 // floats of one partial: acc[rows][dh], m[rows], l[rows] — a multiple of 4
@@ -101,11 +108,13 @@ constexpr int kMergeBatch = 16;  // partials whose loads are issued together
 // (3 n_live + 1) * (r1 - r0) floats.  dh % 4 == 0.  Every (split, row)'s m
 // and l are loaded at once, and the acc loads of kMergeBatch partials are
 // issued before any is used: the merge waits about 1 + n_live /
-// kMergeBatch L2 round trips.
+// kMergeBatch L2 round trips.  lse, when not null, takes row r's
+// log-sum-exp (row_lse of the merged m and l) at lse[r - r0].
 template <typename T>
 __device__ void merge_partials(const float* part, int n_live, int rows,
                                int r0, int r1, int dh, T* out, long q_stride,
-                               int g, int nq, float* smem) {
+                               int g, int nq, float* smem,
+                               float* lse = nullptr) {
   const long ps = partial_floats(rows, dh);
   const int nr = r1 - r0;
   float* sm_m = smem;                    // [n_live][nr]
@@ -129,6 +138,7 @@ __device__ void merge_partials(const float* part, int n_live, int rows,
       L += c * sm_l[s * nr + r];
     }
     linv[r] = 1.f / fmaxf(L, 1e-30f);
+    if (lse != nullptr) lse[r] = row_lse(M, L);
   }
   __syncthreads();
   const int d4 = dh / 4;

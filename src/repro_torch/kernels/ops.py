@@ -4,7 +4,8 @@ tensors lie.
 A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor goes to the hand-written Hopper kernel, whose wrapper raises on
 anything it does not take.  There is no fallback from the kernel to the
-plain version.
+plain version.  A meta tensor (``launch/steps.py``'s abstract steps) goes
+to the plain version, which computes nothing there but shapes.
 """
 from __future__ import annotations
 
@@ -20,9 +21,12 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _on_cuda(name: str, q: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one and for a
+    meta one (the plain version: on the meta device it computes only
+    shapes, for the dry run's abstract steps, ``launch/steps.py``)."""
     if q.is_cuda:
         return True
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{name}: no kernel or plain version for device "
                      f"{q.device}")
@@ -52,16 +56,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                     sm_scale: Optional[float] = None,
-                     window: int = 0) -> torch.Tensor:
+                     sm_scale: Optional[float] = None, window: int = 0,
+                     window_end: Optional[torch.Tensor] = None,
+                     return_lse: bool = False):
     """Contiguous flash-decode: q (b, H, dh) over caches (b, S, K, dh) for
     the first lengths[i] >= 1 positions of each row (lengths () or (b,)),
-    the last ``window`` of them when window > 0."""
+    the last ``window`` of them when window > 0 — those before
+    ``window_end`` when it is given; with ``return_lse`` (out f32, lse
+    (b, H) f32), a row that sees nothing giving 0 and -inf."""
     if _on_cuda("decode_attention", q):
         return _dec.decode_attention(q, k_cache, v_cache, lengths,
-                                     sm_scale=sm_scale, window=window)
+                                     sm_scale=sm_scale, window=window,
+                                     window_end=window_end,
+                                     return_lse=return_lse)
     return _ref.decode_attention_ref(q, k_cache, v_cache, lengths,
-                                     sm_scale=sm_scale, window=window)
+                                     sm_scale=sm_scale, window=window,
+                                     window_end=window_end,
+                                     return_lse=return_lse)
 
 
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,

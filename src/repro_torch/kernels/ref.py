@@ -124,36 +124,56 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def _decode_mask(n_pos: int, lengths, window: int,
-                 device: torch.device) -> torch.Tensor:
+                 device: torch.device, window_end=None) -> torch.Tensor:
     """(rows, n_pos) visible positions of a decode: ``pos < length``, and
-    ``pos >= length - window`` when window > 0 (the reference model path's
-    ``decode_attention_ref`` mask ``pos > length - 1 - window``)."""
+    ``pos >= end - window`` when window > 0, ``end`` the window's end
+    (``window_end``, or the length) — the reference model path's
+    ``decode_attention_ref`` mask ``pos > length - 1 - window``."""
     ln = torch.as_tensor(lengths, device=device).reshape(-1, 1)
     pos = torch.arange(n_pos, device=device)[None, :]
     mask = pos < ln
     if window > 0:
-        mask &= pos >= ln - window
+        end = ln if window_end is None else \
+            torch.as_tensor(window_end, device=device).reshape(-1, 1)
+        mask = mask & (pos >= end - window)
     return mask
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lengths, *,
                          sm_scale: Optional[float] = None,
-                         window: int = 0) -> torch.Tensor:
+                         window: int = 0, window_end=None,
+                         return_lse: bool = False):
     """One-position attention over a contiguous KV cache.  q: (b, H, dh);
     caches: (b, S, K, dh); lengths: () shared valid prefix, or (b,) per-row
     valid prefixes (the slotted continuous-batching decode) — positions
     ``pos < lengths[i]`` are visible, so a length above S sees the whole
-    cache; with ``window`` > 0 only those ``>= lengths[i] - window``.
-    Scores are q·k * sm_scale (default dh**-0.5) in f32.  Returns (b, H,
-    dh) in q's type."""
+    cache; with ``window`` > 0 only those ``>= lengths[i] - window``, or
+    ``>= window_end[i] - window`` when ``window_end`` (() or (b,)) is given
+    (the append-buffer decode's prefix segment, whose window ends at the
+    query's position).  Scores are q·k * sm_scale (default dh**-0.5) in
+    f32.  Returns (b, H, dh) in q's type; with ``return_lse`` (out (b, H,
+    dh) f32, lse (b, H) f32), each row's log-sum-exp of its scaled scores,
+    and a row that sees nothing gives out 0 and lse -inf, as the kernel
+    does (without it, such a row averages V, as the reference does)."""
     b, H, dh = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     scale = dh ** -0.5 if sm_scale is None else sm_scale
-    mask = _decode_mask(S, lengths, window, q.device)
-    o = _attend(q.reshape(b, 1, K, H // K, dh), k_cache, v_cache,
-                mask[:, None, None, None, :], scale)
-    return o.reshape(b, H, dh).to(q.dtype)
+    mask = _decode_mask(S, lengths, window, q.device, window_end)
+    if not return_lse:
+        o = _attend(q.reshape(b, 1, K, H // K, dh), k_cache, v_cache,
+                    mask[:, None, None, None, :], scale)
+        return o.reshape(b, H, dh).to(q.dtype)
+    mask = mask.expand(b, S)[:, None, None, :]                 # (b,1,1,S)
+    s = torch.einsum("bkgd,bnkd->bkgn",
+                     q.float().reshape(b, K, H // K, dh),
+                     k_cache.float()) * scale
+    s = torch.where(mask, s, torch.full_like(s, float("-inf")))
+    lse = torch.logsumexp(s, dim=-1)                          # (b,K,g)
+    p = torch.where(mask, torch.exp(s - lse.clamp(min=NEG_INF)[..., None]),
+                    torch.zeros_like(s))
+    o = torch.einsum("bkgn,bnkd->bkgd", p, v_cache.float())
+    return o.reshape(b, H, dh), lse.reshape(b, H)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_arena: torch.Tensor,

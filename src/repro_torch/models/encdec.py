@@ -95,8 +95,7 @@ def init_encdec(cfg: ModelConfig, *, seed: int = 0,
     if cfg.n_enc_layers <= 0:
         raise ValueError(f"{cfg.name}: no encoder layers")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.seeded_generator(dev, seed)
     with torch.no_grad():
         model = EncDec(cfg, dev, gen)
     return model.requires_grad_(False).eval()

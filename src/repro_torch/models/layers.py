@@ -3,9 +3,11 @@ package's ``models/layers.py``: RMSNorm, rotary embeddings (partial
 rotary, and qwen2-vl's M-RoPE), GQA attention with qk-norm — full-sequence
 attention (causal or full, or cross-attention over K/V from
 :func:`cross_kv`) and prefill, decode at one shared position over a
-contiguous cache (the generic decode of ``registry.decode_step``), decode
-over a slotted cache, and prefill and decode over a paged KV arena — the
-SwiGLU (or GELU) MLP and the tied embedding.
+contiguous cache (the generic decode of ``registry.decode_step``) or over
+a read-only prefix and a suffix ring (the append-buffer decode,
+``cfg.decode_window``), decode over a slotted cache, and prefill and
+decode over a paged KV arena — the SwiGLU (or GELU) MLP and the tied
+embedding.
 
 Parameters live in ``nn.Module``s; the math is plain functions on tensors
 that follow the reference's rounding order (norms in f32 then cast back,
@@ -34,17 +36,36 @@ __all__ = ["RMSNorm", "Attention", "MLP", "rmsnorm_apply", "rope_table",
            "blocked_attention", "decode_attention", "slot_write_index",
            "attention_apply", "attention_prefill_apply",
            "attention_decode_apply", "attention_decode_slots_apply",
+           "decode_attention_parts", "combine_attention_parts",
+           "combine_lse_parts", "attention_decode_split_apply",
            "gather_paged_kv", "attention_decode_paged_apply",
            "attention_prefill_paged_apply", "init_dense", "trunc_normal",
+           "seeded_generator",
            "grad_mode", "remat"]
 
 
+def seeded_generator(device: torch.device, seed: int
+                     ) -> Optional[torch.Generator]:
+    """The init's ``torch.Generator`` on ``device`` from ``seed``; None on
+    the meta device, where the init draws nothing (``launch/steps.py``'s
+    abstract models: shapes and dtypes only, no memory)."""
+    if torch.device(device).type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def trunc_normal(shape, stddev: float, dtype: torch.dtype,
-                 device: torch.device, gen: torch.Generator) -> torch.Tensor:
+                 device: torch.device, gen: Optional[torch.Generator]
+                 ) -> torch.Tensor:
     """Normal(0, stddev) truncated to ±2 stddev, drawn in f32 on ``device``
     then cast — the reference's ``truncated_normal`` init (the two packages'
     generators give different numbers; parity runs carry weights across
-    through ``models/bridge.py``)."""
+    through ``models/bridge.py``).  On the meta device: an empty tensor of
+    the shape and type."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(t, std=stddev, a=-2 * stddev, b=2 * stddev,
                           generator=gen)
@@ -323,6 +344,101 @@ def attention_decode_apply(attn: Attention, x: torch.Tensor, cos, sin,
     cache_k.index_copy_(1, at, k.to(cache_k.dtype))
     cache_v.index_copy_(1, at, v.to(cache_v.dtype))
     o = decode_attention(q, cache_k, cache_v, pos + 1, window=window)
+    return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
+
+
+def decode_attention_parts(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, length, *, pos_offset=0,
+                           query_pos=None, window: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Unnormalised one-position attention over one KV segment, plain
+    PyTorch with the reference's (acc, m, l) contract: acc (b, K, g, dh),
+    m and l (b, K, g), all f32, for an online-softmax merge across
+    segments (:func:`combine_attention_parts`).  q (b, 1, H, dh); caches
+    (b, S, K, dh); the segment's slot 0 sits at absolute position
+    ``pos_offset``, its first ``length`` slots are valid; with ``window`` >
+    0 and ``query_pos`` given only the positions ``> query_pos - window``
+    are seen.  m of a segment that sees nothing is -1e30, its l and acc 0.
+    The model path runs :func:`attention_decode_split_apply`, which merges
+    its segments by their log-sum-exp instead."""
+    b, _, H, dh = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    qg = _scaled_q(q[:, 0], k_cache).reshape(b, K, H // K, dh)
+    s = torch.einsum("bkgd,bnkd->bkgn", qg.float(), k_cache.float())
+    off = torch.as_tensor(pos_offset, device=q.device).reshape(-1, 1)
+    pos = off + torch.arange(S, device=q.device)[None, :]
+    mask = pos < off + torch.as_tensor(length, device=q.device).reshape(-1, 1)
+    if window > 0 and query_pos is not None:
+        mask = mask & (pos > torch.as_tensor(
+            query_pos, device=q.device).reshape(-1, 1) - window)
+    s = torch.where(mask[:, None, None, :], s,
+                    torch.full_like(s, float("-inf")))
+    m = s.amax(-1)
+    p = torch.exp(s - m.clamp(min=-1e30)[..., None])
+    acc = torch.einsum("bkgn,bnkd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return acc, m.clamp(min=-1e30), p.sum(-1)
+
+
+def combine_attention_parts(parts) -> torch.Tensor:
+    """Merge the partials ``[(acc, m, l), ...]`` of
+    :func:`decode_attention_parts` into (b, K, g, dh) f32, as the
+    reference does."""
+    m = parts[0][1]
+    for _, mi, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    acc = sum(a * torch.exp(mi - m)[..., None] for a, mi, _ in parts)
+    l = sum(li * torch.exp(mi - m) for _, mi, li in parts)
+    return acc / l.clamp(min=1e-30)[..., None]
+
+
+def combine_lse_parts(parts) -> torch.Tensor:
+    """Merge normalised segment outputs ``[(out (b, H, dh) f32, lse (b, H)
+    f32), ...]`` by their log-sum-exps: weights ``exp(lse_i - max)`` in
+    f32, so a segment that saw nothing (lse -inf) weighs 0; a row that no
+    segment saw comes back 0.  Returns (b, H, dh) f32."""
+    m = parts[0][1]
+    for _, li in parts[1:]:
+        m = torch.maximum(m, li)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    ws = [torch.exp(li - m) for _, li in parts]
+    num = sum(w[..., None] * o for (o, _), w in zip(parts, ws))
+    return num / sum(ws).clamp(min=1e-30)[..., None]
+
+
+def attention_decode_split_apply(attn: Attention, x: torch.Tensor, cos, sin,
+                                 prefix_k: torch.Tensor,
+                                 prefix_v: torch.Tensor, sk: torch.Tensor,
+                                 sv: torch.Tensor, pos: torch.Tensor,
+                                 prefix_len: torch.Tensor, *,
+                                 window: int = 0) -> torch.Tensor:
+    """The append-buffer decode (the reference's
+    ``attention_decode_split_apply``): the prefix cache (b, S, K, dh) is
+    read only; the new token's K/V go into the suffix ring sk, sv (b, W, K,
+    dh) at ``slot = pos - prefix_len``, clamped into ``[0, W - 1]`` on the
+    device as the reference's ``dynamic_update_slice`` clamps (written IN
+    PLACE; no host read of ``pos``).  The token attends over two segments,
+    one decode call each — the prefix's first ``prefix_len`` positions,
+    its window ending at ``pos + 1``, and the ring's first ``slot + 1``
+    (all W once ``slot >= W``, as in the reference) — and their outputs
+    are merged by their log-sum-exps (:func:`combine_lse_parts`).  On CUDA
+    both calls are the contiguous decode kernel with its window end and
+    lse; on the CPU its plain version.  x: (b, 1, d); pos, prefix_len: ()
+    int32.  Returns out (b, 1, d)."""
+    cfg = attn.cfg
+    q, k, v = attn.project_qkv(x, cos, sin)
+    slot = pos - prefix_len
+    at = slot.clamp(0, sk.shape[1] - 1).long().reshape(1)
+    sk.index_copy_(1, at, k.to(sk.dtype))
+    sv.index_copy_(1, at, v.to(sv.dtype))
+    prefix = ops.decode_attention(
+        _scaled_q(q[:, 0], prefix_k), prefix_k, prefix_v, prefix_len,
+        sm_scale=1.0, window=window, window_end=pos + 1, return_lse=True)
+    suffix = ops.decode_attention(
+        _scaled_q(q[:, 0], sk), sk, sv, slot + 1, sm_scale=1.0,
+        window=window, return_lse=True)
+    o = combine_lse_parts([prefix, suffix]).to(q.dtype)
     return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
 
 

@@ -19,6 +19,7 @@ returns new ones.
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple, Union
 
 import torch
@@ -137,10 +138,31 @@ def decode_slots(params: LM, cache: T.SlotCache, batch: dict,
 
 def make_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device: Optional[torch.device] = None) -> T.Arena:
+                     device: Optional[torch.device] = None,
+                     mesh=None) -> T.Arena:
     """Paged KV arena (block 0 = junk sink); ``serving.kvpool`` owns the
-    free-list / refcount / block-table map of it."""
-    return T.init_block_arena(cfg, n_blocks, block_size, dtype, device)
+    free-list / refcount / block-table map of it.  ``mesh`` places it
+    under the arena rule (``sharding.rules.arena_spec``: KV heads over
+    "model")."""
+    return T.init_block_arena(cfg, n_blocks, block_size, dtype, device,
+                              mesh=mesh)
+
+
+def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
+    """Place a model under the sharding rules
+    (``sharding.rules.param_specs``: Megatron column / row pairs, the head
+    guards, expert parallelism): each tensor's shard on the mesh's device.
+    On a (1, 1) mesh a shard is the whole tensor, so the model comes back
+    on ``mesh.device`` — the same module when it lives there already.  A
+    mesh of more than one device raises ``NotImplementedError``
+    (``launch.mesh.Mesh.single_device``)."""
+    from repro_torch.sharding import rules
+    _check_cfg(params, cfg)
+    rules.param_specs(params, cfg, mesh)
+    dev = mesh.single_device("shard_params")
+    if all(p.device == dev for p in params.parameters()):
+        return params
+    return copy.deepcopy(params).to(dev)
 
 
 def prefill_paged(params: LM, batch: dict, arena: T.Arena,

@@ -35,10 +35,14 @@ tokens of one call in groups with a capacity per expert
 part in its routing as they do in the reference.  Caches and the arena are
 written in place.  The VLM (qwen2-vl) is the dense body with M-RoPE: the
 generic entry points take its (3, b, s) position streams; without them its
-tables are the plain ones.  The append-buffer decode is not ported
-(:func:`check_supported` raises); the SSM, hybrid and VLM families run
-through the generic entry points only — the slot cache, the arena and the
-engines refuse them, as the reference's do (enc-dec is
+tables are the plain ones.  With ``cfg.decode_window`` > 0 the generic
+decode of the dense body is the append-buffer decode: its cache gains a
+suffix ring ``"sk"`` / ``"sv"`` of ``decode_window`` positions and a
+``"prefix_len"``, and each step writes the ring and reads the prefix
+(``layers.attention_decode_split_apply``); the slot cache, the arena and
+the engines ignore the field, as the reference's do.  The SSM, hybrid and
+VLM families run through the generic entry points only — the slot cache,
+the arena and the engines refuse them, as the reference's do (enc-dec is
 ``models/encdec.py``'s).
 """
 from __future__ import annotations
@@ -69,16 +73,13 @@ _DENSE_BODY = DECODER_FAMILIES + ("vlm",)
 
 def check_supported(cfg: ModelConfig, families=DECODER_FAMILIES) -> None:
     """Raise ``NotImplementedError`` for what ``families`` do not take: a
-    family outside them, enc-dec (``models/encdec.py``), M-RoPE unless they
-    include the VLM (the generic entry points), and the append-buffer
-    decode, which a later slice ports."""
+    family outside them, enc-dec (``models/encdec.py``), and M-RoPE unless
+    they include the VLM (the generic entry points)."""
     reasons = []
     if cfg.family not in families or cfg.n_enc_layers:
         reasons.append(f"family {cfg.family!r}")
     if cfg.mrope_sections and "vlm" not in families:
         reasons.append("M-RoPE")
-    if cfg.decode_window:
-        reasons.append("append-buffer decode (not ported yet)")
     if reasons:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(reasons)} not supported here")
@@ -203,8 +204,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     with the reference's init distributions."""
     check_supported(cfg, GENERIC_FAMILIES)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = L.seeded_generator(dev, seed)
     with torch.no_grad():
         model = LM(cfg, dev, gen)
     return model.requires_grad_(False).eval()
@@ -212,13 +212,22 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
 
 def init_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device: Optional[torch.device] = None) -> Arena:
+                     device: Optional[torch.device] = None,
+                     mesh=None) -> Arena:
     """Paged KV arena ``{"k", "v"}`` of shape (L, n_blocks, block_size, K,
     dh): every sequence's cache is a list of fixed-size blocks carved from
     this one allocation (``serving.kvpool`` owns the map).  Block 0 is the
-    junk sink for masked writes — never handed to a sequence."""
+    junk sink for masked writes — never handed to a sequence.  With
+    ``mesh`` the arena is placed under ``sharding.rules.arena_spec`` (its
+    error for a head count the model axis does not divide comes first),
+    on the mesh's device: a (1, 1) mesh holds it whole; a mesh of more
+    devices raises ``NotImplementedError``."""
     check_supported(cfg)
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
+    if mesh is not None:
+        from repro_torch.sharding import rules
+        rules.arena_spec(mesh, cfg)
+        device = mesh.single_device("init_block_arena")
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -338,7 +347,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     stacked on L; the
     hybrid both, its ``"k"``, ``"v"`` (G, b, max_len, K, dh) one per
     application of the shared block (G = L / attn_every); and ``"pos"``
-    () int32, the next position."""
+    () int32, the next position.  With ``cfg.decode_window`` = W > 0 the
+    dense body's cache also holds the append-buffer decode's suffix ring
+    ``"sk"``, ``"sv"`` (L, b, W, K, dh) and ``"prefix_len"`` () int32, the
+    valid length of the read-only prefix ``"k"`` / ``"v"`` (0, as the
+    reference leaves it: the whole context then sits in the ring)."""
     check_supported(cfg, GENERIC_FAMILIES)
     dev = resolve_device(device)
     cache: KVCache = {}
@@ -352,6 +365,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
         shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.d_head)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.decode_window > 0 and cfg.family in _DENSE_BODY:
+        ring = (cfg.n_layers, batch, cfg.decode_window, cfg.n_kv_heads,
+                cfg.d_head)
+        cache["sk"] = torch.zeros(ring, dtype=dtype, device=dev)
+        cache["sv"] = torch.zeros(ring, dtype=dtype, device=dev)
+        cache["prefix_len"] = torch.zeros((), dtype=torch.int32, device=dev)
     cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
     return cache
 
@@ -365,19 +384,29 @@ def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor, *,
     given; its K/V are still written at ``cache["pos"]`` (after an image
     the two differ).  The cache's buffers are advanced IN PLACE (the
     reference returns new ones) and ``cache["pos"]`` becomes a new tensor
-    ``pos + 1``.  Returns (logits (b, V_padded), cache)."""
+    ``pos + 1``.  With ``cfg.decode_window`` the new K/V go to the suffix
+    ring and the prefix is never written
+    (``layers.attention_decode_split_apply``).  Returns (logits (b,
+    V_padded), cache)."""
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
     pos = cache["pos"]
     x = L.embedding_apply(model.embed, tokens)
     if cfg.family in _DENSE_BODY:
+        split = cfg.decode_window > 0
         for li, (layer, (w, (cos, sin))) in enumerate(zip(
                 model.layers, _layer_specs(cfg, pos[None],
                                            mrope_positions))):
-            x = x + L.attention_decode_apply(
-                layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
-                cache["v"][li], pos, window=w)
-            x, _ = _mlp_residual(layer, x, cfg)
+            if split:
+                a = L.attention_decode_split_apply(
+                    layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
+                    cache["v"][li], cache["sk"][li], cache["sv"][li], pos,
+                    cache["prefix_len"], window=w)
+            else:
+                a = L.attention_decode_apply(
+                    layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
+                    cache["v"][li], pos, window=w)
+            x, _ = _mlp_residual(layer, x + a, cfg)
     else:
         sh = model.shared
         if sh is not None:

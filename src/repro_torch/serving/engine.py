@@ -70,8 +70,14 @@ How the JAX-specific parts of the reference translate:
     tensor, copied to pinned host memory like a readback, and
     ``index_copy_`` back into the arena.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
-(sharding).
+``mesh=`` (``launch.mesh``) runs the paged instances on a mesh of one
+device: the weights placed through ``registry.shard_params`` (cached per
+mesh on the variant) and the arena built under
+``sharding.rules.arena_spec``; on a (1, 1) mesh every shard is the whole
+tensor (the loop state's rows too, :meth:`PagedInstance._put`), so the
+streams are the unsharded engine's.  A mesh of more
+devices raises ``NotImplementedError`` after the arena rule has been
+checked: executing across devices is not ported.
 """
 from __future__ import annotations
 
@@ -107,6 +113,19 @@ class EngineVariant:
     variant: Variant
     cfg: ModelConfig
     params: R.LM
+    # the params placed on each mesh an instance of the variant runs on,
+    # keyed by id(mesh): every instance of the variant on one mesh shares
+    # one placement, so a warm reconfiguration never places weights again
+    sharded: Dict[int, R.LM] = dataclasses.field(default_factory=dict)
+
+
+def _sharded_params(ev: EngineVariant, mesh) -> R.LM:
+    """The variant's params placed on ``mesh`` (``registry.shard_params``),
+    cached per mesh on the variant, as the reference caches them."""
+    key = id(mesh)
+    if key not in ev.sharded:
+        ev.sharded[key] = R.shard_params(ev.params, ev.cfg, mesh)
+    return ev.sharded[key]
 
 
 def build_engine_family(base_cfg: ModelConfig, fracs=(1.0, 0.5, 0.25),
@@ -643,13 +662,15 @@ class PagedInstance:
                  preemption: bool = False,
                  policy: Optional[SchedulerPolicy] = None,
                  pipeline: bool = True, fused_steps: int = 8,
-                 role: str = "both"):
+                 role: str = "both", mesh=None):
         assert role in ("both", "prefill", "decode"), role
         self.ev = ev
         self.chips = chips
         self.role = role
-        self.params = ev.params
-        self.device = next(ev.params.parameters()).device
+        self.mesh = mesh
+        self.params = (ev.params if mesh is None
+                       else _sharded_params(ev, mesh))
+        self.device = next(self.params.parameters()).device
         self.block_size = block_size
         self.max_len = max_len
         self.max_seqs = max_seqs
@@ -668,7 +689,7 @@ class PagedInstance:
         self.policy = policy
         self.arena = R.make_block_arena(ev.cfg, n_blocks, block_size,
                                         dtype=torch.float32,
-                                        device=self.device)
+                                        device=self.device, mesh=mesh)
         self.alloc = BlockAllocator(n_blocks, block_size)
         self.prefix: Optional[RadixPrefixCache] = (
             RadixPrefixCache(self.alloc) if prefix_caching else None)
@@ -742,6 +763,10 @@ class PagedInstance:
         self._dirty = True
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
+        """Upload one (B, ...) loop-state buffer.  The reference cuts its
+        rows over a mesh's "data" axis when that axis (of more than one
+        device) divides them; the meshes that run here have one device,
+        where it places the whole buffer, as this upload does."""
         return _h2d(arr, self.device)
 
     def warmup(self) -> None:
@@ -1479,8 +1504,13 @@ class RealEngine:
     workers: constructing ``RealEngine(..., roles=...)`` builds a
     :class:`serving.disagg.DisaggEngine` (the same ``ServingBackend``
     surface, so callers and the fleet's ``probe_window`` drive it
-    unchanged).  The reference's ``mesh`` is not ported yet and raises
-    ``NotImplementedError``."""
+    unchanged).  ``mesh=`` runs every paged instance on a mesh
+    (``launch.mesh.make_mesh_for``) of one device — the device the
+    family lives on; the slotted layout refuses it, as the reference's
+    assert does, and a mesh of more devices raises
+    ``NotImplementedError`` once ``sharding.rules.arena_spec`` has
+    accepted every variant (so a head count the model axis does not
+    divide is named first)."""
 
     def __new__(cls, *args, **kwargs):
         if cls is RealEngine and kwargs.get("roles"):
@@ -1499,8 +1529,8 @@ class RealEngine:
                  decode_pipeline: bool = True, fused_steps: int = 8,
                  quality_selector=None, mesh=None, roles=None,
                  device: Optional[Union[str, torch.device]] = None):
-        if mesh is not None:
-            raise NotImplementedError("not ported yet: mesh")
+        assert mesh is None or kv_layout == "paged", \
+            "mesh sharding requires the paged KV layout"
         assert not roles, \
             "roles= is the DisaggEngine's (serving.disagg) — RealEngine " \
             "dispatches there via __new__; do not pass roles to a subclass"
@@ -1516,6 +1546,14 @@ class RealEngine:
                 raise ValueError(f"variant {ev.variant.name} lives on "
                                  f"{sorted(map(str, where))}, engine on "
                                  f"{self.device}")
+        if mesh is not None:
+            from repro_torch.sharding import rules
+            for ev in family:
+                rules.arena_spec(mesh, ev.cfg)
+            if mesh.single_device("RealEngine") != self.device:
+                raise ValueError(f"mesh {mesh} on {mesh.device}, engine "
+                                 f"on {self.device}")
+        self.mesh = mesh
         self.family = {ev.variant.name: ev for ev in family}
         self.instances: List[Union[Instance, PagedInstance]] = []
         self.n_slots = n_slots
@@ -1576,7 +1614,8 @@ class RealEngine:
                                  preemption=self.preemption,
                                  policy=self.policy,
                                  pipeline=self.decode_pipeline,
-                                 fused_steps=self.fused_steps, role=role)
+                                 fused_steps=self.fused_steps, role=role,
+                                 mesh=self.mesh)
         return Instance(ev, chips, self.n_slots, self.max_len)
 
     def configure(self, graph) -> float:

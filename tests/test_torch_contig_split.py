@@ -275,9 +275,11 @@ def test_contig_decode_wrapper_plans_from_shapes_alone(monkeypatch, dtype, b,
     want = PAT.split_plan(_cdiv(S, 16), 16, b * K, 132,
                           PAT.DECODE_CTAS_PER_SM[dtype])
     for args in calls:
-        min_pages, n_split, ctas = args[7:10]
+        # (q, k, v, lengths, window_end, out, lse, part, counters,
+        #  min_pages, n_split, ctas, scale, window)
+        min_pages, n_split, ctas = args[9:12]
         assert (n_split, min_pages, ctas) == want
-        part = args[5]
+        part = args[7]
         assert part.dtype == torch.float32
         assert part.numel() == (b * K * n_split * PAT.partial_floats(2, dh)
                                 if n_split > 1 else 0)

@@ -290,9 +290,11 @@ def test_decode_wrappers_plan_chunks_and_pass_the_window(monkeypatch, dtype,
     for (kind, args), n in zip(calls, (_cdiv(S, 16), n_pages)):
         n_split, min_pages, ctas = PAT.split_plan(
             n, 16, groups, 132, PAT.DECODE_CTAS_PER_SM[dtype])
-        at = 7 if kind == "decode" else 8
+        # the contiguous decode's arguments: (q, k, v, lengths,
+        # window_end, out, lse, part, counters, min_pages, ...)
+        at = 9 if kind == "decode" else 8
         assert tuple(args[at:at + 3]) == (min_pages, n_split, ctas)
-        part = args[5] if kind == "decode" else args[6]
+        part = args[7] if kind == "decode" else args[6]
         assert part.numel() == (groups * n_split * PAT.partial_floats(
             rows + rows % 2, dh) if n_split > 1 else 0)
         assert args[-1] == window

@@ -27,6 +27,7 @@ from repro_torch.configs import qwen3_1_7b
 from repro_torch.core import carbon as CBT
 from repro_torch.core import config_graph as CGT
 from repro_torch.fleet import fleet_sim as FST
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import bridge
 from repro_torch.obs.validate import check_disagg_conservation as conserve_t
 from repro_torch.serving import backends as BKT
@@ -95,6 +96,10 @@ def _conserves(m, responses):
 # construction / dispatch (the reference's tests/test_disagg.py:59, :75)
 # =============================================================================
 def test_roles_kwarg_builds_disagg_engine(families):
+    """``roles=`` builds a ``DisaggEngine`` (and only on the paged layout);
+    a ``mesh=`` of two devices is refused with ``NotImplementedError``
+    (multi-device execution is not ported) and a (1, 1) mesh passes
+    through to the workers."""
     fam = families[1]
     eng = ENG.RealEngine(fam, n_slots=2, max_len=32, kv_layout="paged",
                          roles={"prefill": 1, "decode": 1}, device="cpu")
@@ -111,8 +116,13 @@ def test_roles_kwarg_builds_disagg_engine(families):
         ENG.RealEngine(fam, kv_layout="paged", roles={"prefill": 1},
                        device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
-        ENG.RealEngine(fam, kv_layout="paged", roles=(1, 1), mesh=object(),
+        ENG.RealEngine(fam, kv_layout="paged", roles=(1, 1),
+                       mesh=MESH.Mesh((1, 2), ("data", "model")),
                        device="cpu")
+    one = MESH.make_mesh_for(1, device="cpu")
+    eng = ENG.RealEngine(fam, kv_layout="paged", roles=(1, 1), mesh=one,
+                         device="cpu")
+    assert isinstance(eng, DisaggEngine) and eng.mesh is one
 
 
 def test_configure_builds_role_split_workers(families):

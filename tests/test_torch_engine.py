@@ -15,6 +15,7 @@ from repro.serving import engine as ENGJ
 from repro.train.checkpoint import _flatten
 from repro_torch.configs import qwen3_1_7b
 from repro_torch.core import config_graph as CGT
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import bridge
 from repro_torch.serving import engine as ENG
 from repro_torch.serving.api import InferenceRequest
@@ -207,19 +208,26 @@ def test_token_stream_callbacks_and_single_token_requests(family):
     assert eng.stats()["host_syncs"] >= 1
 
 
-@pytest.mark.parametrize("kw", [{"preemption": True, "mesh": object()},
+@pytest.mark.parametrize("kw", [{"preemption": True},
                                 {"telemetry": object(),
-                                 "roles": {"prefill": 1, "decode": 1},
-                                 "mesh": object()},
-                                {"quality_selector": "greedy",
-                                 "mesh": object()},
-                                {"mesh": object()},
-                                {"roles": (1, 1), "mesh": object()}])
+                                 "roles": {"prefill": 1, "decode": 1}},
+                                {"quality_selector": "greedy"},
+                                {},
+                                {"roles": (1, 1)}])
 def test_unported_engine_options_raise(family, kw):
-    """``mesh=`` stays refused, alone and beside the ported preemption,
-    telemetry, quality selector and ``roles=`` (disaggregation)."""
-    with pytest.raises(NotImplementedError):
-        ENG.RealEngine(family, kv_layout="paged", device="cpu", **kw)
+    """``mesh=`` of more than one device stays refused with
+    ``NotImplementedError`` (multi-device execution is not ported), alone
+    and beside the ported preemption, telemetry, quality selector and
+    ``roles=`` (disaggregation); the same options on a (1, 1) mesh build
+    (``tests/test_torch_launch_tools.py`` serves through it)."""
+    two = MESH.Mesh((1, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        ENG.RealEngine(family, kv_layout="paged", device="cpu", mesh=two,
+                       **kw)
+    one = MESH.make_mesh_for(1, device="cpu")
+    eng = ENG.RealEngine(family, kv_layout="paged", device="cpu", mesh=one,
+                         **kw)
+    assert eng.mesh is one
 
 
 def test_default_layout_builds_slotted_instances(family):

@@ -45,7 +45,11 @@ def test_importing_every_port_module_leaves_jax_out():
                 "repro_torch.train.data", "repro_torch.train.optimizer",
                 "repro_torch.train.compression",
                 "repro_torch.train.train_loop",
-                "repro_torch.train.checkpoint", "repro_torch.launch.train"):
+                "repro_torch.train.checkpoint", "repro_torch.launch.train",
+                "repro_torch.sharding", "repro_torch.sharding.rules",
+                "repro_torch.launch.mesh", "repro_torch.launch.steps",
+                "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                "repro_torch.configs.shapes"):
         assert mod in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -304,7 +304,10 @@ def test_ops_on_cpu_take_the_plain_versions_and_launch_nothing():
 def test_contiguous_kernel_wrappers_refuse_what_they_do_not_take():
     """The contiguous kernels' wrappers check before they build: CPU
     tensors, a type the kernels do not take, a head dim the flash kernel
-    cannot read four at a time, and shapes that do not match, raise."""
+    cannot read four at a time, and shapes that do not match, raise.
+    Meta tensors (the dry run's abstract steps) take the plain versions
+    through ``ops``, which give meta outputs of the kernels' shapes and
+    launch nothing."""
     counters = (DAT.decode_attention, FAT.flash_attention)
     before = [f.launches for f in counters]
     qd, kc = torch.randn(2, 4, 16), torch.randn(2, 12, 2, 16)
@@ -315,16 +318,17 @@ def test_contiguous_kernel_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         FAT.flash_attention(qf, kf, kf)
     meta = [t.to("meta") for t in (qf, kf, kf)]
-    with pytest.raises(ValueError, match="meta"):
-        ops.flash_attention(*meta)
-    with pytest.raises(ValueError, match="meta"):
-        ops.decode_attention(*[t.to("meta") for t in (qd, kc, kc, ln)])
+    out = ops.flash_attention(*meta)
+    assert out.is_meta and out.shape == qf.shape
+    out = ops.decode_attention(*[t.to("meta") for t in (qd, kc, kc, ln)])
+    assert out.is_meta and out.shape == qd.shape
     assert [f.launches for f in counters] == before
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take():
-    """The CUDA wrappers check before they build or launch: CPU tensors,
-    and a device with neither a kernel nor a plain version, raise."""
+    """The CUDA wrappers check before they build or launch: CPU tensors
+    raise.  Meta tensors take the plain version through ``ops``, a meta
+    output of the kernel's shape, and launch nothing."""
     n_dec = PAT.paged_decode_attention.launches
     n_pre = FAT.paged_prefill_attention.launches
     args = _decode_inputs()
@@ -336,8 +340,8 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         FAT.paged_prefill_attention(q, args[1], args[2], table, pos)
     meta = [t.to("meta") for t in args]
-    with pytest.raises(ValueError, match="meta"):
-        ops.paged_decode_attention(*meta)
+    out = ops.paged_decode_attention(*meta)
+    assert out.is_meta and out.shape == args[0].shape
     assert PAT.paged_decode_attention.launches == n_dec
     assert FAT.paged_prefill_attention.launches == n_pre
 

@@ -168,11 +168,13 @@ def test_decode_paged_multi_matches_single_steps(params):
 
 
 def test_unported_configs_raise():
-    """The append-buffer decode, which no slice has ported, raises at init.
-    Enc-dec builds an ``EncDec`` and M-RoPE an ``LM``, as the reference's
-    ``init_params`` does (the generic entry points run them:
+    """The append-buffer decode (``decode_window``) builds and decodes
+    (``tests/test_torch_split_decode.py`` holds it to the reference); the
+    arena accepts such a config and ignores the field, as the reference's
+    does.  Enc-dec builds an ``EncDec`` and M-RoPE an ``LM``, as the
+    reference's ``init_params`` does (the generic entry points run them:
     ``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py``).  The
-    arena refuses all three, and the SSM family, which the reference's
+    arena refuses those two, and the SSM family, which the reference's
     ``supports_paged`` excludes.  (Sliding windows and the local/global
     pattern are ported: ``tests/test_torch_dense_archs.py``.)  MoE is
     ported: the same widths with experts build MoE layers and an arena
@@ -188,9 +190,18 @@ def test_unported_configs_raise():
     mrope = RT.init_params(CFG_T.with_(mrope_sections=(2, 3, 3)),
                            device="cpu")
     assert isinstance(mrope, RT.LM)
-    with pytest.raises(NotImplementedError):
-        RT.init_params(CFG_T.with_(decode_window=8), device="cpu")
-    for kw in ({"mrope_sections": (2, 3, 3)}, {"decode_window": 8},
-               {"family": "ssm"}, {"n_enc_layers": 2}):
+    split_cfg = CFG_T.with_(decode_window=8)
+    split = RT.init_params(split_cfg, device="cpu")
+    cache = RT.make_cache(split, split_cfg, 1, 8, dtype=torch.float32,
+                          device="cpu")
+    assert cache["sk"].shape == (split_cfg.n_layers, 1, 8, 2, 16)
+    lg, cache = RT.decode_step(split, cache, {"tokens": torch.zeros(
+        (1, 1), dtype=torch.int32)}, split_cfg)
+    assert lg.shape == (1, split_cfg.padded_vocab) and bool(
+        torch.isfinite(lg).all()) and int(cache["pos"]) == 1
+    arena = RT.make_block_arena(split_cfg, 4, 8, device="cpu")
+    assert set(arena) == {"k", "v"}
+    for kw in ({"mrope_sections": (2, 3, 3)}, {"family": "ssm"},
+               {"n_enc_layers": 2}):
         with pytest.raises(NotImplementedError):
             RT.make_block_arena(CFG_T.with_(**kw), 4, 8, device="cpu")

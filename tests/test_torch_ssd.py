@@ -117,8 +117,11 @@ def test_ops_on_cpu_take_the_plain_version_and_launch_nothing():
     y_r, st_r = REFT.ssd_chunked_ref(*t, 8)
     assert torch.equal(y, y_r) and torch.equal(st, st_r)
     assert SSDT.ssd_chunked.launches == before
-    with pytest.raises(ValueError, match="meta"):
-        ops.ssd_chunked(*[a.to("meta") for a in t], chunk=8)
+    # meta tensors (the dry run's abstract steps): the plain version's
+    # shapes, no launch
+    y_m, st_m = ops.ssd_chunked(*[a.to("meta") for a in t], chunk=8)
+    assert y_m.is_meta and y_m.shape == y.shape and st_m.shape == st.shape
+    assert SSDT.ssd_chunked.launches == before
 
 
 def test_plain_refuses_a_ragged_sequence():

@@ -278,8 +278,10 @@ def test_forward_on_cpu_launches_nothing_and_checks_its_arguments(
 def test_generic_entry_points_refuse_unported_dense_options():
     """The generic forward and decode serve the dense and MoE families
     (``tests/test_torch_dense_archs.py``, ``tests/test_torch_moe_archs.py``)
-    but refuse what stays unported of their configurations: the
-    append-buffer decode on dense weights.  M-RoPE (qwen2-vl) on dense
+    and every option of their configurations: the append-buffer decode
+    on dense weights runs its split cache, and its forward and first
+    decode step equal the plain ones (``tests/test_torch_split_decode.py``
+    holds it to the reference).  M-RoPE (qwen2-vl) on dense
     weights runs, and without positions equals plain RoPE
     (``tests/test_torch_vlm.py`` holds it to the reference with them);
     enc-dec builds its own model (``tests/test_torch_encdec.py``); an MoE
@@ -295,10 +297,13 @@ def test_generic_entry_points_refuse_unported_dense_options():
     lg, _ = RT.decode_step(model, cache, {"tokens": toks[:, :1]}, model.cfg)
     torch.testing.assert_close(lg, plain[:, 0], rtol=TOL, atol=TOL)
     model.cfg = model.cfg.with_(mrope_sections=(), decode_window=8)
-    with pytest.raises(NotImplementedError):
-        RT.forward(model, {"tokens": toks}, model.cfg)
-    with pytest.raises(NotImplementedError):
-        RT.make_cache(model, model.cfg, 1, 8, device="cpu")
+    lg, _ = RT.forward(model, {"tokens": toks}, model.cfg)
+    assert torch.equal(lg, plain)
+    cache = RT.make_cache(model, model.cfg, 1, 8, dtype=torch.float32,
+                          device="cpu")
+    assert int(cache["prefix_len"]) == 0 and not cache["k"].any()
+    lg, _ = RT.decode_step(model, cache, {"tokens": toks[:, :1]}, model.cfg)
+    torch.testing.assert_close(lg, plain[:, 0], rtol=TOL, atol=TOL)
     encdec = RT.init_params(
         get_smoke_config("qwen3-1.7b").with_(n_enc_layers=2), device="cpu")
     assert len(encdec.enc_layers) == 2
