@@ -56,7 +56,8 @@ Phases, each printing its result lines:
 7. mamba2-2.7b at full width (bf16) through ``registry.forward`` (4 x
    4096 and 1 x 32768 tokens, the scan counted) and greedy decode through
    ``make_cache`` / ``decode_step``, whose replayed prompt is held against
-   the forward; then the same replay check with f32 weights;
+   the forward; then the same replay check with f32 weights at half the
+   depth (``F32_REPLAY_LAYERS``);
 8. zamba2-2.7b at full width the same way (the scan and the contiguous
    flash attention counted in the forward, the contiguous decode in each
    step);
@@ -175,8 +176,25 @@ Phases, each printing its result lines:
    ``RealEngine(kv_layout="paged", mesh=make_mesh_for(1))`` on its family
    serving its 8 requests with streams equal to its engine's, both paged
    kernels counted, then the SMOKE config disaggregated on the (1, 1)
-   mesh, card against CPU, strictly;
-19. the ``kernels`` line: every ported kernel with its launches on the main
+   mesh, card against CPU, strictly; and, after phase 12, (b) again with
+   f32 weights at qwen2-0.5b's width, every greedy token equal to the
+   regular decode's (``phase_split_decode_f32``);
+19. serving across devices (``launch.ranks.spawn``: one process a rank,
+   the ranks sharing the card over gloo; NCCL puts no two ranks on one
+   device): (a) qwen3-1.7b at full width with f32 weights on a (1, 2)
+   mesh of 2 ranks, 8 of the 16 query heads over 4 of the 8 KV heads a
+   rank, half of every MLP and of the vocab, serving phase 3's 8 requests
+   of 16 new tokens (128-token prefill chunks) through
+   ``RealEngine(kv_layout="paged", mesh=...)``, every stream equal to a
+   single-rank engine's on the same seeded weights (a differing token
+   printed with its top-2 gap), both paged kernels launched on every
+   rank, the collectives of the serve and of one decode step printed,
+   each rank's card peak within its shard, its arena and
+   ``TP_ACTIVATION_BYTES`` (the whole weights stay on the host); (b) the SMOKE config disaggregated on a (2,
+   2) mesh of 4 ranks on the card against the CPU, strictly; (c) both
+   paged kernels at a rank's shapes held to their plain versions and
+   timed (``TP_ATTN``);
+20. the ``kernels`` line: every ported kernel with its launches on the main
    paths that run it (phases 3, 9, 11a, 12, 14, 15 and 18c for the paged
    kernels, phases 4, 11b, 13, 14d, 16b-d and 18b for the contiguous
    decode and, with
@@ -185,7 +203,9 @@ Phases, each printing its result lines:
    12's, phase 14b's and phase 16's forwards for the bf16 contiguous
    prefill, whose record is phase 8's forward shape, phases 17b-c for the
    two backwards, whose records are the full-width training steps'
-   shapes).
+   shapes), and the two paged kernels at a rank's shapes with the ranks'
+   launches in phase 19 (``paged_decode_attention_rank``,
+   ``paged_prefill_attention_rank``).
 
 Any failed check raises, and the script exits non-zero without printing a
 result.  The last line is ``{"ok": true, "device": {...}}``.
@@ -1359,10 +1379,16 @@ def phase_parity() -> None:
 # comparison.  The limit sits 1.5x above that floor; it rejects a scan
 # whose y is zero (0.59, 0.41) or, in mamba2, 10% low (0.069), but not a
 # 2% error, which the f32 check catches.
-# f32 (2 prompts of 256 tokens): 4.8e-6 and 3.5e-6, with the plain scan
-# 4.7e-6 and 3.7e-6; the limit sits ~20x above them and rejects a scan
-# whose y is 0.2% low (7.6e-4, 1.1e-3)
+# f32 (2 prompts of 256 tokens, at full depth): 4.8e-6 and 3.5e-6, with
+# the plain scan 4.7e-6 and 3.7e-6; the limit sits ~20x above them and
+# rejects a scan whose y is 0.2% low (7.6e-4, 1.1e-3)
 REPLAY_TOL = {"bfloat16": 6e-2, "float32": 1e-4}
+# the depth of phases 7-8's f32 replays (their bf16 runs keep the full
+# 64 and 54 layers): 256 decode steps a model at full depth took 64 s of
+# the script on a slow host; zamba2's 24 layers keep 4 visits of its
+# shared block.  scripts/replay_sensitivity.py reads the f32 check at
+# these depths
+F32_REPLAY_LAYERS = {"mamba2-2.7b": 32, "zamba2-2.7b": 24}
 
 
 def _counters() -> dict:
@@ -1582,8 +1608,8 @@ def _f32_replay_run(tag: str, cfg, seed: int, b: int = 2,
              {"mrope_positions": positions} if positions is not None
              else {})
     reading = _replay_vs_forward(f"{tag} f32", model, prompts, lg, extra)
-    print(f"{tag} f32 replay (batch {b}, {n_prompt} tokens, "
-          f"{t_replay / n_prompt * 1e3:.2f} ms/step): {reading}")
+    print(f"{tag} f32 replay ({cfg.n_layers} layers, batch {b}, {n_prompt} "
+          f"tokens, {t_replay / n_prompt * 1e3:.2f} ms/step): {reading}")
     del model, cache
     torch.cuda.empty_cache()
 
@@ -1595,7 +1621,7 @@ def phase_ssm() -> dict:
     4096 and 1 x 32768 tokens (64 ``ssd_chunked`` launches each), and
     greedy generation for 4 prompts of 128 tokens (replayed) plus 8 new
     through ``make_cache`` and ``decode_step``; then the f32 replay check
-    (``_f32_replay_run``); returns the scan's launches over the two timed
+    (``_f32_replay_run``) at ``F32_REPLAY_LAYERS``' depth; returns the scan's launches over the two timed
     forwards."""
     import torch
     from repro_torch.configs import mamba2_2_7b
@@ -1616,7 +1642,8 @@ def phase_ssm() -> dict:
                                         "decode_attention": 0}, seed=7)
     del model
     torch.cuda.empty_cache()
-    _f32_replay_run("ssm", cfg, seed=8)
+    _f32_replay_run("ssm", cfg.with_(n_layers=F32_REPLAY_LAYERS[cfg.name]),
+                    seed=8)
     return {"ssd_chunked": total}
 
 
@@ -1627,7 +1654,8 @@ def phase_hybrid() -> dict:
     ``registry.forward`` over 4 x 4096 tokens (54 ``ssd_chunked`` and 9
     ``flash_attention`` launches) and greedy generation for 4 prompts of
     128 tokens plus 8 new (9 ``decode_attention`` launches a step); then
-    the f32 replay check; returns the timed forward's launches."""
+    the f32 replay check at ``F32_REPLAY_LAYERS``' depth; returns the
+    timed forward's launches."""
     import torch
     from repro_torch.configs import zamba2_2_7b
     from repro_torch.models import registry as R
@@ -1645,7 +1673,8 @@ def phase_hybrid() -> dict:
                                            "decode_attention": G}, seed=13)
     del model
     torch.cuda.empty_cache()
-    _f32_replay_run("hybrid", cfg, seed=14)
+    _f32_replay_run("hybrid",
+                    cfg.with_(n_layers=F32_REPLAY_LAYERS[cfg.name]), seed=14)
     return counts
 
 
@@ -2651,6 +2680,7 @@ def phase_dense() -> dict:
             launches[name] += n
         del eng
         torch.cuda.empty_cache()
+    _add_launches(phase_split_decode_f32())     # phase 18b in f32
     return launches
 
 
@@ -4254,6 +4284,12 @@ def phase_split_decode_kernels() -> dict:
 # floor of a bf16 comparison that phases 7-8 read at ~3-4% of the layers'
 # part (REPLAY_TOL).  The limit is REPLAY_TOL's bf16 value.
 SPLIT_TOL = REPLAY_TOL["bfloat16"]
+# the f32 run's logits tolerance (relative rms): qwen2-0.5b at full width
+# with random f32 weights has logits up to ~760, and two f32 formulations
+# of the same logits differ by a few 1e-4 after 24 layers — the run
+# prints that floor as the forward's distance from the regular decode
+# (on the CPU's plain versions 3.3e-4, and the split decode's 2.3e-4)
+SPLIT_F32_TOL = 1e-3
 SPLIT_ROWS, SPLIT_PROMPT, SPLIT_NEW, SPLIT_MORE = 4, 64, 64, 32
 
 
@@ -4271,25 +4307,30 @@ def _teacher_decode(model, cfg, cache, tokens, start: int):
     return out, cache
 
 
-def _split_vs_regular(tag: str, split, regular) -> tuple:
+def _split_vs_regular(tag: str, split, regular, tol: float = SPLIT_TOL,
+                      strict: bool = False) -> tuple:
     """Hold the split decode's logits of each step to the regular decode's
-    (SPLIT_TOL) and their greedy tokens equal: where the argmax differs,
+    (``tol``) and their greedy tokens equal: where the argmax differs,
     the regular logits' top-2 gap must be within the step's max |diff|
-    (a near-tie that the difference can flip).  Returns (the largest
-    relative rms difference, the near-ties)."""
+    (a near-tie that the difference can flip) — unless ``strict``, where
+    any differing token fails (printed with its gap).  Returns (the
+    largest relative rms difference, the near-ties)."""
     import torch
     worst, ties = 0.0, 0
     for step, (a, r) in enumerate(zip(split, regular)):
         _check(bool(torch.isfinite(a).all()), f"{tag}: non-finite logits")
         rel = ((a - r).norm() / r.norm()).item()
         worst = max(worst, rel)
-        _check(rel <= SPLIT_TOL, f"{tag}: step {step} logits differ by "
-                                 f"{rel:.4g} (rms, relative), beyond "
-                                 f"{SPLIT_TOL}")
+        _check(rel <= tol, f"{tag}: step {step} logits differ by "
+                           f"{rel:.4g} (rms, relative), beyond {tol}")
         for row in (a.argmax(-1) != r.argmax(-1)).nonzero().flatten():
             top = torch.topk(r[row], 2).values
             gap = float(top[0] - top[1])
             diff = float((a[row] - r[row]).abs().max())
+            _check(not strict, f"{tag}: step {step} row {int(row)} greedy "
+                               f"token differs (top-2 gap {gap:.4g}, the "
+                               f"logits' max |diff| {diff:.4g}): tokens must "
+                               f"be equal here")
             _check(gap <= diff, f"{tag}: step {step} row {int(row)} greedy "
                                 f"token differs with a top-2 gap of "
                                 f"{gap:.4g} above the logits' max |diff| "
@@ -4316,13 +4357,8 @@ def phase_split_decode_full(model) -> dict:
     decode's within ``SPLIT_TOL`` and its greedy tokens equal
     (``_split_vs_regular``).  Returns the split decodes' launches of the
     contiguous decode kernel."""
-    import numpy as np
-    import torch
-    from repro_torch.configs import get_optimized_config
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.models import registry as R
+    from repro_torch.configs import get_optimized_config, glm4_9b
     t0 = time.perf_counter()
-    from repro_torch.configs import glm4_9b
     cfg = model.cfg                   # the engine's rung: FULL, renamed
     _check(cfg.with_(name=glm4_9b.FULL.name) == glm4_9b.FULL,
            f"phase 12's glm4 model is not glm4-9b FULL: {cfg}")
@@ -4330,7 +4366,44 @@ def phase_split_decode_full(model) -> dict:
     _check(opt == glm4_9b.FULL.with_(decode_window=256),
            f"glm4-9b's optimized config is not FULL with "
            f"decode_window=256: {opt}")
-    cfg_w = cfg.with_(decode_window=opt.decode_window)
+    launches = _split_decode_run("split decode glm4-9b", model,
+                                 opt.decode_window, SPLIT_TOL, strict=False)
+    SPLIT_SECONDS["b"] += time.perf_counter() - t0
+    return launches
+
+
+def phase_split_decode_f32() -> dict:
+    """Phase 18b in f32: qwen2-0.5b at full width (24 layers, 14 heads of
+    64 over 2 KV heads) with f32 weights from a seed, the same flow as
+    :func:`phase_split_decode_full` with ``decode_window=256``, held
+    strictly: logits within ``REPLAY_TOL["float32"]`` and every greedy
+    token equal to the regular decode's (in bf16 a few near-ties flip;
+    in f32 none may), with the f32 floor printed: the forward's distance
+    from the regular decode at the prompt's last position."""
+    import torch
+    from repro_torch.configs import qwen2_0_5b
+    from repro_torch.models import registry as R
+    t0 = time.perf_counter()
+    model = R.init_params(qwen2_0_5b.FULL.with_(dtype=torch.float32), seed=0)
+    launches = _split_decode_run("split decode qwen2-0.5b f32", model, 256,
+                                 SPLIT_F32_TOL, strict=True)
+    del model
+    torch.cuda.empty_cache()
+    SPLIT_SECONDS["b"] += time.perf_counter() - t0
+    return launches
+
+
+def _split_decode_run(tag: str, model, window: int, tol: float,
+                      strict: bool) -> dict:
+    """The flow of phase 18b on ``model`` with ``decode_window=window``;
+    returns the split decodes' contiguous-decode launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import registry as R
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    cfg_w = cfg.with_(decode_window=window)
     b, n0, n1, n2 = SPLIT_ROWS, SPLIT_PROMPT, SPLIT_NEW, SPLIT_MORE
     L, max_len = cfg.n_layers, n0 + n1 + n2
     rng = np.random.default_rng(13)
@@ -4347,6 +4420,17 @@ def phase_split_decode_full(model) -> dict:
                                     tokens.shape[1] - 1)
         regular.append(lg[0])
     prefix_k, prefix_v = cache["k"], cache["v"]     # positions < 128 read
+    if strict:
+        # the floor: another formulation of the same logits (the forward
+        # over the prompt) against the regular decode's
+        fw, _ = R.forward(model, {"tokens": tokens[:, :n0].long()}, cfg)
+        fw = fw[:, -1].float()
+        floor = ((fw - regular[0]).norm() / regular[0].norm()).item()
+        print(f"{tag}: the forward's logits at the prompt's last position "
+              f"differ from the regular decode's by {floor:.4g} (rms, "
+              f"relative; the f32 floor), max |logit| "
+              f"{float(regular[0].abs().max()):.4g}")
+        _check(floor <= tol, f"{tag}: f32 floor {floor:.4g} above {tol}")
     # (i) the prefix empty: the whole context in the ring
     DA.decode_attention.launches = 0
     model.cfg = cfg_w
@@ -4359,7 +4443,8 @@ def phase_split_decode_full(model) -> dict:
            f"split decode (empty prefix): {launches} decode_attention "
            f"launches, expected {2 * L * steps_a}")
     worst_a, ties_a = _split_vs_regular(
-        "split decode glm4-9b (empty prefix)", split[n0 - 1:], regular[:n1 + 1])
+        f"{tag} (empty prefix)", split[n0 - 1:], regular[:n1 + 1], tol,
+        strict)
     # (ii) prefix_len = 128 from the regular decode's cache
     DA.decode_attention.launches = 0
     model.cfg = cfg_w
@@ -4377,13 +4462,13 @@ def phase_split_decode_full(model) -> dict:
            f"launches, expected {2 * L * n_b}")
     _check(int(cache_w["pos"]) == tokens.shape[1], "split decode: position")
     worst_b, ties_b = _split_vs_regular(
-        "split decode glm4-9b (prefix 128)", split_b, regular[n1 + 1:])
+        f"{tag} (prefix 128)", split_b, regular[n1 + 1:], tol, strict)
     model.cfg = cfg
-    SPLIT_SECONDS["b"] += time.perf_counter() - t0
-    print(f"split decode glm4-9b (decode_window 256, bf16, {b} rows): "
+    dtype = str(cfg.dtype).replace("torch.", "")
+    print(f"{tag} (decode_window {window}, {dtype}, {b} rows): "
           f"empty prefix, {n0} replayed + {n1} greedy tokens: logits within "
           f"{worst_a:.4g} of the regular decode's (rms, relative; tol "
-          f"{SPLIT_TOL}), greedy tokens equal ({ties_a} near-ties); prefix "
+          f"{tol}), greedy tokens equal ({ties_a} near-ties); prefix "
           f"128 + {n_b} tokens in the ring: within {worst_b:.4g} ({ties_b} "
           f"near-ties); {launches} + {launches_b} decode_attention launches "
           f"(2 a layer a step); {time.perf_counter() - t0:.1f} s")
@@ -4472,6 +4557,342 @@ def phase_mesh_serve(family, prompts, streams: dict, n_new: int) -> dict:
 
 
 # =============================================================================
+# phase 19: serving across devices — the ranks of a mesh sharing the card
+# =============================================================================
+TP_NEW = 16
+# qwen3-1.7b's attention on one rank of phase 19a's (1, 2) mesh: its 16
+# query heads over 8 KV heads, cut over a model axis of 2
+TP_ATTN = dict(K=4, g=2, dh=128)
+# room a rank's device takes beyond its shard and arena during phase 19a's
+# serve: the chunks' and decode steps' activations and logits (a vocab
+# slice of 76032 x 128 tokens in f32 is 39 MB), the allocator's rounding
+TP_ACTIVATION_BYTES = 512 * 2 ** 20
+
+
+def _tp_setup():
+    """(config with f32 weights, prompts, engine settings) of phase 19a:
+    qwen3-1.7b at full width, phase 3's 8 prompts and arena, prefilled in
+    chunks of 128 tokens (as phases 12, 14 and 15 prefill): every chunk
+    costs a rank 57 collectives, which gloo stages through the host, so
+    phase 3's 32-token chunks would take 4x as many."""
+    import torch
+    from repro_torch.configs import qwen3_1_7b
+    return (qwen3_1_7b.FULL.with_(dtype=torch.float32),
+            _serve_prompts(qwen3_1_7b.FULL.vocab_size),
+            dict(max_len=2048, block_size=16, n_blocks=160, max_seqs=8,
+                 chunk_blocks=8))
+
+
+def _tp_engine(family, kw: dict, mesh, device):
+    """A paged engine on ``family`` (f32 arena) on ``mesh`` (None: one
+    device), configured (warm-up included)."""
+    from repro_torch.core.config_graph import ConfigGraph
+    from repro_torch.serving import engine as ENG
+    eng = ENG.RealEngine(family, kv_layout="paged", mesh=mesh, device=device,
+                         **kw)
+    eng.configure(ConfigGraph.from_dict(family[0].cfg.name, {("x1", 1): 1}))
+    return eng
+
+
+def _rank_threads(args) -> None:
+    """A rank's settings: f32 products in full f32, as in ``main``, and
+    the host's cores shared among the ranks."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.world_size))
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device or "cuda").type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _paged_launches() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    return {"paged_decode_attention": PA.paged_decode_attention.launches,
+            "paged_prefill_attention": FA.paged_prefill_attention.launches}
+
+
+def _zero_paged_launches() -> None:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    PA.paged_decode_attention.launches = 0
+    FA.paged_prefill_attention.launches = 0
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _tp_serve_rank(args, n_new: int) -> dict:
+    """Phase 19a on one rank of a (1, 2) mesh: the engine on this rank's
+    shard serves the prompts; returns its streams, stats, the serve's
+    paged kernel launches and collectives, the collectives of one decode
+    step at the full batch, the rank's attention shapes and its device
+    memory.  The whole weights are drawn from seed 0 on the card (the
+    single rank's weights; the CPU draws a truncated normal of this size
+    far more slowly), then moved to the host, where a checkpoint would be
+    read; the device's peak is counted from the engine's construction on,
+    when the rank's device holds only its shard and arena."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving.api import serve_prompts
+    from repro_torch.sharding import collectives as CL
+    t = [time.perf_counter()]
+    _rank_threads(args)
+    cfg, prompts, kw = _tp_setup()
+    mesh = make_mesh_for(2, model_parallel=2, device=args.device_type)
+    t.append(time.perf_counter())
+    family = ENG.build_engine_family(cfg, fracs=(1.0,), seed=0,
+                                     device=args.device)
+    family[0].params.to("cpu")
+    whole = _param_bytes(family[0].params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t.append(time.perf_counter())
+    eng = _tp_engine(family, kw, mesh, args.device)
+    t.append(time.perf_counter())
+    inst = eng.instances[0]
+    attn = inst.params.layers[0].attn
+    shapes = {"heads": attn.n_heads, "kv_heads": attn.n_kv_heads,
+              "arena": tuple(inst.arena["k"].shape)}
+    _sync(args.device)
+    _zero_paged_launches()
+    CL.reset()
+    m = serve_prompts(eng, prompts, n_new=n_new)
+    _sync(args.device)
+    t.append(time.perf_counter())
+    launches = _paged_launches()
+    serve_coll = CL.totals()
+    # one decode step at the full batch (every write to the junk block)
+    B = inst.max_seqs
+    dev = inst.device
+    tables = np.zeros((B, inst.n_pages), np.int32)
+    CL.reset()
+    R.decode_paged_multi(
+        inst.params, inst.arena,
+        {"tokens": torch.zeros((B, 1), dtype=torch.int32, device=dev)},
+        torch.as_tensor(tables, device=dev),
+        torch.full((B,), 300, dtype=torch.int32, device=dev),
+        torch.zeros((B,), dtype=torch.bool, device=dev), 1)
+    _sync(args.device)
+    memory = {"whole_weights": whole, "shard_weights":
+              _param_bytes(inst.params),
+              "arena": sum(t.numel() * t.element_size()
+                           for t in inst.arena.values()),
+              "allocated": torch.cuda.memory_allocated(),
+              "peak": torch.cuda.max_memory_allocated()}
+    return {"coords": mesh.coords, "outputs": dict(eng.last_outputs),
+            "stats": {k: m[k] for k in ("served", "tokens", "wall_s",
+                                         "tokens_per_s", "prefix_hit_tokens",
+                                         "decode_steps", "collective_calls",
+                                         "collective_bytes")},
+            "launches": launches, "serve_collectives": serve_coll,
+            "step_collectives": CL.stats(), "shapes": shapes,
+            "memory": memory, "seconds": [b - a for a, b in zip(t, t[1:])]}
+
+
+def _top2_gap(model, prompt, stream, step: int) -> float:
+    """The top-2 logit gap of the greedy pick at ``step`` of ``stream``
+    (the forward over the prompt and the stream's first ``step``
+    tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as R
+    toks = np.concatenate([prompt, np.asarray(stream[:step], np.int32)])
+    dev = next(model.parameters()).device
+    lg, _ = R.forward(model, {"tokens": torch.as_tensor(
+        toks[None].astype(np.int64), device=dev)}, model.cfg)
+    top = torch.topk(lg[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _tp_disagg(device, mesh) -> dict:
+    """Phase 19b's serve: the SMOKE config disaggregated (one prefill and
+    one decode worker) on ``mesh`` (None: one device), its family drawn
+    from seed 3 on the CPU (the ranks copy their shards from there)."""
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.core.config_graph import ConfigGraph
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving.api import serve_prompts
+    smoke = qwen3_1_7b.SMOKE
+    family = ENG.build_engine_family(smoke, fracs=(1.0,), seed=3,
+                                     device="cpu")
+    eng = ENG.RealEngine(family, n_slots=2, max_len=64,
+                         block_size=8, max_seqs=6, kv_layout="paged",
+                         roles=(1, 1), device=device, mesh=mesh)
+    eng.configure(ConfigGraph.from_dict(smoke.name, {("x1", 1): 1}))
+    _zero_paged_launches()
+    m = serve_prompts(eng, _mixed_prompts(smoke.vocab_size)[:4], n_new=8)
+    _sync(device)
+    return {"outputs": dict(eng.last_outputs), "handoffs": m["handoffs"],
+            "preemptions": m["preemptions"], "launches": _paged_launches()}
+
+
+def _tp_disagg_rank(args) -> dict:
+    """Phase 19b on one rank of a (2, 2) mesh."""
+    from repro_torch.launch.mesh import make_mesh_for
+    _rank_threads(args)
+    mesh = make_mesh_for(4, model_parallel=2, device=args.device_type)
+    return dict(_tp_disagg(args.device, mesh), coords=mesh.coords)
+
+
+def phase_tp_serve() -> dict:
+    """Phase 19: serving across devices, the ranks sharing the card over
+    gloo (``launch.ranks.spawn``; NCCL puts no two ranks on one device, so
+    no NCCL or NVLink time is measured here).  (a) qwen3-1.7b at full
+    width with f32 weights and an f32 arena on a (1, 2) mesh of 2 ranks,
+    each holding 8 of the 16 query heads over 4 of the 8 KV heads, half
+    of each MLP and of the vocab, serving phase 3's 8 requests of
+    ``TP_NEW`` new tokens through ``RealEngine(kv_layout="paged",
+    mesh=...)``: every stream equal to a single-rank engine's on the same
+    seeded weights, run here (a differing token is printed with its top-2
+    gap, and fails), both paged kernels launched on every rank at its
+    shapes, the collectives of one decode step printed, and each rank's
+    device memory from its engine's construction to the serve's end
+    checked to hold its shard, not the whole model.  (b) the SMOKE
+    config disaggregated on a (2, 2) mesh of 4 ranks on the card against
+    the same unsharded on the CPU, strictly: streams and handoffs.
+    Returns the paged kernels' launches summed over the ranks of both."""
+    import torch
+    from repro_torch.launch import ranks
+    from repro_torch.serving import engine as ENG
+    from repro_torch.serving.api import serve_prompts
+    # the single rank's f32 products as the ranks' (``_rank_threads``)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, prompts, kw = _tp_setup()
+    family = ENG.build_engine_family(cfg, fracs=(1.0,), seed=0)
+    eng = _tp_engine(family, kw, None, None)
+    m1 = serve_prompts(eng, prompts, n_new=TP_NEW)
+    single, model = dict(eng.last_outputs), family[0].params
+    del eng, family
+    t1 = time.perf_counter()
+    res = ranks.spawn(_tp_serve_rank, 2, None, args=(TP_NEW,), timeout=400)
+    t2 = time.perf_counter()
+    bad = []
+    for r in res:
+        for rid, toks in single.items():
+            got = r["outputs"][rid]
+            if (got == toks).all():
+                continue
+            step = int((got != toks).argmax())
+            gap = _top2_gap(model, prompts[rid], toks, step)
+            print(f"tp serve: rank {r['coords']} rid {rid} differs at step "
+                  f"{step}: {got[step]} against {toks[step]}, the single "
+                  f"rank's top-2 gap {gap:.4g}")
+            bad.append((r["coords"], rid))
+    _check(not bad, f"tp serve: streams differ from the single rank's: "
+                    f"{bad}")
+    launches = {name: 0 for name in _paged_launches()}
+    for r in res:
+        _check(all(n > 0 for n in r["launches"].values()),
+               f"tp serve: rank {r['coords']} launched no paged kernel: "
+               f"{r['launches']}")
+        sh = r["shapes"]
+        _check(sh["heads"] == cfg.n_heads // 2
+               and sh["kv_heads"] == cfg.n_kv_heads // 2
+               and sh["arena"][3] == cfg.n_kv_heads // 2,
+               f"tp serve: rank {r['coords']} shapes {sh}")
+        _check(r["stats"]["served"] == len(prompts)
+               and r["stats"]["prefix_hit_tokens"]
+               == m1["prefix_hit_tokens"] > 0,
+               f"tp serve: rank {r['coords']} stats {r['stats']}, the "
+               f"single rank's prefix hits {m1['prefix_hit_tokens']}")
+        # the shard is half the whole weights (the norms whole), and the
+        # device holds the shard, the arena and the serve's activations
+        mem = r["memory"]
+        _check(mem["shard_weights"] < 0.51 * mem["whole_weights"]
+               and mem["peak"] < mem["shard_weights"] + mem["arena"]
+               + TP_ACTIVATION_BYTES,
+               f"tp serve: rank {r['coords']} device memory {mem}")
+        for name, n in r["launches"].items():
+            launches[name] += n
+    st = res[0]["stats"]
+    step = res[0]["step_collectives"]
+    print(f"tp serve: {cfg.name} f32 on a (1, 2) mesh of 2 ranks on one "
+          f"card (gloo): {len(single)} requests x {TP_NEW} tokens, every "
+          f"stream equal to the single rank's; a rank holds "
+          f"{res[0]['shapes']['heads']} query heads over "
+          f"{res[0]['shapes']['kv_heads']} KV heads, arena "
+          f"{res[0]['shapes']['arena']}; ranks {st['tokens_per_s']:.1f} "
+          f"tok/s ({st['wall_s']:.2f} s) against the single rank's "
+          f"{m1['tokens_per_s']:.1f} ({m1['wall_s']:.2f} s); prefix hits "
+          f"{st['prefix_hit_tokens']}")
+    print(f"tp serve: launches a rank "
+          f"{[(r['coords'], r['launches']) for r in res]}")
+    print(f"tp serve: collectives of the serve (rank 0) "
+          f"{res[0]['serve_collectives']['calls']} calls, "
+          f"{res[0]['serve_collectives']['bytes']} bytes; of one decode "
+          f"step at batch 8: " + ", ".join(
+              f"{k} {v['calls']} calls {v['bytes']} bytes"
+              for k, v in step.items() if v["calls"]))
+    gib = 2.0 ** 30
+    print("tp serve: device memory a rank (GiB): " + "; ".join(
+        f"{r['coords']} whole weights {r['memory']['whole_weights'] / gib:.3f}"
+        f" on the host, shard {r['memory']['shard_weights'] / gib:.3f}, "
+        f"arena {r['memory']['arena'] / gib:.3f}, peak "
+        f"{r['memory']['peak'] / gib:.3f}, after the serve "
+        f"{r['memory']['allocated'] / gib:.3f}" for r in res))
+    sec = res[0]["seconds"]
+    print(f"tp serve: single rank {t1 - t0:.1f} s, the ranks' spawn "
+          f"{t2 - t1:.1f} s (rank 0: the mesh {sec[0]:.1f} s, the weights "
+          f"drawn on the card and moved to the host {sec[1]:.1f} s, the "
+          f"engine: shards copied, warm-up {sec[2]:.1f} s, the serve "
+          f"{sec[3]:.1f} s)")
+    del model
+    torch.cuda.empty_cache()
+    # (b) SMOKE disaggregated on (2, 2), the card against the CPU
+    t3 = time.perf_counter()
+    res_b = ranks.spawn(_tp_disagg_rank, 4, None, timeout=300)
+    cpu = _tp_disagg("cpu", None)
+    for r in res_b:
+        _check(r["handoffs"] == cpu["handoffs"] == 4,
+               f"tp disagg: rank {r['coords']} handoffs {r['handoffs']}, "
+               f"CPU {cpu['handoffs']}")
+        for rid, toks in cpu["outputs"].items():
+            _check(bool((r["outputs"][rid] == toks).all()),
+                   f"tp disagg: rank {r['coords']} rid {rid}: "
+                   f"{r['outputs'][rid]} against {toks} on the CPU")
+        _check(all(n > 0 for n in r["launches"].values()),
+               f"tp disagg: rank {r['coords']} launches {r['launches']}")
+        for name, n in r["launches"].items():
+            launches[name] += n
+    print(f"tp disagg: SMOKE disaggregated on a (2, 2) mesh of 4 ranks on "
+          f"the card equals the CPU on 4 requests x 8 tokens, "
+          f"{cpu['handoffs']} handoffs; launches a rank "
+          f"{[(r['coords'], r['launches']) for r in res_b]}; "
+          f"{time.perf_counter() - t3:.1f} s")
+    print(f"tp: phase 19 {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_tp_kernels() -> dict:
+    """Phase 19, the kernels at a rank's shapes (``TP_ATTN``: 8 query
+    heads over 4 KV heads, dh 128): the paged decode at batch 8 over rows
+    of up to 2048 positions and at the serve's step (300 a row), and the
+    paged prefill of phase 19a's 128-token chunk at n_past 896 (the last
+    of its 1024-token prompt), f32, held to their plain versions and
+    timed as in phase 2."""
+    import torch
+    f32 = torch.float32
+    prefill = dict(TP_ATTN, C=128)
+    return _kernel_cases(
+        [("decode", 8, f32, TP_ATTN), ("decode", 8, f32,
+                                       dict(TP_ATTN, lengths=300)),
+         ("prefill", 896, f32, prefill)],
+        {("decode", 8, "float32", tuple(sorted(TP_ATTN.items()))):
+         "paged_decode_attention_rank",
+         ("prefill", 896, "float32", tuple(sorted(prefill.items()))):
+         "paged_prefill_attention_rank"})
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -4501,6 +4922,14 @@ KERNELS = (
      "src/repro_torch/kernels/csrc/ssd_backward.cu",
      "the gradient of src/repro/kernels/ssd_scan.py:72 (the reference "
      "differentiates jnp ssd_ref; no Pallas backward)"),
+    # the two paged kernels at a rank's shapes of phase 19's mesh, with
+    # the ranks' launches
+    ("paged_decode_attention_rank",
+     "src/repro_torch/kernels/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:90"),
+    ("paged_prefill_attention_rank",
+     "src/repro_torch/kernels/csrc/paged_prefill.cu",
+     "src/repro/kernels/flash_attention.py:80"),
 )
 
 
@@ -4571,6 +5000,10 @@ def main() -> int:
     train_full = phase_train_full(smi)
     train_full_ssm = phase_train_full_ssm(smi)
     t20 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp = phase_tp_serve()
+    records.update(phase_tp_kernels())
+    t21 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
@@ -4601,6 +5034,9 @@ def main() -> int:
     # phase 18: the append-buffer decode's and the mesh serves' launches
     for name, n in SPLIT_LAUNCHES.items():
         launches[name] += n
+    # phase 19: the ranks' launches, at a rank's shapes
+    for name, n in tp.items():
+        launches[f"{name}_rank"] = n
     split_s = sum(SPLIT_SECONDS.values())
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels "
@@ -4616,7 +5052,8 @@ def main() -> int:
           f"{t15 - t14:.1f} s, moe {t16 - t15:.1f} s, moe parity "
           f"{t17 - t16:.1f} s, disagg {t18 - t17:.1f} s, encdec/vl "
           f"{t19 - t18:.1f} s, training {t20 - t19:.1f} s, split decode "
-          f"and mesh (18a-c) {split_s:.1f} s, total {t20 - t0:.1f} s")
+          f"and mesh (18a-c) {split_s:.1f} s, ranks (19) {t21 - t20:.1f} s, "
+          f"total {t21 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

@@ -6,8 +6,8 @@ changes: the readings that its ``REPLAY_TOL`` limits sit between.
 
 Needs one GPU.  For mamba2-2.7b and zamba2-2.7b at full width it replays
 the prompts of ``chip_smoke``'s checks through ``decode_step`` — bf16
-weights and cache, 4 x 128 tokens; f32 weights and cache, 2 x 256 tokens
-— and prints, as a fraction of the rms of the layers' part of the
+weights and cache, 4 x 128 tokens; f32 weights and cache, 2 x 256 tokens,
+at the depth of ``chip_smoke.F32_REPLAY_LAYERS`` — and prints, as a fraction of the rms of the layers' part of the
 forward's logits (the forward's logits less those of the embedding
 alone), the rms difference between that replay and the forward computed
 with the scan kernel and, in this process only, with ``ops.ssd_chunked``
@@ -96,8 +96,10 @@ def main() -> None:
                               ("zamba2", zamba2_2_7b.FULL, (13, 14))):
         # the caches of chip_smoke's checks: 128 + 32 new + 1, and 256 + 1
         measure(name, full, 4, 128, seeds[0], 161)
-        measure(name, full.with_(dtype=torch.float32), 2, 256, seeds[1],
-                257)
+        measure(name, full.with_(
+            dtype=torch.float32,
+            n_layers=chip_smoke.F32_REPLAY_LAYERS[full.name]), 2, 256,
+            seeds[1], 257)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,10 @@ step) runs once on meta tensors on an abstract mesh
   * the step's FLOPs (``torch.utils.flop_counter.FlopCounterMode``) over
     the mesh's devices, and their ratio to the reference's analytic
     ``model_flops_per_device`` (``launch/roofline.py``);
-  * collective bytes: null, since nothing runs across devices yet.
+  * collective bytes: null — the cells' steps run on meta tensors in one
+    process and call no collective; the serving path's collectives on a
+    rank mesh are counted where they run (``sharding/collectives.py``),
+    not here.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun              # all cells
@@ -41,8 +44,8 @@ from repro_torch.launch import roofline
 from repro_torch.launch import steps
 from repro_torch.sharding import rules
 
-NO_COLLECTIVES = ("nothing runs across devices yet: the port executes on "
-                  "one device, so no collective is issued or counted")
+NO_COLLECTIVES = ("the dry run's steps run on meta tensors in one process "
+                  "and call no collective; none is counted")
 
 
 def _step_bytes(kind: str, cfg, mesh, args: tuple, specs: dict,

@@ -8,8 +8,8 @@ Two terms, at the card's published peaks (NVIDIA H100 80GB HBM3 (SXM),
   memory  = bytes a device / 3.35 TB/s      (HBM3)
 
 and a third, collective = wire bytes a device / 450 GB/s (NVLink, one
-direction), which stays empty: nothing runs across devices yet, so the dry
-run records no collective bytes (``launch/dryrun.py``).
+direction), which stays empty: the dry run's steps call no collective,
+so it records no collective bytes (``launch/dryrun.py``).
 
 FLOPs a device are ``torch.utils.flop_counter``'s count of the step on
 meta tensors (``launch/steps.py``) over the mesh's devices — an even

@@ -10,7 +10,9 @@ port's own train steps, forward and ``decode_step``.  On meta tensors the
 kernels' dispatch (``kernels/ops.py``) takes the plain versions, which
 compute shapes only; CUDA tensors still reach only the kernels.  Specs are
 ``sharding/rules.py``'s tuples; they say how the step would be cut over
-the mesh, which no code here executes across devices.
+the mesh.  Nothing here runs on a mesh's devices: the serving path runs
+on a rank mesh through ``registry.shard_params`` and the engines
+(``launch/ranks.py``); training does not yet.
 """
 from __future__ import annotations
 

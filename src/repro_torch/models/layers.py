@@ -7,7 +7,7 @@ contiguous cache (the generic decode of ``registry.decode_step``) or over
 a read-only prefix and a suffix ring (the append-buffer decode,
 ``cfg.decode_window``), decode over a slotted cache, and prefill and
 decode over a paged KV arena — the SwiGLU (or GELU) MLP and the tied
-embedding.
+embedding, and the greedy pick of a token from the logits.
 
 Parameters live in ``nn.Module``s; the math is plain functions on tensors
 that follow the reference's rounding order (norms in f32 then cast back,
@@ -15,6 +15,17 @@ rotary tables cast to the activation type, q scaled and cast to the cache
 type before the dot; the probabilities stay f32 through P·V, as in the
 kernels).  Every attention goes through ``kernels/ops.py``: the
 Hopper kernels for CUDA tensors, their plain versions on the CPU.
+
+On a rank mesh (``models/registry.py`` ``shard_params``) the modules hold
+the rank's shard and say so in a ``mesh`` attribute (None unsharded):
+``Attention`` the rank's heads, Megatron-style — column-parallel ``wq``,
+``wk``, ``wv``, a row-parallel ``wo`` followed by one all-reduce over
+"model" (:meth:`Attention.out`) — the ``MLP`` column-parallel
+``wi_gate`` / ``wi_up`` and a row-parallel ``wo`` with one all-reduce,
+and the embedding the rank's slice of the vocab (a masked lookup summed
+over "model"; the readout gives the rank's slice of the logits, which
+:func:`greedy_token` reduces).  qk-norm and RoPE act per head and need no
+collective.
 """
 from __future__ import annotations
 
@@ -29,10 +40,12 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_paged_kv
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import MODEL_AXIS
 
 __all__ = ["RMSNorm", "Attention", "MLP", "rmsnorm_apply", "rope_table",
            "mrope_table", "apply_rope", "cross_kv", "mlp_apply",
-           "embedding_apply", "embedding_logits",
+           "embedding_apply", "embedding_logits", "greedy_token",
            "blocked_attention", "decode_attention", "slot_write_index",
            "attention_apply", "attention_prefill_apply",
            "attention_decode_apply", "attention_decode_slots_apply",
@@ -206,10 +219,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 # attention (GQA + qk-norm): full sequence, slotted cache, paged arena
 # =============================================================================
 class Attention(nn.Module):
+    """GQA attention's projections.  ``n_heads`` / ``n_kv_heads`` are the
+    heads this module computes: the config's, or on a rank mesh the
+    rank's — H/m query heads (when m divides H) over K/m KV heads (when m
+    divides K; otherwise the KV projections stay whole and the rank keeps
+    the heads ``kv_heads`` = (first, end) that its query heads read).
+    ``mesh`` is set when ``wo`` is row-parallel (its partial sums are
+    all-reduced over "model"), None otherwise."""
+
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
         super().__init__()
         d, dh, H, K = cfg.d_model, cfg.d_head, cfg.n_heads, cfg.n_kv_heads
         self.cfg = cfg
+        self.n_heads, self.n_kv_heads = H, K
+        self.kv_heads: Optional[Tuple[int, int]] = None
+        self.mesh = None
         self.wq = init_dense(d, H * dh, cfg, device, gen, bias=cfg.qkv_bias)
         self.wk = init_dense(d, K * dh, cfg, device, gen, bias=cfg.qkv_bias)
         self.wv = init_dense(d, K * dh, cfg, device, gen, bias=cfg.qkv_bias)
@@ -225,7 +249,7 @@ class Attention(nn.Module):
         its K/V from the encoder's cache)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q = self.wq(x).reshape(b, s, cfg.n_heads, cfg.d_head)
+        q = self.wq(x).reshape(b, s, self.n_heads, cfg.d_head)
         if self.q_norm is not None:
             q = self.q_norm(q)
         if cos is not None:
@@ -238,8 +262,11 @@ class Attention(nn.Module):
         in :meth:`project_qkv`."""
         cfg = self.cfg
         b, s, _ = x.shape
-        k = self.wk(x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-        v = self.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+        k = self.wk(x).reshape(b, s, -1, cfg.d_head)
+        v = self.wv(x).reshape(b, s, -1, cfg.d_head)
+        if self.kv_heads is not None:
+            lo, hi = self.kv_heads
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
         if self.k_norm is not None:
             k = self.k_norm(k)
         if cos is not None:
@@ -252,6 +279,13 @@ class Attention(nn.Module):
         dh), k and v (b, s, K, dh), q and k rotated unless ``cos`` is None
         (cross-attention's queries)."""
         return (self.project_q(x, cos, sin),) + self.project_kv(x, cos, sin)
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """The output projection of the heads' outputs o (b, s, heads, dh),
+        or (b, s, heads·dh), -> (b, s, d), its partial sums added over
+        "model" on a rank mesh."""
+        y = self.wo(o.flatten(2) if o.dim() == 4 else o)
+        return C.all_reduce(y, self.mesh, MODEL_AXIS)
 
 
 def _scaled_q(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
@@ -294,11 +328,9 @@ def attention_prefill_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
     """Full-sequence attention that also returns the rotated K/V, so one
     prefill pass populates a decode cache.  x: (b, s, d).  Returns (out
     (b, s, d), k (b, s, K, dh), v (b, s, K, dh))."""
-    cfg = attn.cfg
     q, k, v = attn.project_qkv(x, cos, sin)
     o = blocked_attention(q, k, v, causal=causal, window=window)
-    b, s = x.shape[:2]
-    return attn.wo(o.reshape(b, s, cfg.n_heads * cfg.d_head)), k, v
+    return attn.out(o), k, v
 
 
 def attention_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
@@ -313,11 +345,8 @@ def attention_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
     if kv is None:
         return attention_prefill_apply(attn, x, cos, sin, causal=causal,
                                        window=window)[0]
-    cfg = attn.cfg
     q = attn.project_q(x, cos, sin)
-    o = blocked_attention(q, *kv, causal=False)
-    b, s = x.shape[:2]
-    return attn.wo(o.reshape(b, s, cfg.n_heads * cfg.d_head))
+    return attn.out(blocked_attention(q, *kv, causal=False))
 
 
 def cross_kv(attn: Attention, memory: torch.Tensor
@@ -338,13 +367,12 @@ def attention_decode_apply(attn: Attention, x: torch.Tensor, cos, sin,
     ``window`` > 0).  x: (b, 1, d); caches (b, S, K,
     dh), written IN PLACE (the reference returns new ones).  Returns out
     (b, 1, d)."""
-    cfg = attn.cfg
     q, k, v = attn.project_qkv(x, cos, sin)
     at = pos.clamp(max=cache_k.shape[1] - 1).long().reshape(1)
     cache_k.index_copy_(1, at, k.to(cache_k.dtype))
     cache_v.index_copy_(1, at, v.to(cache_v.dtype))
-    o = decode_attention(q, cache_k, cache_v, pos + 1, window=window)
-    return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
+    return attn.out(decode_attention(q, cache_k, cache_v, pos + 1,
+                                     window=window))
 
 
 def decode_attention_parts(q: torch.Tensor, k_cache: torch.Tensor,
@@ -426,7 +454,6 @@ def attention_decode_split_apply(attn: Attention, x: torch.Tensor, cos, sin,
     both calls are the contiguous decode kernel with its window end and
     lse; on the CPU its plain version.  x: (b, 1, d); pos, prefix_len: ()
     int32.  Returns out (b, 1, d)."""
-    cfg = attn.cfg
     q, k, v = attn.project_qkv(x, cos, sin)
     slot = pos - prefix_len
     at = slot.clamp(0, sk.shape[1] - 1).long().reshape(1)
@@ -438,8 +465,8 @@ def attention_decode_split_apply(attn: Attention, x: torch.Tensor, cos, sin,
     suffix = ops.decode_attention(
         _scaled_q(q[:, 0], sk), sk, sv, slot + 1, sm_scale=1.0,
         window=window, return_lse=True)
-    o = combine_lse_parts([prefix, suffix]).to(q.dtype)
-    return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
+    return attn.out(combine_lse_parts([prefix, suffix]).to(q.dtype).reshape(
+        x.shape[0], 1, -1))
 
 
 def slot_write_index(lengths: torch.Tensor, S: int):
@@ -464,14 +491,13 @@ def attention_decode_slots_apply(attn: Attention, x: torch.Tensor, cos, sin,
     ``window`` of them when ``window`` > 0).  x: (b, 1, d);
     caches (b, S, K, dh), written IN PLACE (the reference returns new
     ones); lengths (b,) i32.  Returns out (b, 1, d)."""
-    cfg = attn.cfg
     q, k, v = attn.project_qkv(x, cos, sin)
     rows, pos, keep = write
     for cache, new in ((cache_k, k), (cache_v, v)):
         cache.index_put_((rows, pos), torch.where(
             keep, new[:, 0].to(cache.dtype), cache[rows, pos]))
-    o = decode_attention(q, cache_k, cache_v, lengths + 1, window=window)
-    return attn.wo(o.reshape(x.shape[0], 1, cfg.n_heads * cfg.d_head))
+    return attn.out(decode_attention(q, cache_k, cache_v, lengths + 1,
+                                     window=window))
 
 
 def attention_decode_paged_apply(attn: Attention, x: torch.Tensor,
@@ -480,23 +506,29 @@ def attention_decode_paged_apply(attn: Attention, x: torch.Tensor,
                                  lengths: torch.Tensor,
                                  write_bid: torch.Tensor,
                                  write_off: torch.Tensor, *,
-                                 window: int = 0) -> torch.Tensor:
+                                 window: int = 0,
+                                 kv_rows: Optional[Callable] = None
+                                 ) -> torch.Tensor:
     """One paged continuous-batching decode step: each row writes its new
     K/V into arena block ``write_bid[i]`` at offset ``write_off[i]`` (the
     junk block 0 for inactive rows) and attends over its own block table's
     first ``lengths[i] + 1`` positions (the last ``window`` of them when
     ``window`` > 0).  x: (b, 1, d); arenas (n_blocks, bs,
     K, dh), written IN PLACE (the reference donates them to XLA instead);
-    tables (b, n_pages) i32; lengths (b,) i32.  Returns out (b, 1, d)."""
-    cfg = attn.cfg
+    tables (b, n_pages) i32; lengths (b,) i32.  ``kv_rows`` maps the rows'
+    new K/V (b, 2, K, dh) to those of every row the write indices cover
+    (the all-gather over "data" when a rank mesh cuts the rows); without
+    it they are the same rows.  Returns out (b, 1, d)."""
     q, k, v = attn.project_qkv(x, cos, sin)
-    b = x.shape[0]
-    arena_k.index_put_((write_bid, write_off), k[:, 0].to(arena_k.dtype))
-    arena_v.index_put_((write_bid, write_off), v[:, 0].to(arena_v.dtype))
+    k, v = k[:, 0], v[:, 0]
+    if kv_rows is not None:
+        k, v = kv_rows(torch.stack([k, v], 1)).unbind(1)
+    arena_k.index_put_((write_bid, write_off), k.to(arena_k.dtype))
+    arena_v.index_put_((write_bid, write_off), v.to(arena_v.dtype))
     o = ops.paged_decode_attention(_scaled_q(q[:, 0], arena_k), arena_k,
                                    arena_v, tables, lengths + 1, sm_scale=1.0,
                                    window=window)
-    return attn.wo(o.to(q.dtype).reshape(b, 1, cfg.n_heads * cfg.d_head))
+    return attn.out(o.to(q.dtype).reshape(x.shape[0], 1, -1))
 
 
 def attention_prefill_paged_apply(attn: Attention, x: torch.Tensor,
@@ -513,15 +545,13 @@ def attention_prefill_paged_apply(attn: Attention, x: torch.Tensor,
     never replays shared tokens — within ``window`` positions when
     ``window`` > 0.  x: (1, C, d); table (span,) i32;
     positions (C,) i32 absolute positions.  Returns out (1, C, d)."""
-    cfg = attn.cfg
     q, k, v = attn.project_qkv(x, cos, sin)
-    C = x.shape[1]
     arena_k.index_put_((write_bid, write_off), k[0].to(arena_k.dtype))
     arena_v.index_put_((write_bid, write_off), v[0].to(arena_v.dtype))
     o = ops.paged_prefill_attention(_scaled_q(q[0], arena_k), arena_k,
                                     arena_v, table, positions, sm_scale=1.0,
                                     window=window)
-    return attn.wo(o.to(q.dtype).reshape(1, C, cfg.n_heads * cfg.d_head))
+    return attn.out(o.to(q.dtype).reshape(1, x.shape[1], -1))
 
 
 # =============================================================================
@@ -529,11 +559,15 @@ def attention_prefill_paged_apply(attn: Attention, x: torch.Tensor,
 # =============================================================================
 class MLP(nn.Module):
     """SwiGLU (or GELU) MLP of width ``d_ff`` (``cfg.d_ff`` by default; an
-    MoE's shared experts pass their summed width)."""
+    MoE's shared experts pass their summed width).  On a rank mesh
+    ``wi_gate`` / ``wi_up`` hold the rank's columns of the width and
+    ``wo`` its rows, and ``mesh`` is set: one all-reduce over "model"
+    adds the partial outputs."""
 
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator,
                  d_ff: Optional[int] = None):
         super().__init__()
+        self.mesh = None
         d, d_ff = cfg.d_model, d_ff or cfg.d_ff
         out_std = d_ff ** -0.5 / (2 * cfg.n_layers) ** 0.5
         self.wi_gate = (init_dense(d, d_ff, cfg, device, gen)
@@ -551,16 +585,55 @@ def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(p.wi_gate(x)) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return p.wo(h)
+    return C.all_reduce(p.wo(h), p.mesh, MODEL_AXIS)
 
 
 # =============================================================================
 # embedding
 # =============================================================================
-def embedding_apply(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids, table)
+def embedding_apply(table: torch.Tensor, ids: torch.Tensor,
+                    mesh=None) -> torch.Tensor:
+    """Rows of ``table`` for ``ids``.  On a rank mesh (``mesh`` given,
+    ``table`` the rank's vocab slice) the ids outside the slice are masked,
+    their rows zeroed, and the ranks' lookups summed over "model"."""
+    if mesh is None:
+        return F.embedding(ids, table)
+    n = table.shape[0]
+    lo = mesh.coord(MODEL_AXIS) * n
+    mine = (ids >= lo) & (ids < lo + n)
+    rows = F.embedding((ids - lo).clamp(0, n - 1), table)
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return C.all_reduce(rows, mesh, MODEL_AXIS)
 
 
-def embedding_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied-softmax readout: x @ table.T."""
-    return F.linear(x, table)
+def embedding_logits(table: torch.Tensor, x: torch.Tensor, mesh=None,
+                     padded_vocab: Optional[int] = None) -> torch.Tensor:
+    """Tied-softmax readout: x @ table.T.  On a rank mesh, the logits of the
+    rank's vocab slice, its padding rows (ids past ``padded_vocab``) at
+    -inf, so that they never win the greedy pick."""
+    logits = F.linear(x, table)
+    if mesh is not None:
+        n = table.shape[0]
+        real = padded_vocab - mesh.coord(MODEL_AXIS) * n
+        if real < n:
+            logits[..., max(real, 0):] = float("-inf")
+    return logits
+
+
+def greedy_token(logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The argmax token of ``logits`` (..., V) -> (...) int64.  On a rank
+    mesh ``logits`` is the rank's vocab slice: each rank's best value and
+    its global id are gathered over "model" (one collective, both packed
+    exactly in f64) and the best wins, ties to the lowest id —
+    ``torch.argmax``'s rule.  Nothing is read back to the host."""
+    if mesh is None or mesh.shape[MODEL_AXIS] == 1:
+        return logits.argmax(dim=-1)
+    idx = logits.argmax(dim=-1, keepdim=True)
+    val = logits.gather(-1, idx)[..., 0]
+    lo = mesh.coord(MODEL_AXIS) * logits.shape[-1]
+    both = C.all_gather(torch.stack([val.double(), (idx[..., 0] + lo).double()],
+                                    -1), mesh, MODEL_AXIS)
+    vals, ids = both[..., 0], both[..., 1]
+    best = vals.amax(0)
+    ids = torch.where(vals == best, ids, torch.full_like(ids, float("inf")))
+    return ids.amin(0).long()

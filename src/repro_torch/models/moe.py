@@ -13,6 +13,16 @@ gathers the experts' outputs back with the gates.  The expert products run
 over all E experts as batched products, as the reference's einsums do.
 Group size and capacity come from shapes only, so nothing here reads the
 device from the host.
+
+On a rank mesh (``models/registry.py`` ``shard_params``, after
+``sharding/rules.py``'s "E" / "F" entries) the router and the dispatch
+stay whole — every rank routes every token, with the reference's capacity
+and drop order — and the experts are cut over "model": whole experts
+(``experts`` = (first, count), expert parallelism) when the model axis
+divides the padded expert count, else every expert's FF width (its
+columns of ``w_gate`` / ``w_up``, its rows of ``w_down``).  Either way a
+rank's combine is a partial sum of the token's outputs, which one f32
+all-reduce over "model" completes before the cast to the model's type.
 """
 from __future__ import annotations
 
@@ -24,16 +34,23 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as CL
+from repro_torch.sharding.rules import MODEL_AXIS
 
 
 class MoE(nn.Module):
     """``router`` (d, E) f32 whatever the model's type; ``w_gate``, ``w_up``
     (E, d, F) and ``w_down`` (E, F, d) in ``cfg.dtype`` with E =
     ``cfg.padded_experts``; ``shared``, an MLP of width ``n_shared_experts ·
-    d_expert_ff``, when the config has shared experts."""
+    d_expert_ff``, when the config has shared experts.  ``experts`` is
+    (first, count) of the experts the weights hold (all of them unsharded)
+    and ``mesh`` the rank mesh their partial outputs are summed over (None
+    unsharded)."""
 
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
         super().__init__()
+        self.experts = (0, cfg.padded_experts)
+        self.mesh = None
         d, E, F_ = cfg.d_model, cfg.padded_experts, cfg.d_expert_ff
         out_std = F_ ** -0.5 / (2 * cfg.n_layers) ** 0.5
         self.router = nn.Parameter(L.trunc_normal(
@@ -122,8 +139,8 @@ def _experts(p: MoE, xe: torch.Tensor) -> torch.Tensor:
 def _combine(out: torch.Tensor, gate_vals: torch.Tensor, idx: torch.Tensor,
              pos: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """Each kept pair's expert output times its gate (rounded to the
-    outputs' type), summed in f32 over the token's slots and rounded to
-    that type.  out (E, G·C, d) -> (G, t, d)."""
+    outputs' type), summed in f32 over the token's slots.  out (E, G·C,
+    d) -> (G, t, d) f32."""
     G, t, k = gate_vals.shape
     E, d = out.shape[0], out.shape[-1]
     C = out.shape[1] // G
@@ -133,7 +150,7 @@ def _combine(out: torch.Tensor, gate_vals: torch.Tensor, idx: torch.Tensor,
         G, t * k, d).float()
     gates = gate_vals.to(out.dtype).reshape(G, t * k, 1).float()
     y = torch.where(keep[..., None], picked * gates, 0.0)
-    return y.reshape(G, t, k, d).sum(2).to(out.dtype)
+    return y.reshape(G, t, k, d).sum(2)
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
@@ -155,7 +172,14 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
           ).float().mean((0, 1))
     aux = cfg.router_aux_weight * E * (probs.mean((0, 1)) * ce).sum()
     xe, idx, pos, keep = _dispatch(xg, gate_idx, E, C)
+    first, n_e = p.experts
+    if n_e < E:
+        # this rank's experts only: a pair routed elsewhere adds nothing
+        keep = keep & (idx >= first) & (idx < first + n_e)
+        idx = (idx - first).clamp(0, n_e - 1)
+        xe = xe[first:first + n_e]
     y = _combine(_experts(p, xe), gate_vals, idx, pos, keep)
+    y = CL.all_reduce(y, p.mesh, MODEL_AXIS).to(x.dtype)
     y = y.reshape(b, s, d)
     if p.shared is not None:
         y = y + p.shared(x)

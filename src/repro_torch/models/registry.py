@@ -23,10 +23,14 @@ import copy
 from typing import Optional, Tuple, Union
 
 import torch
+from torch import nn
 
 from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import MODEL_AXIS
 
 LM = T.LM
 Params = Union[T.LM, ED.EncDec]
@@ -143,7 +147,7 @@ def make_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
     """Paged KV arena (block 0 = junk sink); ``serving.kvpool`` owns the
     free-list / refcount / block-table map of it.  ``mesh`` places it
     under the arena rule (``sharding.rules.arena_spec``: KV heads over
-    "model")."""
+    "model"; a rank holds its heads)."""
     return T.init_block_arena(cfg, n_blocks, block_size, dtype, device,
                               mesh=mesh)
 
@@ -151,18 +155,82 @@ def make_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
 def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
     """Place a model under the sharding rules
     (``sharding.rules.param_specs``: Megatron column / row pairs, the head
-    guards, expert parallelism): each tensor's shard on the mesh's device.
-    On a (1, 1) mesh a shard is the whole tensor, so the model comes back
-    on ``mesh.device`` — the same module when it lives there already.  A
-    mesh of more than one device raises ``NotImplementedError``
-    (``launch.mesh.Mesh.single_device``)."""
+    guards, expert parallelism) on the mesh's device in this process.  On
+    a mesh of one device a shard is the whole tensor, so the model comes
+    back on ``mesh.device`` — the same module when it lives there already.
+    On a rank mesh it returns the rank's local model: each of the whole
+    model's tensors cut to the rank's slice (``rules.local_shard``) and
+    copied to the rank's device, sharing no memory with the whole, in a new
+    module whose attention, MLPs, MoE layers and vocab know their cut
+    (``models/layers.py``, ``models/moe.py``) and whose ``mesh`` is set.
+    Tensor parallelism covers the attention decoder's families (dense,
+    MoE, VLM); the others on a model axis of more than one device raise
+    ``NotImplementedError``."""
     from repro_torch.sharding import rules
     _check_cfg(params, cfg)
-    rules.param_specs(params, cfg, mesh)
-    dev = mesh.single_device("shard_params")
-    if all(p.device == dev for p in params.parameters()):
-        return params
-    return copy.deepcopy(params).to(dev)
+    specs = rules.param_specs(params, cfg, mesh)
+    dev = mesh.local_device("shard_params")
+    if not mesh.distributed:
+        if all(p.device == dev for p in params.parameters()):
+            return params
+        return copy.deepcopy(params).to(dev)
+    m = mesh.shape[MODEL_AXIS]
+    if m > 1 and (cfg.n_enc_layers or cfg.family not in ("dense", "moe",
+                                                         "vlm")):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel execution of the {cfg.family} "
+            f"family (a model axis of {m}) is not ported")
+    local = T.LM(cfg, torch.device("meta"), None).requires_grad_(False)
+    whole = dict(params.named_parameters())
+    for name, spec in specs.items():
+        full = whole[name]
+        if len(spec) == full.dim() + 1:          # a stack's layer entry
+            spec = spec[1:]
+        shard = rules.local_shard(full, spec, mesh).to(
+            dev, memory_format=torch.contiguous_format, copy=True)
+        owner, _, leaf = name.rpartition(".")
+        mod = local.get_submodule(owner) if owner else local
+        mod._parameters[leaf] = nn.Parameter(shard, requires_grad=False)
+    assert not any(p.is_meta for p in local.parameters()), \
+        f"{cfg.name}: a parameter has no sharding spec"
+    _mark_cut(local, cfg, mesh)
+    return local.eval()
+
+
+def _mark_cut(model: T.LM, cfg: ModelConfig, mesh) -> None:
+    """Tell the rank's modules how they are cut (the head guards and the
+    expert rule of ``sharding/rules.py``)."""
+    m = mesh.shape[MODEL_AXIS]
+    r = mesh.coord(MODEL_AXIS)
+    H, K, E = cfg.n_heads, cfg.n_kv_heads, cfg.padded_experts
+    model.mesh = mesh
+    for mod in model.modules():
+        if isinstance(mod, L.Attention) and H % m == 0:
+            mod.mesh, mod.n_heads = mesh, H // m
+            if K % m == 0:
+                mod.n_kv_heads = K // m
+                continue
+            # whole KV projections: keep the heads this rank's queries read
+            g, hl = H // K, H // m
+            lo, hi = r * hl // g, ((r + 1) * hl - 1) // g + 1
+            if hl % g and g % hl:
+                raise ValueError(
+                    f"{cfg.name}: {hl} query heads a rank do not split "
+                    f"into whole groups of {g} over {K} KV heads")
+            mod.kv_heads, mod.n_kv_heads = (lo, hi), hi - lo
+        elif isinstance(mod, L.MLP):
+            mod.mesh = mesh
+        elif isinstance(mod, M.MoE):
+            mod.mesh = mesh
+            if E % m == 0:
+                mod.experts = (r * (E // m), E // m)
+
+
+def greedy_token(params: Params, logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of ``params``' logits (..., V): their argmax, or on
+    a rank mesh the pick across the ranks' vocab slices
+    (``layers.greedy_token``), the same on every rank."""
+    return L.greedy_token(logits, getattr(params, "mesh", None))
 
 
 def prefill_paged(params: LM, batch: dict, arena: T.Arena,

@@ -44,6 +44,18 @@ the engines ignore the field, as the reference's do.  The SSM, hybrid and
 VLM families run through the generic entry points only — the slot cache,
 the arena and the engines refuse them, as the reference's do (enc-dec is
 ``models/encdec.py``'s).
+
+On a rank mesh (``models/registry.py`` ``shard_params``) the model is the
+rank's shard (``LM.mesh`` set; ``models/layers.py`` and ``models/moe.py``
+say how each module is cut) and the logits are the rank's slice of the
+vocab.  The paged entry points then also cut the decode rows over
+"data" when the data size divides the batch: each data replica embeds,
+projects and attends for its own rows, the new K/V rows are all-gathered
+over "data" so that every replica writes every row into its arena (the
+arena is replicated over "data", bit for bit), an MoE layer routes the
+whole batch, as the unsharded layer does, and a fused dispatch's tokens
+are all-gathered once at its end.  A prefill chunk (one row) runs
+replicated over "data".
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as C
 
 Arena = Dict[str, torch.Tensor]
 SlotCache = Dict[str, torch.Tensor]
@@ -174,11 +187,14 @@ class SharedBlock(nn.Module):
 class LM(nn.Module):
     """Embedding, the layers (decoder layers, or Mamba2 layers and, for the
     hybrid, the shared block), final norm, and the tied (or separate) LM
-    head over the padded vocab."""
+    head over the padded vocab.  ``mesh`` is the rank mesh of a rank's
+    shard (None unsharded): the embedding and the head then hold the
+    rank's slice of the vocab."""
 
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None
         self.embed = nn.Parameter(L.trunc_normal(
             (cfg.padded_vocab, cfg.d_model), 1.0, cfg.dtype, device, gen))
         layer = SSMLayer if cfg.family in ("ssm", "hybrid") else DecoderLayer
@@ -192,10 +208,14 @@ class LM(nn.Module):
                                      device, gen))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits over the padded vocab (on a rank mesh the rank's slice,
+        its padding rows at -inf)."""
         x = self.final_norm(x)
-        if self.lm_head is None:
-            return L.embedding_logits(self.embed, x)
-        return self.lm_head(x)
+        head = self.embed if self.lm_head is None else self.lm_head.weight
+        return L.embedding_logits(head, x, self.mesh, self.cfg.padded_vocab)
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return L.embedding_apply(self.embed, tokens, self.mesh)
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
@@ -219,29 +239,37 @@ def init_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
     this one allocation (``serving.kvpool`` owns the map).  Block 0 is the
     junk sink for masked writes — never handed to a sequence.  With
     ``mesh`` the arena is placed under ``sharding.rules.arena_spec`` (its
-    error for a head count the model axis does not divide comes first),
-    on the mesh's device: a (1, 1) mesh holds it whole; a mesh of more
-    devices raises ``NotImplementedError``."""
+    error for a head count the model axis does not divide comes first,
+    before anything is allocated), on the mesh's device in this process:
+    a (1, 1) mesh holds it whole, a rank of a rank mesh its K/m KV heads
+    (replicated over "data")."""
     check_supported(cfg)
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
     if mesh is not None:
         from repro_torch.sharding import rules
-        rules.arena_spec(mesh, cfg)
-        device = mesh.single_device("init_block_arena")
+        spec = rules.arena_spec(mesh, cfg)
+        device = mesh.local_device("init_block_arena")
+        shape = rules.shard_shape(shape, spec, mesh)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _mlp_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig
+def _mlp_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig,
+                  rows: Optional["_Rows"] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x + the layer's MLP or MoE of ln2(x), the MoE's aux loss or None).
     The MoE routes with ``cfg``, the model's config (not one kept in the
     layer), so a copy of the config set on the model changes its
-    capacity."""
+    capacity.  With ``rows`` cutting the batch over "data" the MoE routes
+    the whole batch (its groups and capacity span every row, as the
+    unsharded layer's do) and keeps this rank's rows."""
     h = layer.ln2(x)
     if layer.moe is None:
         return x + layer.mlp(h), None
+    if rows is not None and rows.cut:
+        y, aux = M.moe_apply(layer.moe, rows.gather(h), cfg)
+        return x + y[rows.lo:rows.hi], aux
     y, aux = M.moe_apply(layer.moe, h, cfg)
     return x + y, aux
 
@@ -277,6 +305,10 @@ def forward_lm(model: LM, tokens: Optional[torch.Tensor], *,
     block); without it the forward runs under ``no_grad``."""
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
+    if train and model.mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training a rank's shard is not ported (its "
+            f"collectives carry no gradient)")
     with L.grad_mode(train):
         return _forward_lm(model, tokens, mrope_positions, inputs_embeds,
                            return_hidden, train)
@@ -288,7 +320,7 @@ def _forward_lm(model: LM, tokens, mrope_positions, inputs_embeds,
     if inputs_embeds is not None:
         x = inputs_embeds.to(cfg.dtype)
     else:
-        x = L.embedding_apply(model.embed, tokens)
+        x = model.embed_tokens(tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in _DENSE_BODY:
@@ -391,7 +423,7 @@ def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor, *,
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
     pos = cache["pos"]
-    x = L.embedding_apply(model.embed, tokens)
+    x = model.embed_tokens(tokens)
     if cfg.family in _DENSE_BODY:
         split = cfg.decode_window > 0
         for li, (layer, (w, (cos, sin))) in enumerate(zip(
@@ -464,7 +496,7 @@ def prefill_kv_lm(model: LM, tokens: torch.Tensor
     assert supports_slots(cfg), f"prefill-kv unsupported for {cfg.family}"
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
-    x = L.embedding_apply(model.embed, tokens)
+    x = model.embed_tokens(tokens)
     ks, vs = [], []
     for layer, (w, (cos, sin)) in zip(model.layers,
                                       _layer_specs(cfg, positions)):
@@ -491,7 +523,7 @@ def decode_slots_lm(model: LM, cache: SlotCache, tokens: torch.Tensor,
     cfg = model.cfg
     lengths = cache["lengths"]
     write = L.slot_write_index(lengths, cache["k"].shape[2])
-    x = L.embedding_apply(model.embed, tokens)
+    x = model.embed_tokens(tokens)
     for li, (layer, (w, (cos, sin))) in enumerate(zip(
             model.layers, _layer_specs(cfg, lengths[:, None]))):
         x = x + L.attention_decode_slots_apply(
@@ -528,7 +560,7 @@ def prefill_paged_lm(model: LM, tokens: torch.Tensor, arena: Arena,
     page = (positions // bs).clamp(0, span - 1).long()
     write_bid = torch.where(valid, table[page], 0).long()
     write_off = (positions % bs).long()
-    x = L.embedding_apply(model.embed, tokens)
+    x = model.embed_tokens(tokens)
     for li, (layer, (w, (cos, sin))) in enumerate(zip(
             model.layers, _layer_specs(cfg, positions))):
         x = x + L.attention_prefill_paged_apply(
@@ -537,6 +569,52 @@ def prefill_paged_lm(model: LM, tokens: torch.Tensor, arena: Arena,
             window=w)
         x, _ = _mlp_residual(layer, x, cfg)
     return model.logits(x)
+
+
+class _Rows:
+    """The decode rows a rank computes: ``lo .. hi`` of a batch of ``b``,
+    the rank's equal block when ``mesh``'s "data" axis (of more than one
+    rank) divides ``b`` (``cut``), else all of them."""
+
+    def __init__(self, b: int, mesh):
+        n = mesh.shape.get("data", 1) if mesh is not None else 1
+        self.mesh, self.cut = mesh, n > 1 and b % n == 0
+        per = b // n if self.cut else b
+        self.lo = mesh.coord("data") * per if self.cut else 0
+        self.hi = self.lo + per
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``x`` (its leading dim covers the batch)."""
+        return x[self.lo:self.hi] if self.cut else x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` (its leading dim), in row order."""
+        return C.gather_rows(x, self.mesh, "data") if self.cut else x
+
+
+def _decode_paged_rows(model: LM, arena: Arena, tokens: torch.Tensor,
+                       tables: torch.Tensor, lengths: torch.Tensor,
+                       active: torch.Tensor, rows: _Rows) -> torch.Tensor:
+    """One paged decode step of the rows ``rows`` of the batch: ``tokens``
+    (rows, 1) are theirs, ``tables``, ``lengths`` and ``active`` the whole
+    batch's (every row's new K/V is written).  Returns their logits."""
+    cfg = model.cfg
+    bs = arena["k"].shape[2]
+    n_pages = tables.shape[1]
+    page = (lengths // bs).clamp(0, n_pages - 1).long()
+    write_bid = torch.where(active, tables.gather(1, page[:, None])[:, 0],
+                            0).long()
+    write_off = torch.where(active, lengths % bs, 0).long()
+    my_tables, my_lengths = rows.take(tables), rows.take(lengths)
+    x = model.embed_tokens(tokens)
+    for li, (layer, (w, (cos, sin))) in enumerate(zip(
+            model.layers, _layer_specs(cfg, my_lengths[:, None]))):
+        x = x + L.attention_decode_paged_apply(
+            layer.attn, layer.ln1(x), cos, sin, arena["k"][li],
+            arena["v"][li], my_tables, my_lengths, write_bid,
+            write_off, window=w, kv_rows=rows.gather if rows.cut else None)
+        x, _ = _mlp_residual(layer, x, cfg, rows)
+    return model.logits(x)[:, 0, :]
 
 
 @torch.no_grad()
@@ -548,23 +626,12 @@ def decode_paged_lm(model: LM, arena: Arena, tokens: torch.Tensor,
     tokens: (b, 1) int; tables: (b, n_pages) i32; lengths: (b,) i32 valid
     token counts; active: (b,) bool.  Inactive rows ride along for static
     shapes but write into the junk block and their outputs are garbage.
-    Writes the arena in place and returns logits (b, V_padded)."""
-    cfg = model.cfg
-    bs = arena["k"].shape[2]
-    n_pages = tables.shape[1]
-    page = (lengths // bs).clamp(0, n_pages - 1).long()
-    write_bid = torch.where(active, tables.gather(1, page[:, None])[:, 0],
-                            0).long()
-    write_off = torch.where(active, lengths % bs, 0).long()
-    x = L.embedding_apply(model.embed, tokens)
-    for li, (layer, (w, (cos, sin))) in enumerate(zip(
-            model.layers, _layer_specs(cfg, lengths[:, None]))):
-        x = x + L.attention_decode_paged_apply(
-            layer.attn, layer.ln1(x), cos, sin, arena["k"][li],
-            arena["v"][li], tables, lengths, write_bid, write_off,
-            window=w)
-        x, _ = _mlp_residual(layer, x, cfg)
-    return model.logits(x)[:, 0, :]
+    Writes the arena in place and returns logits (b, V_padded); on a rank
+    mesh those of the rank's rows (its block when "data" cuts them) and
+    its vocab slice."""
+    rows = _Rows(tokens.shape[0], model.mesh)
+    return _decode_paged_rows(model, arena, rows.take(tokens), tables,
+                              lengths, active, rows)
 
 
 @torch.no_grad()
@@ -585,18 +652,28 @@ def decode_paged_multi_lm(model: LM, arena: Arena, tokens: torch.Tensor,
     row finishes mid-loop.
 
     tokens: (b, 1) i32.  Returns ``(toks (n_steps, b) i32, next (b, 1) i32,
-    lengths (b,) i32)``; the arena is written in place."""
-    act_col = active[:, None]
+    lengths (b,) i32)``; the arena is written in place.  On a rank mesh
+    every step's token is :func:`~repro_torch.models.layers.greedy_token`
+    over the vocab slices, the same on every rank of "model"; with the
+    rows cut over "data" each rank feeds back its own rows' tokens, and
+    the dispatch's tokens are all-gathered over "data" at its end."""
+    rows = _Rows(tokens.shape[0], model.mesh)
+    act_col = rows.take(active)[:, None]
     act_i = active.to(torch.int32)
-    nxt, ln = tokens, lengths
+    nxt, ln = rows.take(tokens), lengths
     toks = []
     for _ in range(n_steps):
-        logits = decode_paged_lm(model, arena, nxt, tables, ln, active)
-        tok = logits.argmax(dim=-1).to(torch.int32)
+        logits = _decode_paged_rows(model, arena, nxt, tables, ln, active,
+                                    rows)
+        tok = L.greedy_token(logits, model.mesh).to(torch.int32)
         nxt = torch.where(act_col, tok[:, None], nxt)
         ln = ln + act_i
         toks.append(tok)
-    return torch.stack(toks), nxt, ln
+    toks = torch.stack(toks)
+    if rows.cut:
+        toks = rows.gather(toks.T).T
+        nxt = torch.where(active[:, None], toks[-1][:, None], tokens)
+    return toks, nxt, ln
 
 
 # =============================================================================

@@ -39,6 +39,11 @@ The three steps run in this order on one stream.  Handoff wall time is
 charged at busy power under the ``"handoff"`` role tag on both ends, so
 prefill + decode + handoff joules sum to the session total
 (``obs.validate.check_disagg_conservation``).
+
+``mesh=`` (a rank mesh, ``launch.ranks``) runs both pools on it: every
+rank runs this engine with its shard, each worker's arena holding the
+rank's KV heads, and a handoff stages and restores each rank's own
+heads' pages, with no collective.
 """
 from __future__ import annotations
 

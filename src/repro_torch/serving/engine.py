@@ -70,14 +70,23 @@ How the JAX-specific parts of the reference translate:
     tensor, copied to pinned host memory like a readback, and
     ``index_copy_`` back into the arena.
 
-``mesh=`` (``launch.mesh``) runs the paged instances on a mesh of one
-device: the weights placed through ``registry.shard_params`` (cached per
-mesh on the variant) and the arena built under
-``sharding.rules.arena_spec``; on a (1, 1) mesh every shard is the whole
-tensor (the loop state's rows too, :meth:`PagedInstance._put`), so the
-streams are the unsharded engine's.  A mesh of more
-devices raises ``NotImplementedError`` after the arena rule has been
-checked: executing across devices is not ported.
+``mesh=`` (``launch.mesh``) runs the paged instances on a mesh: the
+weights placed through ``registry.shard_params`` (cached per mesh on the
+variant) and the arena built under ``sharding.rules.arena_spec``.  On a
+(1, 1) mesh every shard is the whole tensor.  On a rank mesh of several
+devices (one process a device, ``launch.ranks``; a ("data", "model")
+mesh) every rank runs this engine with its shard, copied to its device
+from the family's whole weights on the host — the rank's heads,
+MLP columns, experts and vocab slice over "model", its arena's K/m heads
+replicated over "data", the decode rows cut over "data" when the data
+size divides the row bucket (``models/transformer.py``) — and the same
+scheduler, which must take the same decisions on every rank: each
+decision that reads the clock (arrival releases, the policy's holds and
+prefill order, the drain loop's waits) reads rank 0's, broadcast once a
+step (:meth:`RealEngine._clock`).  Handoffs and swaps move each rank's
+own heads' pages, with no collective.  ``stats()`` and the responses'
+times and joules are rank 0's, broadcast when a session closes, with the
+session's collectives (``sharding.collectives``) counted.
 """
 from __future__ import annotations
 
@@ -103,6 +112,7 @@ from repro_torch.serving.kvpool import BlockAllocator, RadixPrefixCache
 from repro_torch.serving.policies import SchedulerPolicy, make_policy
 from repro_torch.serving.quality import make_selector
 from repro_torch.serving.scheduler import SchedulerCore, latency_percentile
+from repro_torch.sharding import collectives as CL
 
 __all__ = ["latency_percentile", "EngineVariant", "build_engine_family",
            "Instance", "PagedInstance", "RealEngine", "serve_buckets"]
@@ -765,8 +775,10 @@ class PagedInstance:
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """Upload one (B, ...) loop-state buffer.  The reference cuts its
         rows over a mesh's "data" axis when that axis (of more than one
-        device) divides them; the meshes that run here have one device,
-        where it places the whole buffer, as this upload does."""
+        device) divides them; here every rank uploads the whole buffer (a
+        few hundred bytes: every row's write indices are needed to write
+        the all-gathered K/V) and the model cuts the rows it computes
+        (``models/transformer.py``)."""
         return _h2d(arr, self.device)
 
     def warmup(self) -> None:
@@ -1147,7 +1159,8 @@ class PagedInstance:
         seq.n_done += true_c
         self.prefill_chunks += 1
         if seq.prefilled:
-            tok = logits[0, true_c - 1].argmax().to(torch.int32)
+            tok = R.greedy_token(self.params,
+                                 logits[0, true_c - 1]).to(torch.int32)
             pf = _PendingFirst(seq, tok, _Readback(tok), self._tick_id)
             self._pending_first.append(pf)
             seq.pending_first = pf
@@ -1415,7 +1428,8 @@ class _Session:
         self.span_ids: Dict[int, int] = {}       # rid → "request" span sid
         self.preempt_sids: Dict[int, int] = {}   # rid → open "preempted" sid
         self.t0 = time.perf_counter()
-        self.future: List[Tuple[float, int, int]] = []   # (t_abs, seq, rid)
+        # (arrival, seq, rid), the arrival in session-relative seconds
+        self.future: List[Tuple[float, int, int]] = []
         self._fseq = 0
         self.requests: Dict[int, InferenceRequest] = {}
         self.meters: Dict[int, float] = {}
@@ -1451,6 +1465,7 @@ class _Session:
         # stats report THIS session's delta
         self.counters0 = {name: sum(getattr(i, name, 0) for i in instances)
                           for name in _INSTANCE_COUNTERS}
+        self.collectives0 = CL.totals()
 
     def charge(self, role: str, joules: float) -> None:
         """Add session energy under a role tag (see ``role_energy``)."""
@@ -1469,8 +1484,7 @@ class _Session:
                              deadline_s=req.deadline_s, slo=req.slo)
         else:
             heapq.heappush(self.future,
-                           (self.t0 + float(req.arrival_s), self._fseq,
-                            req.rid))
+                           (float(req.arrival_s), self._fseq, req.rid))
             self._fseq += 1
 
     def rel(self, now: float) -> float:
@@ -1500,17 +1514,20 @@ class RealEngine:
     ``core.perf_model``) and carbon (``ci_g_per_kwh``) per request.
 
     ``device`` is where the family's weights live (the GPU by default; the
-    CPU on request).  ``roles=`` splits the engine into prefill and decode
+    CPU on request) — except on a rank mesh, where the family lives on the
+    CPU and each rank copies its shard to ``device``, so that no device
+    ever holds the whole model.  ``roles=`` splits the engine into prefill and decode
     workers: constructing ``RealEngine(..., roles=...)`` builds a
     :class:`serving.disagg.DisaggEngine` (the same ``ServingBackend``
     surface, so callers and the fleet's ``probe_window`` drive it
     unchanged).  ``mesh=`` runs every paged instance on a mesh
-    (``launch.mesh.make_mesh_for``) of one device — the device the
-    family lives on; the slotted layout refuses it, as the reference's
-    assert does, and a mesh of more devices raises
-    ``NotImplementedError`` once ``sharding.rules.arena_spec`` has
-    accepted every variant (so a head count the model axis does not
-    divide is named first)."""
+    (``launch.mesh.make_mesh_for``): of one device — the device the family
+    lives on — or, inside a process group, a rank mesh whose ranks each
+    run this engine on their shard (``device`` is the rank's device; see
+    the module's notes).  The slotted layout refuses it, as the
+    reference's assert does; ``sharding.rules.arena_spec`` checks every
+    variant first, so a head count the model axis does not divide is
+    named before anything is allocated."""
 
     def __new__(cls, *args, **kwargs):
         if cls is RealEngine and kwargs.get("roles"):
@@ -1540,20 +1557,29 @@ class RealEngine:
             raise ValueError("preemption requires the paged KV layout "
                              "(slots never grow)")
         self.device = resolve_device(device)
+        # on a rank mesh the whole weights stay on the host and each rank
+        # copies only its shard to its device
+        rank_mesh = mesh is not None and mesh.distributed
+        home = torch.device("cpu") if rank_mesh else self.device
         for ev in family:
             where = {p.device for p in ev.params.parameters()}
-            if where != {self.device}:
+            if where != {home}:
                 raise ValueError(f"variant {ev.variant.name} lives on "
                                  f"{sorted(map(str, where))}, engine on "
-                                 f"{self.device}")
+                                 f"{self.device}"
+                                 + (" (a rank mesh takes its family on "
+                                    "the CPU)" if rank_mesh else ""))
         if mesh is not None:
             from repro_torch.sharding import rules
             for ev in family:
                 rules.arena_spec(mesh, ev.cfg)
-            if mesh.single_device("RealEngine") != self.device:
+            if mesh.local_device("RealEngine") != self.device:
                 raise ValueError(f"mesh {mesh} on {mesh.device}, engine "
                                  f"on {self.device}")
         self.mesh = mesh
+        # the ranks of a rank mesh run one schedule: rank 0's clock
+        self._ranks = (mesh.size if mesh is not None and mesh.distributed
+                       else 1)
         self.family = {ev.variant.name: ev for ev in family}
         self.instances: List[Union[Instance, PagedInstance]] = []
         self.n_slots = n_slots
@@ -1665,6 +1691,14 @@ class RealEngine:
         instances (the DisaggEngine's in-transit handoff queue)."""
         return False
 
+    def _clock(self, s: "_Session") -> float:
+        """Session-relative seconds now, as the scheduler's decisions read
+        them: this process's clock, or rank 0's on a rank mesh of several
+        ranks (one broadcast over the mesh's gloo group), so every rank
+        releases, holds and orders alike."""
+        return CL.broadcast_host(s.rel(time.perf_counter()),
+                                 self.mesh if self._ranks > 1 else None)
+
     # --- ServingBackend protocol ---------------------------------------------
     def submit(self, req: InferenceRequest) -> None:
         """Enqueue a typed request.  The first submit after idle opens a
@@ -1712,14 +1746,13 @@ class RealEngine:
         s = self._session
         if s is None:
             return []
-        now = time.perf_counter()
-        now_rel = s.rel(now)
+        now_rel = self._clock(s)
         s.progressed = False
         completed: List[InferenceResponse] = []
-        while s.future and s.future[0][0] <= now:
-            t_arr, _, rid = heapq.heappop(s.future)
+        while s.future and s.future[0][0] <= now_rel:
+            arr, _, rid = heapq.heappop(s.future)
             req = s.requests[rid]
-            s.core.submit(rid, t_arr, priority=req.priority,
+            s.core.submit(rid, s.t0 + arr, priority=req.priority,
                           deadline_s=req.deadline_s, slo=req.slo)
         # 1. admission: peek the policy's next choice and place it on the
         #    first instance with capacity (rows and blocks) — mid-flight, so
@@ -1800,7 +1833,9 @@ class RealEngine:
             # outstanding: an open-loop session measures admission latency,
             # and a k-step device window would delay a mid-window arrival's
             # prefill behind k queued decode steps
-            done, info = inst.tick(s.rel(t_tick), allow_fused=not s.future)
+            done, info = inst.tick(
+                now_rel if self._ranks > 1 else s.rel(t_tick),
+                allow_fused=not s.future)
             s.charge(inst.role, inst.chips * PM.P_BUSY_W * info["prefill_s"])
             for rid, dtc in info["prefill_rids"]:
                 s.meter(rid, inst.role, inst.chips * PM.P_BUSY_W * dtc)
@@ -1896,13 +1931,13 @@ class RealEngine:
             if s.progressed:
                 stalled_once = False
                 continue
-            now = time.perf_counter()
+            now_rel = self._clock(s)
             if s.future and not s.core.has_pending():
                 # open-loop idle gap: nothing in flight, next arrival in
                 # the future — sleep up to it instead of busy-spinning
-                time.sleep(min(max(s.future[0][0] - now, 0.0), 0.01))
+                time.sleep(min(max(s.future[0][0] - now_rel, 0.0), 0.01))
             elif s.core.has_pending():
-                if s.core.peek_next(s.rel(now)) is None:
+                if s.core.peek_next(now_rel) is None:
                     # policy hold (carbon-aware deferral): wait for the
                     # clock/CI to move, the queue is intentionally parked
                     time.sleep(0.001)
@@ -2075,13 +2110,39 @@ class RealEngine:
             "handoff_energy_j": s.role_energy.get("handoff", 0.0),
             "both_energy_j": s.role_energy.get("both", 0.0),
         }
+        if self._ranks > 1:
+            self._from_rank0(s)
+            wall = self._last_stats["wall_s"]
         if self.telemetry is not None and self.telemetry.feed is not None:
             # one exact segment per session: feed totals stay equal to the
             # engine's charged joules/grams with no re-derivation
-            self.telemetry.feed.record_segment(self._feed_clock, wall,
-                                               s.energy, total_g)
+            self.telemetry.feed.record_segment(
+                self._feed_clock, wall, self._last_stats["energy_j"],
+                self._last_stats["carbon_g"])
         self._feed_clock += wall
         self._session = None
+
+    _MEASURED = ("energy_j", "energy_by_role", "carbon_g", "t_arrival",
+                 "t_finish", "queue_delay_s", "ttft_s", "latency_s")
+
+    def _from_rank0(self, s: _Session) -> None:
+        """On a rank mesh: the session's collectives into the stats, then
+        rank 0's stats, latencies and responses' measured fields on every
+        rank (one broadcast; the responses complete in the same order on
+        every rank, since the schedules are one)."""
+        now = CL.totals()
+        self._last_stats["collective_calls"] = \
+            now["calls"] - s.collectives0["calls"]
+        self._last_stats["collective_bytes"] = \
+            now["bytes"] - s.collectives0["bytes"]
+        stats, lat, measured = CL.broadcast_object(
+            (self._last_stats, list(self.last_latencies),
+             [{k: getattr(r, k) for k in self._MEASURED}
+              for r in s.responses]), self.mesh)
+        self._last_stats, self.last_latencies = stats, lat
+        for r, fields in zip(s.responses, measured):
+            for k, v in fields.items():
+                setattr(r, k, v)
 
     # --- bulk-prompt convenience ---------------------------------------------
     def _serve_prompts(self, prompts: Sequence[np.ndarray], n_new: int = 8,

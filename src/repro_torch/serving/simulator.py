@@ -8,9 +8,9 @@ configuration's analytic service model.  All Clover/Blover *online evaluation
 windows are served under the candidate being evaluated* and reconfiguration
 downtime is charged — the paper includes both overheads in every result.
 
-The reference also keeps a per-request exact DES (its ``serving/queue.py``,
-not ported yet); at 48 h × production rates the fluid model is the
-tractable equivalent.  This module touches no tensor: numpy and the
+The per-request exact DES is ``serving/queue.py`` (the reference's
+counterpart); at 48 h × production rates the fluid model is the tractable
+equivalent.  This module touches no tensor: numpy and the
 standard library only.
 """
 from __future__ import annotations

@@ -9,7 +9,9 @@ product) — the entries of the reference's ``PartitionSpec``, which writes
 a tuple of one axis as that axis.  The rules read only the
 mesh's ``shape`` (axis name to size) and ``axis_names``
 (``launch/mesh.py``), so an abstract mesh of the reference's production
-pods serves them and the dry run.
+pods serves them and the dry run.  On a rank mesh :func:`local_shard`
+cuts a whole tensor to the rank's slice under a spec
+(``models/registry.py`` ``shard_params``).
 
 Logical layout on the production mesh (pod, data, model), as in the
 reference:
@@ -345,12 +347,41 @@ def param_device_bytes(model, specs: Mapping[str, Spec], mesh,
         total += shard_bytes(shape, ref, mesh, size)
     return total
 
+
 def shard_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
     """One device's shard of a tensor of ``shape`` under ``spec``: each
     cut dim ``ceil(dim / product of its axes)``, as GSPMD pads."""
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     return tuple(-(-int(n) // (axes_size(mesh, ax) if ax else 1))
                  for n, ax in zip(shape, spec))
+
+
+def local_shard(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``full`` under ``spec`` on a
+    rank mesh: each cut dim split into blocks of :func:`shard_shape`'s
+    size, the rank's block by its coordinates along the dim's axes (the
+    first axis named the slowest), zero-filled past the dim's end, as
+    GSPMD pads.  Uncut dims, and a spec on a mesh of one device, keep the
+    whole tensor (a view)."""
+    spec = tuple(spec) + (None,) * (full.dim() - len(spec))
+    want = shard_shape(full.shape, spec, mesh)
+    out = full
+    for dim, ax in enumerate(spec):
+        if not ax:
+            continue
+        axes = (ax,) if isinstance(ax, str) else tuple(ax)
+        block = 0
+        for a in axes:
+            block = block * mesh.shape[a] + mesh.coord(a)
+        n = want[dim]
+        lo = min(block * n, full.shape[dim])
+        piece = out.narrow(dim, lo, min(n, full.shape[dim] - lo))
+        if piece.shape[dim] < n:
+            pad = list(piece.shape)
+            pad[dim] = n - piece.shape[dim]
+            piece = torch.cat([piece, piece.new_zeros(pad)], dim)
+        out = piece
+    return out
 
 
 def shard_bytes(shape: Sequence[int], spec: Spec, mesh,

@@ -97,9 +97,10 @@ def _conserves(m, responses):
 # =============================================================================
 def test_roles_kwarg_builds_disagg_engine(families):
     """``roles=`` builds a ``DisaggEngine`` (and only on the paged layout);
-    a ``mesh=`` of two devices is refused with ``NotImplementedError``
-    (multi-device execution is not ported) and a (1, 1) mesh passes
-    through to the workers."""
+    an abstract ``mesh=`` of two devices (shapes only) is refused with
+    ``ValueError`` (a mesh of several devices runs as ranks:
+    ``tests/test_torch_tp_disagg.py``) and a (1, 1) mesh passes through
+    to the workers."""
     fam = families[1]
     eng = ENG.RealEngine(fam, n_slots=2, max_len=32, kv_layout="paged",
                          roles={"prefill": 1, "decode": 1}, device="cpu")
@@ -115,7 +116,7 @@ def test_roles_kwarg_builds_disagg_engine(families):
     with pytest.raises(AssertionError):
         ENG.RealEngine(fam, kv_layout="paged", roles={"prefill": 1},
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="abstract"):
         ENG.RealEngine(fam, kv_layout="paged", roles=(1, 1),
                        mesh=MESH.Mesh((1, 2), ("data", "model")),
                        device="cpu")

@@ -8,6 +8,7 @@ Token streams must be equal exactly."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke_config
 from repro.core import config_graph as CGJ
@@ -215,13 +216,17 @@ def test_token_stream_callbacks_and_single_token_requests(family):
                                 {},
                                 {"roles": (1, 1)}])
 def test_unported_engine_options_raise(family, kw):
-    """``mesh=`` of more than one device stays refused with
-    ``NotImplementedError`` (multi-device execution is not ported), alone
-    and beside the ported preemption, telemetry, quality selector and
-    ``roles=`` (disaggregation); the same options on a (1, 1) mesh build
+    """``mesh=`` of two devices made outside a process group is refused
+    with ``ValueError`` (one process cannot drive them: a mesh of several
+    devices runs as ranks, ``launch.ranks.spawn``, which
+    ``tests/test_torch_tp_engine.py`` serves through), alone and beside
+    preemption, telemetry, the quality selector and ``roles=``
+    (disaggregation); the same options on a (1, 1) mesh build
     (``tests/test_torch_launch_tools.py`` serves through it)."""
-    two = MESH.Mesh((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    cpus = np.empty((1, 2), dtype=object)
+    cpus[:] = [[torch.device("cpu"), torch.device("cpu")]]
+    two = MESH.Mesh((1, 2), ("data", "model"), cpus)
+    with pytest.raises(ValueError, match="no process group"):
         ENG.RealEngine(family, kv_layout="paged", device="cpu", mesh=two,
                        **kw)
     one = MESH.make_mesh_for(1, device="cpu")

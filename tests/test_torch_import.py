@@ -49,7 +49,8 @@ def test_importing_every_port_module_leaves_jax_out():
                 "repro_torch.sharding", "repro_torch.sharding.rules",
                 "repro_torch.launch.mesh", "repro_torch.launch.steps",
                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
-                "repro_torch.configs.shapes"):
+                "repro_torch.configs.shapes", "repro_torch.launch.ranks",
+                "repro_torch.sharding.collectives"):
         assert mod in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
@@ -88,4 +89,7 @@ def test_entry_point_without_device_uses_gpu_or_raises():
         ENG.build_engine_family(qwen3_1_7b.SMOKE, fracs=(1.0,))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         R.make_block_arena(qwen3_1_7b.SMOKE, 4, 8)
+    from repro_torch.launch import ranks
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ranks.spawn(print, 2)
     assert resolve_device("cpu") == torch.device("cpu")
