@@ -4893,6 +4893,615 @@ def phase_tp_kernels() -> dict:
 
 
 # =============================================================================
+# phase 20: training and the generic decode across devices — the ranks of
+# a mesh sharing the card
+# =============================================================================
+# phase 20a: qwen3-1.7b at full width in f32 on a (2, 2) mesh of 4 ranks,
+# ZeRO-1 on, phase 17c's TRAIN_FULL_STEPS steps of 4 rows, at 512 tokens
+# (TP_TRAIN_SEQ; half of 17c's 1024, for the script's time: a rank's step
+# hands gloo its 3.2 GiB gradient and weights whatever the tokens, and
+# its activations' all-reduces besides) — a rank takes 2 rows, half of
+# every cut weight and half of the moments it cuts — held to a single
+# rank's steps on the same seeded weights and batches: each loss within
+# TP_TRAIN_LOSS_TOL relative, the parameters after the first step at the
+# port's step tolerance (TRAIN_TOL, with TRAIN_OFF of them within 2 lr)
+TP_TRAIN_MESH = (2, 2)
+TP_TRAIN_SEQ = 512
+TP_TRAIN_LOSS_TOL = 5e-4
+# phase 20b: the SMOKE scenarios on 4 ranks of the card against the same
+# on 4 ranks of the CPU: DDP on 2 ranks (the reference's tiny qwen2-0.5b
+# of tests/multidev_scenarios.py:46-48), training on (1, 2), and glm4's
+# decode with the sequence over ("data", "model") on (2, 2)
+TP_SMOKE_TINY = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+                     d_head=8, d_ff=64, vocab_size=64)
+TP_SMOKE_TRAIN = ("mamba2-2.7b", "zamba2-2.7b", "seamless-m4t-large-v2")
+TP_DECODE_STEPS = 12
+# phase 20a': mamba2-2.7b at full width in f32 on (1, 2) — each rank 40
+# of the 80 heads, the gate norm's sum of squares all-reduced, wB / wC
+# whole — its depth cut to TP_SSM_LAYERS Mamba2 layers (the embedding and
+# head whole), one step of TRAIN_FULL_BATCH x TRAIN_FULL_SEQ tokens at
+# TRAIN_SSM_OPT, held to the single rank's step as 20a
+TP_SSM_ARCH, TP_SSM_LAYERS = "mamba2-2.7b", 4
+
+
+def _params_close(got: dict, want: dict, lr: float) -> tuple:
+    """(elements, those beyond TRAIN_TOL, those beyond 2 lr, largest
+    |difference|) of two dicts of tensors (or arrays), in f64 on the
+    device of ``got``'s tensors."""
+    import torch
+    rtol, atol = TRAIN_TOL
+    n = off = far = 0
+    worst = 0.0
+    for k, w in want.items():
+        g = torch.as_tensor(got[k])
+        g, w = g.double(), torch.as_tensor(w).to(g.device).double()
+        d = (g - w).abs()
+        n += d.numel()
+        off += int((d > atol + rtol * w.abs()).sum())
+        far += int((d > 2 * lr).sum())
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return n, off, far, worst
+
+
+def _tp_train_rank(args, path: str, ssm_path: str) -> tuple:
+    """Phase 20 on one rank of 4: (a) :func:`_tp_full_run`, then, its
+    memory freed, (a') :func:`_tp_ssm_run` on ranks 0-1 and (b)
+    :func:`_tp_smoke_run` on the card and on the CPU, in the same process
+    group (one spawn: a rank takes ~8 s to reach the card).  Returns (a's,
+    a''s (None off its mesh), (b's on the card, on the CPU))."""
+    import torch
+    _rank_threads(args)
+    full = _tp_full_run(args, path)
+    torch.cuda.empty_cache()
+    ssm = _tp_ssm_run(args, ssm_path)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    card = _tp_smoke_run(args, args.device, args.device_type)
+    cpu = _tp_smoke_run(args, "cpu", "cpu")
+    full["seconds"] += (time.perf_counter() - t,)
+    return full, ssm, (card, cpu)
+
+
+def _tp_ssm_cfg():
+    import torch
+    from repro_torch.configs import get_config
+    return get_config(TP_SSM_ARCH).with_(dtype=torch.float32,
+                                         n_layers=TP_SSM_LAYERS)
+
+
+def _tp_ssm_run(args, path: str):
+    """Phase 20a' on ranks 0-1 of the group, a (1, 2) mesh: the whole
+    weights drawn from seed 0 on the card (the single rank's), moved to
+    the host and cut to the rank's shard; one ``steps.build_train`` step
+    (ZeRO-1 has no data axis to cut); the rank's loss, its parameters
+    against its part of the single rank's (``path``) and the kernels'
+    launches.  None on ranks 2-3."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+    from repro_torch.sharding import rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import parallel as P
+    from repro_torch.train import train_loop as TL
+    mesh = make_mesh_for(2, model_parallel=2, device=args.device_type)
+    if not mesh.member:
+        return None
+    cfg = _tp_ssm_cfg()
+    whole = R.init_params(cfg, seed=0).to("cpu")
+    torch.cuda.empty_cache()
+    local = R.shard_params(whole, cfg, mesh)
+    del whole
+    opt = O.AdamWConfig(**TRAIN_SSM_OPT)
+    step = steps.build_train(cfg, mesh, "train_4k", opt_cfg=opt, accum=1,
+                             zero1=True)[0]
+    state = TL.make_train_state(local, opt, zero1=True)
+    plan = P.plan_for(local, True)
+    batch = _train_batch(cfg, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, 0,
+                         args.device)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    state, met = step(state, batch)
+    loss = met["loss"].item()
+    wall = time.perf_counter() - t
+    launches = _counts()
+    want = torch.load(path, mmap=True)
+    cmp = _params_close(
+        {n: p.detach() for n, p in local.named_parameters()},
+        {n: rules.local_shard(want[n], plan.spec[n], mesh)
+         for n, _ in local.named_parameters()}, opt.lr)
+    return {"coords": mesh.coords, "loss": loss, "wall": wall, "cmp": cmp,
+            "launches": launches}
+
+
+def _tp_full_run(args, path: str) -> dict:
+    """Phase 20a on one rank of the (2, 2) mesh: the whole weights drawn
+    from seed 0 on the card (the single rank's), moved to the host and
+    cut to the rank's shard; ``steps.build_train``'s step with ZeRO-1 on
+    the synthetic stream's batches; after the first step the rank's
+    parameters against its part of the single rank's (``path``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+    from repro_torch.sharding import collectives as CL
+    from repro_torch.sharding import rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import parallel as P
+    from repro_torch.train import train_loop as TL
+    t0 = time.perf_counter()
+    d, m = TP_TRAIN_MESH
+    mesh = make_mesh_for(d * m, model_parallel=m, device=args.device_type)
+    cfg = get_config("qwen3-1.7b").with_(dtype=torch.float32)
+    whole = R.init_params(cfg, seed=0).to("cpu")
+    torch.cuda.empty_cache()
+    local = R.shard_params(whole, cfg, mesh)
+    del whole
+    opt = O.AdamWConfig(**TRAIN_OPT)
+    step = steps.build_train(cfg, mesh, "train_4k", opt_cfg=opt, accum=1,
+                             zero1=True)[0]
+    state = TL.make_train_state(local, opt, zero1=True)
+    plan = P.plan_for(local, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _zero_counts()
+    CL.reset()
+    losses, walls, cmp, coll = [], [], None, None
+    for i in range(TRAIN_FULL_STEPS):
+        if i == 1:
+            CL.reset()
+        t = time.perf_counter()
+        state, met = step(state, _train_batch(cfg, TRAIN_FULL_BATCH,
+                                              TP_TRAIN_SEQ, i, args.device))
+        losses.append(met["loss"].item())
+        walls.append(time.perf_counter() - t)
+        if i == 0:
+            want = torch.load(path, mmap=True)
+            cmp = _params_close(
+                {n: p.detach() for n, p in local.named_parameters()},
+                {n: rules.local_shard(want[n], plan.spec[n], mesh)
+                 for n, _ in local.named_parameters()}, opt.lr)
+            del want
+        if i == 1:
+            coll = CL.stats()
+    return {"coords": mesh.coords, "losses": losses, "walls": walls,
+            "cmp": cmp, "collectives": coll, "launches": _counts(),
+            "peak": torch.cuda.max_memory_allocated(),
+            "shard_bytes": _param_bytes(local),
+            "moment_bytes": sum(t.numel() * 4 for t in
+                                state["opt"]["m"].values()) * 2,
+            "seconds": (t1 - t0, time.perf_counter() - t1)}
+
+
+def _tp_smoke_run(args, dev, kind) -> dict:
+    """DDP with each compressor on ranks 0-1, two ``build_train`` steps
+    of each of ``TP_SMOKE_TRAIN`` on (1, 2) (ranks 0-1), and
+    ``TP_DECODE_STEPS`` decode steps of glm4 SMOKE with ``seq_shard`` on
+    (2, 2), on ``dev``; the weights from a seed on the CPU, the same on
+    both devices.  Returns the losses, the parameters after the steps
+    (whole), the logits (the rank's rows and vocab slice) and the
+    kernels' launches (the card's); arrays, not tensors (a tensor leaves
+    the rank as a shared-memory handle that dies with it)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import parallel as P
+    from repro_torch.train import train_loop as TL
+    _zero_counts()
+    out = {}
+    pair = dist.new_group([0, 1])
+    opt = O.AdamWConfig(**TRAIN_OPT)
+    if args.rank < 2:
+        cfg = get_smoke_config("qwen2-0.5b").with_(dtype=torch.float32,
+                                                    **TP_SMOKE_TINY)
+        batch = _train_batch(cfg, 8, 16, 0, dev)
+        for comp in (None, "bf16", "int8"):
+            model = R.init_params(cfg, seed=0, device="cpu").to(dev)
+            state = TL.make_train_state(model, opt)
+            state, met = TL.make_ddp_train_step(cfg, opt, pair, comp)(
+                state, batch)
+            out[("ddp", comp)] = (met["loss"].item(), {
+                n: p.detach().cpu().numpy()
+                for n, p in model.named_parameters()})
+    mesh = make_mesh_for(2, model_parallel=2, device=kind)
+    for arch in TP_SMOKE_TRAIN:
+        if not mesh.member:
+            continue
+        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+        local = R.shard_params(R.init_params(cfg, seed=0, device="cpu"), cfg,
+                               mesh)
+        step = steps.build_train(cfg, mesh, "train_4k", opt_cfg=opt,
+                                 accum=1, zero1=True)[0]
+        state = TL.make_train_state(local, opt, zero1=True)
+        plan = P.plan_for(local, True)
+        losses = []
+        for i in range(2):
+            state, met = step(state, _train_batch(cfg, 4, 32, i, dev))
+            losses.append(met["loss"].item())
+        out[("train", arch)] = (losses, {
+            n: plan.whole(n, p.detach()).cpu().numpy()
+            for n, p in local.named_parameters()})
+    mesh = make_mesh_for(4, model_parallel=2, device=kind)
+    cfg = get_smoke_config("glm4-9b").with_(dtype=torch.float32)
+    local = R.shard_params(R.init_params(cfg, seed=0, device="cpu"), cfg,
+                           mesh)
+    cache = R.make_cache(local, cfg, 2, 64, dtype=torch.float32,
+                         seq_shard=True)
+    logits = []
+    for i in range(TP_DECODE_STEPS):
+        toks = np.random.default_rng(40 + i).integers(0, cfg.vocab_size,
+                                                      size=(2, 1))
+        lg, cache = R.decode_step(local, cache, {"tokens": torch.as_tensor(
+            toks, device=dev)}, cfg)
+        logits.append(lg.cpu().numpy())
+    out["decode"] = (mesh.coords, logits)
+    out["launches"] = _counts()
+    return out
+
+
+def phase_tp_train(smi: str) -> dict:
+    """Phase 20: training and the generic decode across devices, the ranks
+    sharing the card over gloo (``launch.ranks.spawn``; NCCL puts no two
+    ranks on one device, so no NCCL or NVLink time is measured here).
+    (a) qwen3-1.7b at full width in f32 on a (2, 2) mesh of 4 ranks (see
+    ``TP_TRAIN_MESH``) against the single rank, run first on the same
+    seeded weights and batches and freed before the spawn: losses,
+    parameters after the first step, each rank's card peak, the
+    collectives of a step, the flash kernels launched at a rank's shapes.
+    (a') mamba2-2.7b at full width, its depth cut, on (1, 2) against the
+    single rank's step (``TP_SSM_ARCH``).  (b) The SMOKE scenarios (``_tp_smoke_run``) on 4 ranks of the card
+    against 4 of the CPU.  Returns the kernels' launches summed over the
+    ranks of both."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import ranks
+    from repro_torch.models import registry as R
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_loop as TL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b").with_(dtype=torch.float32)
+    opt = O.AdamWConfig(**TRAIN_OPT)
+    model = R.init_params(cfg, seed=0)
+    state = TL.make_train_state(model, opt)
+    step = TL.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="tp_train_")
+    path = os.path.join(tmp, "step1.pt")
+    losses, walls = [], []
+    try:
+        for i in range(TRAIN_FULL_STEPS):
+            t = time.perf_counter()
+            state, met = step(state, _train_batch(
+                cfg, TRAIN_FULL_BATCH, TP_TRAIN_SEQ, i, "cuda"))
+            losses.append(met["loss"].item())
+            walls.append(time.perf_counter() - t)
+            if i == 0:
+                torch.save({n: p.detach().cpu()
+                            for n, p in model.named_parameters()}, path)
+        peak1 = torch.cuda.max_memory_allocated()
+        del model, state, step, met
+        torch.cuda.empty_cache()
+        # 20a': the single rank's mamba2 step on the same seeded weights
+        ssm_cfg = _tp_ssm_cfg()
+        ssm_opt = O.AdamWConfig(**TRAIN_SSM_OPT)
+        model = R.init_params(ssm_cfg, seed=0)
+        state, met = TL.make_train_step(ssm_cfg, ssm_opt)(
+            TL.make_train_state(model, ssm_opt), _train_batch(
+                ssm_cfg, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, 0, "cuda"))
+        ssm_loss = met["loss"].item()
+        ssm_path = os.path.join(tmp, "ssm_step1.pt")
+        torch.save({n: p.detach().cpu()
+                    for n, p in model.named_parameters()}, ssm_path)
+        del model, state, met
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res, ssm, smoke = zip(*ranks.spawn(
+            _tp_train_rank, int(np.prod(TP_TRAIN_MESH)), None,
+            args=(path, ssm_path), timeout=600))
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0,
+                "ssd_chunked": 0, "ssd_chunked_bwd": 0,
+                "decode_attention": 0}
+    L = cfg.n_layers
+    for r in res:
+        tag = f"tp train: rank {r['coords']}"
+        for i, (a, b) in enumerate(zip(r["losses"], losses)):
+            _check(abs(a - b) <= TP_TRAIN_LOSS_TOL * abs(b),
+                   f"{tag}: step {i} loss {a} against the single rank's {b}")
+        n, off, far, worst = r["cmp"]
+        _check(far == 0 and off <= TRAIN_OFF * n,
+               f"{tag}: after step 1 {off} of {n} parameters beyond "
+               f"TRAIN_TOL, {far} beyond 2 lr (largest {worst:.3g})")
+        got = r["launches"]
+        _check(got["flash_attention"] == 2 * L * TRAIN_FULL_STEPS
+               and got["flash_attention_bwd"] == L * TRAIN_FULL_STEPS,
+               f"{tag}: launches {got}")
+        for name in launches:
+            launches[name] += got[name]
+    ssm = [r for r in ssm if r is not None]
+    _check(len(ssm) == 2, f"tp train ssm: {len(ssm)} ranks of (1, 2)")
+    Ls = TP_SSM_LAYERS
+    for r in ssm:
+        tag = f"tp train ssm: rank {r['coords']}"
+        _check(abs(r["loss"] - ssm_loss) <= TP_TRAIN_LOSS_TOL * abs(ssm_loss),
+               f"{tag}: loss {r['loss']} against the single rank's "
+               f"{ssm_loss}")
+        n, off, far, worst = r["cmp"]
+        _check(far == 0 and off <= TRAIN_OFF * n,
+               f"{tag}: after the step {off} of {n} parameters beyond "
+               f"TRAIN_TOL, {far} beyond 2 lr (largest {worst:.3g})")
+        got = r["launches"]
+        _check(got["ssd_chunked"] == 2 * Ls
+               and got["ssd_chunked_bwd"] == Ls, f"{tag}: launches {got}")
+        for name in launches:
+            launches[name] += got[name]
+    print(f"tp train ssm [{smi}]: {TP_SSM_ARCH} f32 at full width, "
+          f"{Ls} Mamba2 layers, on (1, 2), one step of {TRAIN_FULL_BATCH} "
+          f"x {TRAIN_FULL_SEQ} tokens: losses "
+          f"{[r['loss'] for r in ssm]} against the single rank's "
+          f"{ssm_loss} (limit {TP_TRAIN_LOSS_TOL} relative); after the "
+          f"step " + "; ".join(
+              f"{r['coords']} {r['cmp'][1]} of {r['cmp'][0]} beyond "
+              f"TRAIN_TOL, largest {r['cmp'][3]:.3g}" for r in ssm)
+          + f"; a rank's step {[round(r['wall'] * 1e3, 1) for r in ssm]} "
+          f"ms (the first); launches a rank {ssm[0]['launches']}")
+    gib = 2.0 ** 30
+    ms = [1e3 * sum(r["walls"][1:]) / max(len(r["walls"]) - 1, 1)
+          for r in res]
+    print(f"tp train [{smi}]: {cfg.name} f32 on a {TP_TRAIN_MESH} mesh of "
+          f"{len(res)} ranks on one card (gloo), ZeRO-1, "
+          f"{TRAIN_FULL_STEPS} steps of {TRAIN_FULL_BATCH} x "
+          f"{TP_TRAIN_SEQ} tokens: losses {[round(x, 5) for x in res[0]['losses']]} "
+          f"against the single rank's {[round(x, 5) for x in losses]} "
+          f"(limit {TP_TRAIN_LOSS_TOL} relative); after step 1 "
+          + "; ".join(f"{r['coords']} {r['cmp'][1]} of {r['cmp'][0]} beyond "
+                      f"TRAIN_TOL, largest {r['cmp'][3]:.3g}" for r in res))
+    print(f"tp train: steps a rank {[round(x, 1) for x in ms]} ms (the "
+          f"second; the first {[round(r['walls'][0] * 1e3, 1) for r in res]}"
+          f" ms) against the single rank's {walls[1] * 1e3:.1f} ms "
+          f"(first {walls[0] * 1e3:.1f} ms); each rank's card peak "
+          + ", ".join(f"{r['coords']} {r['peak'] / gib:.2f} GiB" for r in res)
+          + f" (shard {res[0]['shard_bytes'] / gib:.2f} GiB, moments "
+          f"{res[0]['moment_bytes'] / gib:.2f} GiB) against the single "
+          f"rank's {peak1 / gib:.2f} GiB")
+    print("tp train: collectives of one step (rank 0): " + ", ".join(
+        f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB handed, "
+        f"{v['wire_bytes'] / 2**20:.1f} MiB on the wire"
+        for k, v in res[0]["collectives"].items() if v["calls"]))
+    print(f"tp train: launches a rank {[(r['coords'], r['launches']) for r in res]};"
+          f" single rank {t1 - t0:.1f} s, the ranks' spawn with (b) "
+          f"{t2 - t1:.1f} s (rank 0: mesh, weights and shard "
+          f"{res[0]['seconds'][0]:.1f} s, steps {res[0]['seconds'][1]:.1f} "
+          f"s, (b) {res[0]['seconds'][2]:.1f} s)")
+    torch.cuda.empty_cache()
+    # (b) the SMOKE scenarios, the card against the CPU
+    card, cpu = zip(*smoke)
+    for rg, rc in zip(card, cpu):
+        for key, val in rc.items():
+            if key == "launches":
+                continue
+            if key == "decode":
+                _check(val[0] == rg[key][0], f"tp smoke: decode coords")
+                err = max(float(np.abs(a - b).max())
+                          for a, b in zip(rg[key][1], val[1]))
+                _check(err <= TOL["float32"][0] * 10,
+                       f"tp smoke: glm4 seq-sharded decode {val[0]} logits "
+                       f"off the CPU's by {err:.3g}")
+                continue
+            loss_g, p_g = rg[key]
+            loss_c, p_c = val
+            lg = np.atleast_1d(loss_g)
+            lc = np.atleast_1d(loss_c)
+            _check(bool(np.all(np.abs(lg - lc) <= 1e-5 * np.abs(lc))),
+                   f"tp smoke {key}: losses {lg} against the CPU's {lc}")
+            n, off, far, worst = _params_close(p_g, p_c, opt.lr)
+            _check(far == 0 and off <= TRAIN_OFF * n + 1,
+                   f"tp smoke {key}: {off} of {n} parameters beyond "
+                   f"TRAIN_TOL, {far} beyond 2 lr (largest {worst:.3g})")
+    for r in card:
+        for name in launches:
+            launches[name] += r["launches"][name]
+    _check(all(n > 0 for n in launches.values()),
+           f"tp: a kernel of phase 20's path was not launched: {launches}")
+    print(f"tp smoke: DDP f32 / bf16 / int8 on 2 ranks, {', '.join(TP_SMOKE_TRAIN)} "
+          f"trained on (1, 2), glm4's seq-sharded decode on (2, 2) "
+          f"({TP_DECODE_STEPS} steps): the card equals the CPU; launches "
+          f"a rank {[r['launches'] for r in card]}")
+    print(f"tp: phase 20 (a, b) {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# phase 20c: the kernels of the training and decode paths at a rank's
+# shapes: qwen3-1.7b's attention in phase 20a (2 rows of 512, 8 query
+# heads over 4 KV heads) and mamba2-2.7b's scan in phase 20a' (40 of its
+# 80 heads, 4 x 1024), both driven at those shapes; and glm4-9b's decode
+# on (2, 4) with seq_shard (every head, 32 over 2, on a segment of 4096
+# of 32768 positions, its first 1700 seen, a window of 1024 ending 300
+# positions past them: in the next segment) — a shape no driven path
+# gives: phase 20 drives the sequence-sharded decode at SMOKE width only,
+# and the record's launches are that decode's
+TP_FLASH = dict(b=2, sq=TP_TRAIN_SEQ, K=4, g=2, dh=128)
+TP_SSD = dict(b=4, s=1024, H=40, P=64, G=1, N=128, chunk=128)
+TP_SEGMENT = dict(b=4, S=4096, K=2, g=16, dh=128, length=1700, window=1024,
+                  end=2000)
+
+
+def _rank_record(name: str, label: str, err: float, limit: float,
+                 kern, plain, lib, n_bytes: float, n_ops: float,
+                 reps: int = 10) -> dict:
+    """Check ``err`` <= ``limit`` and time the kernel, its plain version
+    and the library call (None: no single PyTorch call computes it)."""
+    _check(err <= limit, f"{name} {label}: error {err:.3g} beyond "
+                         f"{limit:.3g}")
+    ms = _time_ms(kern, reps=reps, warmup=2)
+    plain_ms = _time_ms(plain, reps=3, warmup=1)
+    lib_ms = None if lib is None else _time_ms(lib, reps=reps, warmup=2)
+    bound_ms, bound_by = _bound_ms(n_bytes, n_ops, "float32",
+                                   name.replace("_rank", ""))
+    print(f"kernel {name} {label}: max_abs_err {err:.3g} (limit "
+          f"{limit:.3g}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms "
+          f"{bound_ms:.5f} ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_tp_train_kernels() -> dict:
+    """Phase 20c: the flash forward and backward, the SSD scan and its
+    backward, and the contiguous decode with its window end and lse, f32,
+    at a rank's shapes of phase 20's meshes (``TP_FLASH``, ``TP_SSD``,
+    ``TP_SEGMENT``), held to their plain versions (``TOL``, ``SSD_TOL``,
+    ``SSD_BWD_TOL``, ``LSE_TOL``) and timed beside them and, where one
+    PyTorch call computes the same, that call (SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as REF
+    from repro_torch.kernels import ssd_scan as SSD
+    f32 = torch.float32
+    rec = {}
+    # the flash forward and backward
+    b, sq, K, g, dh = (TP_FLASH[k] for k in ("b", "sq", "K", "g", "dh"))
+    q, k, v = _flash_case(sq, f32, seed=70, K=K, g=g, dh=dh, b=b)
+    torch.manual_seed(71)
+    do = torch.randn_like(q)
+    out, lse = FA.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    want = REF.flash_attention_ref(q, k, v, causal=True)
+    label = f"b={b} sq={sq} H={K * g} K={K} dh={dh} causal f32"
+    atol, rtol = TOL["float32"]
+    err = (out - want).abs().max().item()
+    pairs = b * K * g * sq * (sq + 1) // 2
+    rec["flash_attention_rank"] = _rank_record(
+        "flash_attention_rank", label, err,
+        atol + rtol * want.abs().max().item(),
+        lambda: FA.flash_attention(q, k, v, causal=True),
+        lambda: REF.flash_attention_ref(q, k, v, causal=True),
+        _sdpa_flash(q, k, v, 0), 4 * (2 * q.numel() + 2 * k.numel()),
+        4 * dh * pairs)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_ref = REF.flash_attention_ref(*leaves, causal=True)
+    ref = torch.autograd.grad(o_ref, leaves, do, retain_graph=True)
+    grads = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    err = max((a - w).abs().max().item() / w.abs().max().item()
+              for a, w in zip(grads, ref))
+    qq, kq, vq = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qq, kq, vq, is_causal=True,
+                                           enable_gqa=True)
+    do_lib = do.transpose(1, 2).contiguous()
+    rec["flash_attention_bwd_rank"] = _rank_record(
+        "flash_attention_bwd_rank", label + " (dq, dk, dv: error over the "
+        "largest magnitude)", err, BWD_TOL["float32"],
+        lambda: FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+        lambda: torch.autograd.grad(o_ref, leaves, do, retain_graph=True),
+        lambda: torch.autograd.grad(o_lib, (qq, kq, vq), do_lib,
+                                    retain_graph=True),
+        4 * (5 * q.numel() + 4 * k.numel() + lse.numel()), 10 * dh * pairs)
+    rec["flash_attention_bwd_rank"]["max_abs_err"] = max(
+        (a - w).abs().max().item() for a, w in zip(grads, ref))
+    del q, k, v, do, out, lse, want, leaves, o_ref, ref, grads, qq, kq, vq
+    del o_lib, do_lib
+    torch.cuda.empty_cache()
+    # the SSD scan and its backward at mamba2's rank widths
+    sh = TP_SSD
+    SSD_SHAPES["mamba2_rank"] = {k: sh[k] for k in ("H", "P", "G", "N",
+                                                    "chunk")}
+    b, s, c = sh["b"], sh["s"], sh["chunk"]
+    args = _ssd_case("mamba2_rank", b, s, f32, seed=72)
+    x, dt, A, B, C = args
+    y, st, states = SSD.ssd_chunked(*args, chunk=c, return_states=True)
+    torch.cuda.synchronize()
+    y_ref, st_ref = REF.ssd_chunked_ref(*args, c)
+    err = max((y - y_ref).abs().max().item() / y_ref.abs().max().item(),
+              (st - st_ref).abs().max().item() / st_ref.abs().max().item())
+    H, P, N = sh["H"], sh["P"], sh["N"]
+    label = f"b={b} s={s} H={H} P={P} G={sh['G']} N={N} c={c} f32"
+    io = 4 * (x.numel() + B.numel() + C.numel() + dt.numel() + A.numel())
+    rec["ssd_chunked_rank"] = _rank_record(
+        "ssd_chunked_rank", label + " (error over the largest magnitude)",
+        err, SSD_TOL, lambda: SSD.ssd_chunked(*args, chunk=c),
+        lambda: REF.ssd_chunked_ref(*args, c), None,
+        io + 4 * (y.numel() + st.numel()), _ssd_fwd_ops(b, s, H, P, N, c),
+        reps=5)
+    rec["ssd_chunked_rank"]["max_abs_err"] = max(
+        (y - y_ref).abs().max().item(), (st - st_ref).abs().max().item())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(73)
+    dy = torch.randn(x.shape, device="cuda", generator=gen)
+    grads = SSD.ssd_chunked_bwd(*args, states, dy, chunk=c)
+    leaves = [t.detach().requires_grad_() for t in args]
+    yl, _ = REF.ssd_chunked_ref(*leaves, c)
+    ref = torch.autograd.grad(yl, leaves, dy, retain_graph=True)
+    err = max((a.float() - w.float()).abs().max().item()
+              / w.float().abs().max().item() for a, w in zip(grads, ref))
+    rec["ssd_chunked_bwd_rank"] = _rank_record(
+        "ssd_chunked_bwd_rank", label + " (dx, ddt, dA, dB, dC: error over "
+        "the largest magnitude)", err, SSD_BWD_TOL["float32"],
+        lambda: SSD.ssd_chunked_bwd(*args, states, dy, chunk=c),
+        lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True),
+        None, 2 * io + 4 * (dt.numel() + A.numel() + dy.numel()
+                            + states.numel()),
+        _ssd_bwd_ops(b, s, H, P, N, c), reps=5)
+    rec["ssd_chunked_bwd_rank"]["max_abs_err"] = max(
+        (a.float() - w.float()).abs().max().item() for a, w in zip(grads, ref))
+    del args, x, dt, A, B, C, y, st, states, y_ref, st_ref, dy, grads
+    del leaves, yl, ref
+    torch.cuda.empty_cache()
+    # a segment of glm4's sequence-sharded decode: every head's query over
+    # the rank's positions, the window end past the segment's end
+    sg = TP_SEGMENT
+    b, S, K, g, dh, length, window, end = (
+        sg[k] for k in ("b", "S", "K", "g", "dh", "length", "window", "end"))
+    q, kc, vc, ln = _contig_decode_case(b, f32, seed=74, S=S, K=K, g=g,
+                                        dh=dh, lengths=length)
+    wend = torch.tensor(end, dtype=torch.int32, device="cuda")
+    args = dict(window=window, window_end=wend, return_lse=True)
+    out, lse = DA.decode_attention(q, kc, vc, ln, **args)
+    torch.cuda.synchronize()
+    want, want_lse = REF.decode_attention_ref(q, kc, vc, ln, **args)
+    seen = length - (end - window)
+    pos = torch.arange(S, device="cuda")
+    mask = ((pos >= end - window) & (pos < length))[None, None, None]
+    kq, vq = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    lse_err = (lse - want_lse).abs().max().item()
+    _check(lse_err <= LSE_TOL, f"decode_attention_lse_rank: lse |err| "
+                               f"{lse_err:.3g} beyond {LSE_TOL}")
+    err = (out - want).abs().max().item()
+    rec["decode_attention_lse_rank"] = _rank_record(
+        "decode_attention_lse_rank",
+        f"b={b} S={S} length {length} window {window} window_end {end} "
+        f"H={K * g} K={K} dh={dh} f32 (lse |err| {lse_err:.3g}; glm4-9b's "
+        f"segment on (2, 4), not a driven path's shape: the launches are "
+        f"glm4 SMOKE's seq-sharded decode on (2, 2))", err,
+        atol + rtol * want.abs().max().item(),
+        lambda: DA.decode_attention(q, kc, vc, ln, **args),
+        lambda: REF.decode_attention_ref(q, kc, vc, ln, **args),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kq, vq, attn_mask=mask, enable_gqa=True),
+        4 * (2 * q.numel() + 2 * b * seen * K * dh + b * K * g),
+        4 * b * seen * K * g * dh)
+    del q, kc, vc, out, lse, want, want_lse, kq, vq
+    torch.cuda.empty_cache()
+    return rec
+
+
+# =============================================================================
 # main
 # =============================================================================
 KERNELS = (
@@ -4930,6 +5539,25 @@ KERNELS = (
     ("paged_prefill_attention_rank",
      "src/repro_torch/kernels/csrc/paged_prefill.cu",
      "src/repro/kernels/flash_attention.py:80"),
+    # the training and generic decode paths' kernels at a rank's shapes of
+    # phase 20's meshes, with the ranks' launches
+    ("flash_attention_rank",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:80"),
+    ("flash_attention_bwd_rank",
+     "src/repro_torch/kernels/csrc/flash_backward.cu",
+     "the gradient of src/repro/kernels/flash_attention.py:80 (the "
+     "reference differentiates jnp blocked_attention; no Pallas backward)"),
+    ("ssd_chunked_rank",
+     "src/repro_torch/kernels/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:72"),
+    ("ssd_chunked_bwd_rank",
+     "src/repro_torch/kernels/csrc/ssd_backward.cu",
+     "the gradient of src/repro/kernels/ssd_scan.py:72 (the reference "
+     "differentiates jnp ssd_ref; no Pallas backward)"),
+    ("decode_attention_lse_rank",
+     "src/repro_torch/kernels/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:65"),
 )
 
 
@@ -5004,6 +5632,10 @@ def main() -> int:
     tp = phase_tp_serve()
     records.update(phase_tp_kernels())
     t21 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp_train = phase_tp_train(smi)
+    records.update(phase_tp_train_kernels())
+    t22 = time.perf_counter()
     # the flash records: the hybrid forward's shape (bf16, 4 x 4096, 32
     # heads of 80) with that forward's launches, and the slotted serve's
     # f32 prefill (1024 tokens) with the serve's launches
@@ -5037,6 +5669,10 @@ def main() -> int:
     # phase 19: the ranks' launches, at a rank's shapes
     for name, n in tp.items():
         launches[f"{name}_rank"] = n
+    # phase 20: the training and decode ranks' launches, at a rank's shapes
+    for name, n in tp_train.items():
+        launches[f"{name}_lse_rank" if name == "decode_attention"
+                 else f"{name}_rank"] = n
     split_s = sum(SPLIT_SECONDS.values())
     print(f"hybrid launches (one forward): {hybrid}")
     print(f"phases: build {t1 - t0:.1f} s, kernels "
@@ -5053,7 +5689,7 @@ def main() -> int:
           f"{t17 - t16:.1f} s, disagg {t18 - t17:.1f} s, encdec/vl "
           f"{t19 - t18:.1f} s, training {t20 - t19:.1f} s, split decode "
           f"and mesh (18a-c) {split_s:.1f} s, ranks (19) {t21 - t20:.1f} s, "
-          f"total {t21 - t0:.1f} s")
+          f"ranks training (20) {t22 - t21:.1f} s, total {t22 - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

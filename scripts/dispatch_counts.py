@@ -1,9 +1,11 @@
 """Count the ATen operations that one unsharded paged decode dispatch (two
 fused steps) and one paged prefill chunk dispatch, per operation, on the
-SMOKE qwen3-1.7b and qwen3-moe configs at 2 layers, on the CPU.  Host cost
-in eager PyTorch grows with the number of dispatched operations, so two
-trees that dispatch the same operations on these paths add no host work
-there.  Prints one JSON object: {entry: {"total": n, "ops": {op: n}}}.
+SMOKE qwen3-1.7b and qwen3-moe configs at 2 layers, and one single-device
+training step (forward, backward and AdamW) of the SMOKE qwen3-1.7b and
+mamba2-2.7b configs, on the CPU.  Host cost in eager PyTorch grows with
+the number of dispatched operations, so two trees that dispatch the same
+operations on these paths add no host work there.  Prints one JSON
+object: {entry: {"total": n, "ops": {op: n}}}.
 
     PYTHONPATH=src python3 scripts/dispatch_counts.py
     python3 scripts/dispatch_counts.py --src build/parent/src
@@ -58,6 +60,19 @@ def main() -> None:
                             arena, torch.arange(1, 3, dtype=torch.int32),
                             0, 13)
         out[f"{arch} prefill"] = c.n
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_loop as TL
+    opt = O.AdamWConfig(lr=1e-3)
+    for arch in ("qwen3-1.7b", "mamba2-2.7b"):
+        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+        state = TL.make_train_state(R.init_params(cfg, device="cpu"), opt)
+        g = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 17), generator=g)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        step = TL.make_train_step(cfg, opt)
+        with Count() as c:
+            step(state, batch)
+        out[f"{arch} train step"] = c.n
     print(json.dumps({k: {"total": sum(n.values()), "ops": dict(sorted(
         n.items()))} for k, n in out.items()}))
 

@@ -15,10 +15,16 @@ step) runs once on meta tensors on an abstract mesh
   * the step's FLOPs (``torch.utils.flop_counter.FlopCounterMode``) over
     the mesh's devices, and their ratio to the reference's analytic
     ``model_flops_per_device`` (``launch/roofline.py``);
-  * collective bytes: null — the cells' steps run on meta tensors in one
-    process and call no collective; the serving path's collectives on a
-    rank mesh are counted where they run (``sharding/collectives.py``),
-    not here.
+  * the collectives of one step: the step runs again as one
+    representative rank of the mesh (``launch/mesh.py``
+    ``representative_rank``: coordinates (0, ..., 0), its shard of the
+    meta model, its rows, its cache), and its collectives
+    (``sharding/collectives.py``) are counted, not run — the calls and the
+    wire bytes by kind, by the reference's formulas (all-gather ``out x
+    (g-1)/g``, all-reduce ``2 x in x (g-1)/g``, reduce-scatter ``in x
+    (g-1)/g``, g the axis group's size), under the reference's keys
+    ``collective_wire_bytes``, ``collective_counts`` and
+    ``total_collective_bytes``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun              # all cells
@@ -42,10 +48,12 @@ from repro_torch.configs import shapes as SH
 from repro_torch.launch import mesh as MESH
 from repro_torch.launch import roofline
 from repro_torch.launch import steps
+from repro_torch.sharding import collectives as CL
 from repro_torch.sharding import rules
 
-NO_COLLECTIVES = ("the dry run's steps run on meta tensors in one process "
-                  "and call no collective; none is counted")
+# the reference's names of the kinds (HLO's)
+_KIND_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+               "reduce_scatter": "reduce-scatter"}
 
 
 def _step_bytes(kind: str, cfg, mesh, args: tuple, specs: dict,
@@ -84,6 +92,22 @@ def _step_bytes(kind: str, cfg, mesh, args: tuple, specs: dict,
             "alias_bytes": cache_b}
 
 
+def count_collectives(cfg, mesh, shape: str, **kw) -> Dict:
+    """One step of the cell as the representative rank of ``mesh``: its
+    collectives' calls and wire bytes by kind, and their total."""
+    rank = MESH.representative_rank(mesh)
+    step, args, _ = steps.build_step_for_cell(cfg, rank, shape, **kw)
+    CL.reset()
+    step(*args)
+    st = CL.stats()
+    CL.reset()
+    wire = {_KIND_NAMES[k]: float(st[k]["wire_bytes"]) for k in _KIND_NAMES}
+    return {"collective_wire_bytes": wire,
+            "collective_counts": {_KIND_NAMES[k]: int(st[k]["calls"])
+                                  for k in _KIND_NAMES},
+            "total_collective_bytes": float(sum(wire.values()))}
+
+
 def run_cell(arch: str, shape: str, multi_pod: bool, *,
              seq_shard: Optional[bool] = None, verbose: bool = True,
              optimized: bool = False) -> Dict:
@@ -102,6 +126,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *,
     t_build = time.time() - t0
     out, flops = steps.count_flops(step, args)
     flops /= n_dev
+    coll = count_collectives(cfg, mesh, shape, **kw)
     t_count = time.time() - t0 - t_build
     mem = _step_bytes(kind, cfg, mesh, args, specs, out)
     args_b = (mem["param_bytes"] + mem["opt_bytes"] + mem["cache_bytes"]
@@ -116,8 +141,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *,
         "lower_s": round(t_build, 1),
         "compile_s": round(t_count, 1),
         "dot_flops_per_device": flops,
-        "collectives": None,
-        "collectives_reason": NO_COLLECTIVES,
+        "collectives": coll,
         # no XLA program: no raw cost analysis
         "xla_flops_per_device_raw": None,
         "xla_bytes_accessed_raw": None,
@@ -142,7 +166,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *,
               f"{mem['opt_bytes'] / 2**30:.2f}, cache "
               f"{mem['cache_bytes'] / 2**30:.2f}, inputs "
               f"{mem['input_bytes'] / 2**30:.4f}; temporaries not counted) "
-              f"coll=n/a (build {t_build:.1f}s count {t_count:.1f}s)",
+              f"coll={coll['total_collective_bytes'] / 2**30:.3f}GiB "
+              f"(build {t_build:.1f}s count {t_count:.1f}s)",
               flush=True)
     return res
 

@@ -11,6 +11,9 @@ axis name to size — with ``size`` and the devices.  Three kinds:
     and 2 x 16 x 16, the reference's TPU v5e pods), for the rules and the
     dry run (``launch/dryrun.py``);
   * one device: runs in this process;
+  * the dry run's representative rank (:func:`representative_rank`): an
+    abstract mesh's shapes with this process at coordinates (0, ..., 0)
+    on the meta device, whose collectives are counted and not run;
   * a rank mesh, made inside a ``torch.distributed`` process group (one
     process a device, ``launch/ranks.py``): each process is one rank,
     knows its coordinates on the axes and holds one process group a
@@ -80,6 +83,12 @@ class Mesh:
         return self.devices is None
 
     @property
+    def counting(self) -> bool:
+        """True on the dry run's representative rank (its collectives are
+        counted, not run)."""
+        return self.backend == "count"
+
+    @property
     def distributed(self) -> bool:
         """True for a rank mesh (one process a device)."""
         return self.ranks is not None
@@ -132,6 +141,8 @@ class Mesh:
     def __repr__(self) -> str:
         if self.devices is None:
             where = "abstract"
+        elif self.counting:
+            where = f"representative rank {self.coords}"
         elif self.distributed:
             where = (f"{self.devices.reshape(-1)[0].type}, {self.backend}, "
                      f"rank coords {self.coords}")
@@ -252,16 +263,38 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh((16, 16), ("data", "model"))
 
 
+def representative_rank(mesh: Mesh) -> Mesh:
+    """One rank of the abstract ``mesh`` for the dry run: its shapes, this
+    process at coordinates (0, ..., 0), every tensor on the meta device;
+    its collectives (``sharding/collectives.py``) are counted by their
+    group's size and not run."""
+    sizes = tuple(mesh.shape[a] for a in mesh.axis_names)
+    devs = np.empty(mesh.size, dtype=object)
+    devs[:] = [torch.device("meta")] * mesh.size
+    return Mesh(sizes, mesh.axis_names, devs.reshape(sizes),
+                ranks=np.arange(mesh.size).reshape(sizes),
+                coords=(0,) * len(sizes), backend="count")
+
+
+def make_mesh(sizes: Sequence[int], axis_names: Sequence[str],
+              device=None) -> Mesh:
+    """A mesh of any named axes (the reference's ``jax.make_mesh``): a rank
+    mesh over ranks 0 .. n-1 inside a process group, else the first n
+    devices of ``device``'s type."""
+    sizes, names = tuple(int(n) for n in sizes), tuple(axis_names)
+    if _in_group():
+        return _rank_mesh(sizes, names, device)
+    n = int(np.prod(sizes))
+    return Mesh(sizes, names, _devices(n, device).reshape(sizes))
+
+
 def make_test_mesh(data: int = 2, model: int = 2, pod: int = 0,
                    device=None) -> Mesh:
     """A small mesh on real devices (raises when fewer exist); a rank
     mesh inside a process group."""
     sizes = (pod, data, model) if pod else (data, model)
     names = ("pod", "data", "model") if pod else ("data", "model")
-    if _in_group():
-        return _rank_mesh(sizes, names, device)
-    n = int(np.prod(sizes))
-    return Mesh(sizes, names, _devices(n, device).reshape(sizes))
+    return make_mesh(sizes, names, device)
 
 
 def make_slice_mesh(devices: Sequence[torch.device],

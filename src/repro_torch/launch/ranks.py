@@ -16,7 +16,11 @@ under a timeout, since ranks whose schedulers drift apart hang in a
 collective rather than fail.
 
 The kernels are built in the caller before the ranks start, so two ranks
-never build them at once (``kernels/_build.py``).
+never build them at once (``kernels/_build.py``).  ``fn`` and its
+arguments reach each rank through a queue once every rank has started:
+the spawn start method writes a process's arguments into a pipe that
+its child reads only once its interpreter is up, so large arguments
+handed to ``Process`` itself would start the ranks one after another.
 """
 from __future__ import annotations
 
@@ -89,13 +93,15 @@ def _init(args: RankArgs, init_method: str, timeout: float) -> None:
                             timeout=timedelta(seconds=timeout))
 
 
-def _rank_main(fn, extra, args: RankArgs, init_method: str,
+def _rank_main(inbox, args: RankArgs, init_method: str,
                timeout: float, results) -> None:
-    """One spawned rank: join the group, run ``fn``, report (rank, ok,
-    result or (exception, traceback text))."""
+    """One spawned rank: take ``(fn, extra)`` from ``inbox``, join the
+    group, run ``fn``, report (rank, ok, result or (exception, traceback
+    text))."""
     os.environ.update(RANK=str(args.rank), LOCAL_RANK=str(args.local_rank),
                       WORLD_SIZE=str(args.world_size))
     try:
+        fn, extra = inbox.get()
         _init(args, init_method, timeout)
         out = fn(args, *extra)
         results.put((args.rank, True, out))
@@ -156,12 +162,18 @@ def spawn(fn: Callable, world: int, device=None, *, args: tuple = (),
     init = f"tcp://localhost:{_free_port()}"
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
+    inboxes = [ctx.Queue() for _ in range(world)]
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, args, RankArgs(r, world, r, backend, kind),
+                         args=(inboxes[r], RankArgs(r, world, r, backend,
+                                                    kind),
                                init, timeout, results), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
+    for q in inboxes:
+        q.put((fn, args))
+        # a rank that dies unread must not hold this process at its exit
+        q.cancel_join_thread()
     out: List[Any] = [None] * world
     got = 0
     deadline = time.monotonic() + timeout
@@ -198,4 +210,6 @@ def spawn(fn: Callable, world: int, device=None, *, args: tuple = (),
                 p.kill()
                 p.join()
         results.close()
+        for q in inboxes:
+            q.close()
     return out

@@ -8,8 +8,8 @@ Two terms, at the card's published peaks (NVIDIA H100 80GB HBM3 (SXM),
   memory  = bytes a device / 3.35 TB/s      (HBM3)
 
 and a third, collective = wire bytes a device / 450 GB/s (NVLink, one
-direction), which stays empty: the dry run's steps call no collective,
-so it records no collective bytes (``launch/dryrun.py``).
+direction), the wire bytes of one step's collectives as the dry run
+counts them on a representative rank (``launch/dryrun.py``).
 
 FLOPs a device are ``torch.utils.flop_counter``'s count of the step on
 meta tensors (``launch/steps.py``) over the mesh's devices — an even
@@ -106,8 +106,8 @@ def analyze_file(path: str, mesh: str = "16x16") -> List[Dict]:
 def to_markdown(rows: List[Dict]) -> str:
     def s(x):
         return "n/a" if x is None else f"{x:.3e}"
-    hdr = (f"Bounds at the peaks of one {CARD}; temporaries and "
-           f"collectives not counted.\n\n"
+    hdr = (f"Bounds at the peaks of one {CARD}; temporaries not "
+           f"counted.\n\n"
            "| arch | shape | compute s | memory s | collective s | dominant "
            "| MODEL/counted flops | roofline frac | mem GiB (args) | fits |\n"
            "|---|---|---|---|---|---|---|---|---|---|\n")

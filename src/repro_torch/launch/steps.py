@@ -9,10 +9,17 @@ Everything here is allocation-free: the model is built on the meta device
 port's own train steps, forward and ``decode_step``.  On meta tensors the
 kernels' dispatch (``kernels/ops.py``) takes the plain versions, which
 compute shapes only; CUDA tensors still reach only the kernels.  Specs are
-``sharding/rules.py``'s tuples; they say how the step would be cut over
-the mesh.  Nothing here runs on a mesh's devices: the serving path runs
-on a rank mesh through ``registry.shard_params`` and the engines
-(``launch/ranks.py``); training does not yet.
+``sharding/rules.py``'s tuples; they say how the step is cut over the
+mesh.  On a mesh with coordinates — a rank mesh (``launch/ranks.py``) or
+the dry run's representative rank (``launch/mesh.py``
+``representative_rank``) — the step runs as that rank: the model is the
+rank's shard of the meta model (``registry.shard_params``), the train
+state holds the rank's ZeRO-1 slices, the decode cache the rank's part,
+and the step's collectives are the rank's (counted, not run, on the
+representative rank).  The specs are always the whole tensors'.  A rank
+that trains real weights builds its state from its own shard
+(``make_train_state(registry.shard_params(model, cfg, mesh), opt,
+zero1)``) and calls the returned step on it.
 """
 from __future__ import annotations
 
@@ -28,10 +35,20 @@ from repro_torch.train import train_loop as TL
 Built = Tuple[Callable, tuple, dict]
 
 
-def abstract_params(cfg: ModelConfig):
+def abstract_params(cfg: ModelConfig, mesh=None):
     """The port's model for ``cfg`` on the meta device: every parameter's
-    shape and dtype, no memory."""
-    return R.init_params(cfg, device="meta")
+    shape and dtype, no memory; on a mesh with coordinates the rank's
+    shard of it."""
+    model = R.init_params(cfg, device="meta")
+    if _as_rank(mesh):
+        return R.shard_params(model, cfg, mesh)
+    return model
+
+
+def _as_rank(mesh) -> bool:
+    """True when ``mesh`` has this process's coordinates (a rank mesh or
+    the dry run's representative rank): the steps run as that rank."""
+    return mesh is not None and getattr(mesh, "coords", None) is not None
 
 
 # =============================================================================
@@ -57,7 +74,7 @@ def build_train(cfg: ModelConfig, mesh, shape: str = "train_4k",
     specs: {"params", "opt": {"m", "v", "step"}, "batch", "accum"}."""
     opt_cfg = opt_cfg or O.AdamWConfig()
     model = abstract_params(cfg)
-    state = TL.make_train_state(model, opt_cfg)
+    state = TL.make_train_state(abstract_params(cfg, mesh), opt_cfg, zero1)
     p_specs = rules.param_specs(model, cfg, mesh)
     mv_specs = rules.opt_state_specs(model, cfg, mesh) if zero1 else p_specs
     batch = SH.input_specs(cfg, shape)
@@ -80,16 +97,19 @@ def build_prefill(cfg: ModelConfig, mesh, shape: str = "prefill_32k"
     specs: {"params", "batch", "logits"}."""
     model = abstract_params(cfg)
     batch = SH.input_specs(cfg, shape)
-
-    def prefill(params, batch):
-        return R.forward(params, batch, cfg)[0]
-
     cell = SH.SHAPES[shape]
     axes = rules.fit_axes(mesh, rules.data_axes(mesh), cell.global_batch)
+
+    def prefill(params, batch):
+        if _as_rank(mesh) and axes:          # the rank's rows
+            batch = TL._split_rows(batch, rules.axes_size(mesh, axes),
+                                   rules.block_index(mesh, axes))
+        return R.forward(params, batch, cfg)[0]
+
     specs = {"params": rules.param_specs(model, cfg, mesh),
              "batch": rules.batch_specs(batch, mesh),
              "logits": rules._norm((axes, None, rules.MODEL_AXIS))}
-    return prefill, (model, batch), specs
+    return prefill, (abstract_params(cfg, mesh), batch), specs
 
 
 # =============================================================================
@@ -107,9 +127,9 @@ def build_decode(cfg: ModelConfig, mesh, shape: str = "decode_32k",
         seq_shard = cell.global_batch < 8
     model = abstract_params(cfg)
     batch = SH.input_specs(cfg, shape)
+    src = SH.src_embeds_spec(cfg, shape)
     cache = R.make_cache(model, cfg, cell.global_batch, cell.seq_len,
-                         src_embeds=SH.src_embeds_spec(cfg, shape),
-                         device="meta")
+                         src_embeds=src, device="meta")
 
     def serve_step(params, cache, batch):
         return R.decode_step(params, cache, batch, cfg)
@@ -120,6 +140,11 @@ def build_decode(cfg: ModelConfig, mesh, shape: str = "decode_32k",
                                         seq_shard=seq_shard),
              "batch": rules.batch_specs(batch, mesh),
              "logits": rules._norm((axes, rules.MODEL_AXIS))}
+    if _as_rank(mesh):
+        model = abstract_params(cfg, mesh)
+        cache = R.make_cache(model, cfg, cell.global_batch, cell.seq_len,
+                             src_embeds=src, device="meta",
+                             seq_shard=seq_shard)
     return serve_step, (model, cache, batch), specs
 
 

@@ -3,8 +3,9 @@
 
 The dataclass keeps every field of the reference, so a config reads the same
 in both packages; ``dtype`` is a torch dtype here.  The port's model path
-covers every family (``models/transformer.py``, ``models/encdec.py``); it
-raises on the append-buffer decode (``decode_window``).
+covers every family (``models/transformer.py``, ``models/encdec.py``) and
+the append-buffer decode (``decode_window``), on one device or a rank
+mesh (``seq_parallel`` there).
 """
 from __future__ import annotations
 

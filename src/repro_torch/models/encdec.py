@@ -23,6 +23,13 @@ decodes through the contiguous decode kernel, the cross one at one shared
 length ``s_src`` made on the device.  The slot cache, the arena and the
 engines refuse enc-dec (``registry.supports_slots``), as the reference's
 do.
+
+On a rank mesh (``registry.shard_params``) every attention and MLP is
+cut as the decoder's (``models/layers.py``; the cross-attention's K/V
+projections read the encoder memory, replicated over "model"), the
+embedding and the head hold the rank's slice of the vocab, and a rank's
+decode cache (``registry.make_cache``) carries its ``"layout"`` as the
+decoder-only one does.
 """
 from __future__ import annotations
 
@@ -64,11 +71,13 @@ class CrossDecoderLayer(nn.Module):
 class EncDec(nn.Module):
     """Embedding, ``n_enc_layers`` encoder layers and their final norm,
     ``n_layers`` decoder layers, final norm, and the tied (or separate) LM
-    head over the padded vocab."""
+    head over the padded vocab.  ``mesh`` is the rank mesh of a rank's
+    shard (None unsharded)."""
 
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None
         self.embed = nn.Parameter(L.trunc_normal(
             (cfg.padded_vocab, cfg.d_model), 1.0, cfg.dtype, device, gen))
         self.enc_layers = nn.ModuleList(EncoderLayer(cfg, device, gen)
@@ -83,9 +92,17 @@ class EncDec(nn.Module):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
+        if self.mesh is not None:
+            head = self.embed if self.lm_head is None else \
+                self.lm_head.weight
+            return L.embedding_logits(head, x, self.mesh,
+                                      self.cfg.padded_vocab)
         if self.lm_head is None:
             return L.embedding_logits(self.embed, x)
         return self.lm_head(x)
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return L.embedding_apply(self.embed, tokens, self.mesh)
 
 
 def init_encdec(cfg: ModelConfig, *, seed: int = 0,
@@ -156,7 +173,7 @@ def forward_encdec(model: EncDec, src_embeds: torch.Tensor,
     cfg = model.cfg
     with L.grad_mode(train):
         memory = encode(model, src_embeds, train=train)
-        x = L.embedding_apply(model.embed, tokens)
+        x = model.embed_tokens(tokens)
         cos, sin = _rope(cfg, _positions(tokens.shape[1], x.device))
         layer_fn = L.remat(_dec_layer, cfg, train)
         for layer in model.dec_layers:
@@ -200,19 +217,36 @@ def decode_step_encdec(model: EncDec, cache: EncDecCache,
     shared () length made on the device (no host copy).  The self caches
     are written IN PLACE and ``cache["pos"]`` becomes ``pos + 1``.
     Returns (logits (b, V_padded), cache)."""
-    cfg = model.cfg
     pos = cache["pos"]
-    x = L.embedding_apply(model.embed, tokens)
-    cos, sin = _rope(cfg, pos[None])
-    s_src = cache["xk"].shape[2]
+    layout = cache.get("layout")
+    cut = xcut = None
+    if layout is not None:          # a rank's cache (registry.make_cache)
+        tokens = layout["rows"].take(tokens)
+        cut, xcut = layout["kv"], layout["xkv"]
+    x = model.embed_tokens(tokens)
+    cos, sin = _rope(model.cfg, pos[None])
+    s_src = xcut.S if xcut is not None else cache["xk"].shape[2]
     x_len = torch.full((), s_src, dtype=torch.int32, device=pos.device)
     b = x.shape[0]
     for li, layer in enumerate(model.dec_layers):
-        x = x + L.attention_decode_apply(layer.attn, layer.ln1(x), cos, sin,
-                                         cache["k"][li], cache["v"][li], pos)
-        q = layer.xattn.project_q(layer.lnx(x), None, None)
-        o = L.decode_attention(q, cache["xk"][li], cache["xv"][li], x_len)
-        x = x + layer.xattn.wo(o.reshape(b, 1, cfg.n_heads * cfg.d_head))
+        h = layer.ln1(x)
+        if cut is not None and cut.whole_heads:
+            x = x + L.attention_decode_seq_apply(
+                layer.attn, h, cos, sin, cache["k"][li], cache["v"][li],
+                pos, cut)
+        else:
+            x = x + L.attention_decode_apply(layer.attn, h, cos, sin,
+                                             cache["k"][li], cache["v"][li],
+                                             pos)
+        if xcut is not None and xcut.whole_heads:
+            x = x + L.cross_decode_seq_apply(
+                layer.xattn, layer.lnx(x), cache["xk"][li], cache["xv"][li],
+                x_len, xcut)
+        else:
+            q = layer.xattn.project_q(layer.lnx(x), None, None)
+            o = L.decode_attention(q, cache["xk"][li], cache["xv"][li],
+                                   x_len)
+            x = x + layer.xattn.out(o.reshape(b, 1, -1))
         x = x + layer.mlp(layer.ln2(x))
     cache["pos"] = pos + 1
     return model.logits(x)[:, 0, :], cache

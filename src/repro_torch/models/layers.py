@@ -25,7 +25,22 @@ the rank's shard and say so in a ``mesh`` attribute (None unsharded):
 and the embedding the rank's slice of the vocab (a masked lookup summed
 over "model"; the readout gives the rank's slice of the logits, which
 :func:`greedy_token` reduces).  qk-norm and RoPE act per head and need no
-collective.
+collective.  In training the pairs carry gradients (Megatron's conjugate
+pair, ``sharding/collectives.py``): the input of the column-parallel
+projections is :func:`~repro_torch.sharding.collectives.copy_to` (its
+gradient summed over "model"), the row-parallel output
+:func:`~repro_torch.sharding.collectives.reduce_from`; with ``sp`` (the
+sequence-parallel forward, ``cfg.seq_parallel``) the output is
+reduce-scattered along the sequence instead.
+
+A contiguous decode cache cut over the sequence (``rules.cache_specs``:
+the few-KV-head fallback, or ``seq_shard``) is described by a
+:class:`KVCut`; its decode (:func:`attention_decode_seq_apply`)
+all-gathers every head's query and new K/V row over "model", decodes the
+rank's segment with the window end and the lse, merges the segments by
+:func:`combine_lse_parts` over an all-gather of (out, lse), and keeps the
+rank's heads for the row-parallel ``wo``; only the rank whose segment
+holds the position writes the new row.
 """
 from __future__ import annotations
 
@@ -41,7 +56,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_paged_kv
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.rules import MODEL_AXIS
+from repro_torch.sharding.rules import (MODEL_AXIS, axes_of, axes_size,
+                                        block_index)
 
 __all__ = ["RMSNorm", "Attention", "MLP", "rmsnorm_apply", "rope_table",
            "mrope_table", "apply_rope", "cross_kv", "mlp_apply",
@@ -51,6 +67,7 @@ __all__ = ["RMSNorm", "Attention", "MLP", "rmsnorm_apply", "rope_table",
            "attention_decode_apply", "attention_decode_slots_apply",
            "decode_attention_parts", "combine_attention_parts",
            "combine_lse_parts", "attention_decode_split_apply",
+           "KVCut", "attention_decode_seq_apply", "cross_decode_seq_apply",
            "gather_paged_kv", "attention_decode_paged_apply",
            "attention_prefill_paged_apply", "init_dense", "trunc_normal",
            "seeded_generator",
@@ -247,6 +264,9 @@ class Attention(nn.Module):
                   sin: Optional[torch.Tensor]) -> torch.Tensor:
         """q of :meth:`project_qkv` alone (a cross-attention decode reads
         its K/V from the encoder's cache)."""
+        return self._q(C.copy_to(x, self.mesh, MODEL_AXIS), cos, sin)
+
+    def _q(self, x: torch.Tensor, cos, sin) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         q = self.wq(x).reshape(b, s, self.n_heads, cfg.d_head)
@@ -257,14 +277,20 @@ class Attention(nn.Module):
         return q
 
     def project_kv(self, x: torch.Tensor, cos: Optional[torch.Tensor],
-                   sin: Optional[torch.Tensor]):
+                   sin: Optional[torch.Tensor], all_heads: bool = False):
         """k and v (b, s, K, dh) of x (b, s, d): k normed and rotated as
-        in :meth:`project_qkv`."""
+        in :meth:`project_qkv`; with ``all_heads`` every head the whole
+        KV projections hold (all of them where the rank keeps
+        ``kv_heads``)."""
+        return self._kv(C.copy_to(x, self.mesh, MODEL_AXIS), cos, sin,
+                        all_heads)
+
+    def _kv(self, x: torch.Tensor, cos, sin, all_heads: bool = False):
         cfg = self.cfg
         b, s, _ = x.shape
         k = self.wk(x).reshape(b, s, -1, cfg.d_head)
         v = self.wv(x).reshape(b, s, -1, cfg.d_head)
-        if self.kv_heads is not None:
+        if self.kv_heads is not None and not all_heads:
             lo, hi = self.kv_heads
             k, v = k[:, :, lo:hi], v[:, :, lo:hi]
         if self.k_norm is not None:
@@ -278,14 +304,18 @@ class Attention(nn.Module):
         """The reference's ``_project_qkv``: x (b, s, d) -> q (b, s, H,
         dh), k and v (b, s, K, dh), q and k rotated unless ``cos`` is None
         (cross-attention's queries)."""
-        return (self.project_q(x, cos, sin),) + self.project_kv(x, cos, sin)
+        x = C.copy_to(x, self.mesh, MODEL_AXIS)
+        return (self._q(x, cos, sin),) + self._kv(x, cos, sin)
 
-    def out(self, o: torch.Tensor) -> torch.Tensor:
+    def out(self, o: torch.Tensor, sp: bool = False) -> torch.Tensor:
         """The output projection of the heads' outputs o (b, s, heads, dh),
         or (b, s, heads·dh), -> (b, s, d), its partial sums added over
-        "model" on a rank mesh."""
+        "model" on a rank mesh; with ``sp`` reduce-scattered along the
+        sequence -> (b, s / m, d)."""
         y = self.wo(o.flatten(2) if o.dim() == 4 else o)
-        return C.all_reduce(y, self.mesh, MODEL_AXIS)
+        if sp:
+            return C.scatter_dim(y, self.mesh, MODEL_AXIS, 1)
+        return C.reduce_from(y, self.mesh, MODEL_AXIS)
 
 
 def _scaled_q(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
@@ -322,29 +352,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attention_prefill_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
-                            causal: bool = True, window: int = 0
+                            causal: bool = True, window: int = 0,
+                            sp: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Full-sequence attention that also returns the rotated K/V, so one
     prefill pass populates a decode cache.  x: (b, s, d).  Returns (out
-    (b, s, d), k (b, s, K, dh), v (b, s, K, dh))."""
+    (b, s, d), k (b, s, K, dh), v (b, s, K, dh)); with ``sp`` out is the
+    rank's block of the sequence (:meth:`Attention.out`)."""
     q, k, v = attn.project_qkv(x, cos, sin)
     o = blocked_attention(q, k, v, causal=causal, window=window)
-    return attn.out(o), k, v
+    return attn.out(o, sp), k, v
 
 
 def attention_apply(attn: Attention, x: torch.Tensor, cos, sin, *,
                     causal: bool = True, window: int = 0,
-                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                    ) -> torch.Tensor:
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    sp: bool = False) -> torch.Tensor:
     """Full-sequence attention (the forward): self-attention, causal or
     full, with a sliding window when ``window`` > 0; ``kv`` (k, v of
     (b, skv, K, dh), from :func:`cross_kv`) replaces the self K/V —
     cross-attention, full and without a window, as in the reference.
-    x: (b, s, d) -> (b, s, d)."""
+    x: (b, s, d) -> (b, s, d); with ``sp`` the rank's block of the
+    sequence of the output."""
     if kv is None:
         return attention_prefill_apply(attn, x, cos, sin, causal=causal,
-                                       window=window)[0]
+                                       window=window, sp=sp)[0]
     q = attn.project_q(x, cos, sin)
     return attn.out(blocked_attention(q, *kv, causal=False))
 
@@ -440,7 +473,9 @@ def attention_decode_split_apply(attn: Attention, x: torch.Tensor, cos, sin,
                                  prefix_v: torch.Tensor, sk: torch.Tensor,
                                  sv: torch.Tensor, pos: torch.Tensor,
                                  prefix_len: torch.Tensor, *,
-                                 window: int = 0) -> torch.Tensor:
+                                 window: int = 0,
+                                 cut: Optional["KVCut"] = None
+                                 ) -> torch.Tensor:
     """The append-buffer decode (the reference's
     ``attention_decode_split_apply``): the prefix cache (b, S, K, dh) is
     read only; the new token's K/V go into the suffix ring sk, sv (b, W, K,
@@ -453,7 +488,11 @@ def attention_decode_split_apply(attn: Attention, x: torch.Tensor, cos, sin,
     are merged by their log-sum-exps (:func:`combine_lse_parts`).  On CUDA
     both calls are the contiguous decode kernel with its window end and
     lse; on the CPU its plain version.  x: (b, 1, d); pos, prefix_len: ()
-    int32.  Returns out (b, 1, d)."""
+    int32.  ``cut`` (a :class:`KVCut` of the prefix) on a rank mesh.
+    Returns out (b, 1, d)."""
+    if cut is not None:
+        return _split_apply_cut(attn, x, cos, sin, prefix_k, prefix_v, sk,
+                                sv, pos, prefix_len, window, cut)
     q, k, v = attn.project_qkv(x, cos, sin)
     slot = pos - prefix_len
     at = slot.clamp(0, sk.shape[1] - 1).long().reshape(1)
@@ -467,6 +506,183 @@ def attention_decode_split_apply(attn: Attention, x: torch.Tensor, cos, sin,
         window=window, return_lse=True)
     return attn.out(combine_lse_parts([prefix, suffix]).to(q.dtype).reshape(
         x.shape[0], 1, -1))
+
+
+class KVCut:
+    """How a rank holds a contiguous KV cache (b, S, K, dh) of a rank
+    mesh under a spec of ``rules.cache_specs`` (for the per-layer tensor:
+    batch, sequence, heads, head dim): ``heads`` when its KV heads are
+    cut over "model"; otherwise it holds every head, and the sequence
+    segment ``offset .. offset + S_l - 1`` of ``S`` positions, one of
+    ``n_seg`` blocks over ``seq_axes`` (the first axis the slowest; one
+    block when the sequence is whole)."""
+
+    def __init__(self, spec, S: int, mesh):
+        self.mesh, self.S = mesh, int(S)
+        self.heads = spec[2] == MODEL_AXIS
+        self.seq_axes = axes_of(spec[1])
+        self.n_seg = axes_size(mesh, self.seq_axes) if self.seq_axes else 1
+        self.S_l = -(-self.S // self.n_seg)
+        self.offset = block_index(mesh, self.seq_axes) * self.S_l
+
+    @property
+    def whole_heads(self) -> bool:
+        """True when the rank's cache holds every KV head while the heads
+        or the sequence are cut over the mesh (its decode then needs every
+        head's query and a merge: :func:`attention_decode_seq_apply`)."""
+        return not self.heads and (self.mesh.shape[MODEL_AXIS] > 1
+                                   or self.n_seg > 1)
+
+
+def _gather_heads(t: torch.Tensor, mesh) -> torch.Tensor:
+    """(b, 1, h, dh) heads of each rank on "model" -> (b, 1, m·h, dh), in
+    rank order."""
+    g = C.all_gather(t, mesh, MODEL_AXIS)                 # (m, b, 1, h, dh)
+    return g.permute(1, 2, 0, 3, 4).flatten(2, 3)
+
+
+def _my_heads(o: torch.Tensor, attn: Attention, mesh) -> torch.Tensor:
+    """This rank's query heads of o (b, H, ...) when its attention is
+    cut over "model" (the input of its row-parallel ``wo``)."""
+    if attn.mesh is None:
+        return o
+    r, hl = mesh.coord(MODEL_AXIS), attn.n_heads
+    return o[:, r * hl:(r + 1) * hl]
+
+
+def _merge_segments(o: torch.Tensor, lse: torch.Tensor, cut: KVCut,
+                    extra=()) -> torch.Tensor:
+    """The segments' (out (b, H, dh) f32, lse (b, H)) of every rank on
+    ``cut.seq_axes``, all-gathered (packed in one tensor) and merged by
+    :func:`combine_lse_parts` with the ``extra`` parts."""
+    b, H, dh = o.shape
+    parts = [(o, lse)]
+    if cut.n_seg > 1:
+        t = torch.cat([o.reshape(b, H * dh), lse], -1)
+        for a in reversed(cut.seq_axes):
+            t = C.all_gather(t, cut.mesh, a)
+        t = t.reshape(cut.n_seg, b, H * dh + H)
+        parts = [(p[:, :H * dh].reshape(b, H, dh), p[:, H * dh:])
+                 for p in t.unbind(0)]
+    return combine_lse_parts(parts + list(extra))
+
+
+def _whole_qkv(attn: Attention, x: torch.Tensor, cos, sin, mesh):
+    """q, k, v (b, 1, all heads, dh) of a decode token on a rank whose
+    cache holds every head: the rank's heads all-gathered over "model"
+    (every head of the whole KV projections where it keeps
+    ``kv_heads``)."""
+    q = attn.project_q(x, cos, sin)
+    k, v = attn.project_kv(x, cos, sin, all_heads=True)
+    if attn.mesh is not None:
+        q = _gather_heads(q, mesh)
+        if attn.kv_heads is None:
+            k, v = _gather_heads(k, mesh), _gather_heads(v, mesh)
+    return q, k, v
+
+
+def _write_segment(cache: torch.Tensor, new: torch.Tensor,
+                   pos: torch.Tensor, cut: KVCut) -> None:
+    """Write the new row (b, 1, K, dh) at ``pos`` (clamped into the whole
+    cache, as the reference's ``dynamic_update_slice`` clamps) on the rank
+    whose segment holds it; the others write their old row back."""
+    local = pos.clamp(max=cut.S - 1) - cut.offset
+    own = (local >= 0) & (local < cut.S_l)
+    at = local.clamp(0, cut.S_l - 1).long().reshape(1)
+    cache.index_copy_(1, at, torch.where(own, new.to(cache.dtype),
+                                         cache.index_select(1, at)))
+
+
+def _decode_segment(q: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, length: torch.Tensor,
+                    cut: KVCut, window: int, window_end=None):
+    """This rank's segment of one decode position that sees the first
+    ``length`` (() int32) positions of the whole cache, its window ending
+    at ``window_end`` (``length`` when None): (out (b, H, dh) f32, lse
+    (b, H)), a segment that sees nothing giving 0 and -inf."""
+    end = length if window_end is None else window_end
+    return ops.decode_attention(
+        _scaled_q(q[:, 0], cache_k), cache_k, cache_v,
+        (length - cut.offset).clamp(0, cut.S_l).to(torch.int32),
+        sm_scale=1.0, window=window,
+        window_end=(end - cut.offset).to(torch.int32) if window > 0
+        else None, return_lse=True)
+
+
+def attention_decode_seq_apply(attn: Attention, x: torch.Tensor, cos, sin,
+                               cache_k: torch.Tensor, cache_v: torch.Tensor,
+                               pos: torch.Tensor, cut: KVCut, *,
+                               window: int = 0) -> torch.Tensor:
+    """:func:`attention_decode_apply` on a rank whose cache (b, S_l, K,
+    dh) holds every KV head and a segment of the sequence (``cut``): every
+    head's q and new K/V row gathered over "model", the row written by
+    the rank whose segment holds ``pos``, each rank's segment decoded with
+    the contiguous decode kernel's window end and lse at the shared length
+    ``pos + 1`` clamped into it, the segments merged by their
+    log-sum-exps, and the rank's heads through the row-parallel ``wo``.
+    Returns out (b, 1, d)."""
+    q, k, v = _whole_qkv(attn, x, cos, sin, cut.mesh)
+    _write_segment(cache_k, k, pos, cut)
+    _write_segment(cache_v, v, pos, cut)
+    o, lse = _decode_segment(q, cache_k, cache_v, pos + 1, cut, window)
+    o = _my_heads(_merge_segments(o, lse, cut), attn, cut.mesh)
+    return attn.out(o.to(q.dtype).reshape(x.shape[0], 1, -1))
+
+
+def cross_decode_seq_apply(attn: Attention, x: torch.Tensor,
+                           xk: torch.Tensor, xv: torch.Tensor,
+                           length: torch.Tensor, cut: KVCut) -> torch.Tensor:
+    """The cross-attention decode over the encoder's K/V cached as in
+    :func:`attention_decode_seq_apply` (no write; ``length`` the source
+    length, () int32).  Returns out (b, 1, d)."""
+    q = attn.project_q(x, None, None)
+    if attn.mesh is not None:
+        q = _gather_heads(q, cut.mesh)
+    o, lse = _decode_segment(q, xk, xv, length, cut, 0)
+    o = _my_heads(_merge_segments(o, lse, cut), attn, cut.mesh)
+    return attn.out(o.to(q.dtype).reshape(x.shape[0], 1, -1))
+
+
+def _split_apply_cut(attn: Attention, x: torch.Tensor, cos, sin,
+                     prefix_k, prefix_v, sk, sv, pos, prefix_len,
+                     window: int, cut: KVCut) -> torch.Tensor:
+    """The append-buffer decode on a rank mesh: the suffix ring,
+    replicated over "model" with every KV head, takes every head's new
+    row; the prefix is read per ``cut`` (the rank's heads, or its segment
+    of every head, merged with the other ranks' segments), and the ring's
+    part joins the merge once."""
+    mesh = cut.mesh
+    if cut.whole_heads:
+        q, k, v = _whole_qkv(attn, x, cos, sin, mesh)
+    else:
+        q, k, v = attn.project_qkv(x, cos, sin)
+        if attn.mesh is not None:
+            k, v = _gather_heads(k, mesh), _gather_heads(v, mesh)
+    slot = pos - prefix_len
+    at = slot.clamp(0, sk.shape[1] - 1).long().reshape(1)
+    sk.index_copy_(1, at, k.to(sk.dtype))
+    sv.index_copy_(1, at, v.to(sv.dtype))
+    if cut.whole_heads:
+        prefix = _decode_segment(q, prefix_k, prefix_v, prefix_len, cut,
+                                 window, window_end=pos + 1)
+        suffix = ops.decode_attention(
+            _scaled_q(q[:, 0], sk), sk, sv, slot + 1, sm_scale=1.0,
+            window=window, return_lse=True)
+        o = _my_heads(_merge_segments(*prefix, cut, [suffix]), attn, mesh)
+    else:
+        kl = attn.n_kv_heads
+        lo = mesh.coord(MODEL_AXIS) * kl if attn.mesh is not None else 0
+        ring_k = sk[:, :, lo:lo + kl].contiguous()
+        ring_v = sv[:, :, lo:lo + kl].contiguous()
+        prefix = ops.decode_attention(
+            _scaled_q(q[:, 0], prefix_k), prefix_k, prefix_v, prefix_len,
+            sm_scale=1.0, window=window, window_end=pos + 1,
+            return_lse=True)
+        suffix = ops.decode_attention(
+            _scaled_q(q[:, 0], ring_k), ring_k, ring_v, slot + 1,
+            sm_scale=1.0, window=window, return_lse=True)
+        o = combine_lse_parts([prefix, suffix])
+    return attn.out(o.to(q.dtype).reshape(x.shape[0], 1, -1))
 
 
 def slot_write_index(lengths: torch.Tensor, S: int):
@@ -575,17 +791,22 @@ class MLP(nn.Module):
         self.wi_up = init_dense(d, d_ff, cfg, device, gen)
         self.wo = init_dense(d_ff, d, cfg, device, gen, stddev=out_std)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_apply(self, x)
+    def forward(self, x: torch.Tensor, sp: bool = False) -> torch.Tensor:
+        return mlp_apply(self, x, sp)
 
 
-def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: MLP, x: torch.Tensor, sp: bool = False) -> torch.Tensor:
+    """The MLP of x (b, s, d); on a rank mesh its partial outputs summed
+    over "model", or with ``sp`` reduce-scattered along the sequence."""
+    x = C.copy_to(x, p.mesh, MODEL_AXIS)
     up = p.wi_up(x)
     if p.wi_gate is not None:
         h = F.silu(p.wi_gate(x)) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return C.all_reduce(p.wo(h), p.mesh, MODEL_AXIS)
+    if sp:
+        return C.scatter_dim(p.wo(h), p.mesh, MODEL_AXIS, 1)
+    return C.reduce_from(p.wo(h), p.mesh, MODEL_AXIS)
 
 
 # =============================================================================
@@ -603,7 +824,7 @@ def embedding_apply(table: torch.Tensor, ids: torch.Tensor,
     mine = (ids >= lo) & (ids < lo + n)
     rows = F.embedding((ids - lo).clamp(0, n - 1), table)
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return C.all_reduce(rows, mesh, MODEL_AXIS)
+    return C.reduce_from(rows, mesh, MODEL_AXIS)
 
 
 def embedding_logits(table: torch.Tensor, x: torch.Tensor, mesh=None,

@@ -22,7 +22,20 @@ and drop order — and the experts are cut over "model": whole experts
 divides the padded expert count, else every expert's FF width (its
 columns of ``w_gate`` / ``w_up``, its rows of ``w_down``).  Either way a
 rank's combine is a partial sum of the token's outputs, which one f32
-all-reduce over "model" completes before the cast to the model's type.
+all-reduce over "model" completes before the cast to the model's type
+(with ``sp``, the sequence-parallel forward, a reduce-scatter along the
+sequence).  In training the replicated router's gradient is whole on
+every rank: the rows dispatched to the experts and the gates that weigh
+their outputs enter the cut work through ``collectives.copy_to``, whose
+backward sums the ranks' partial gradients over "model", and the
+load-balance loss is computed alike on every rank.  A training step
+gives each data replica its rows of the global batch (``train/
+parallel.py``); there the routing groups and capacity are the global
+batch's — a group may not span two replicas' rows — and the
+load-balance loss's two per-expert means are over the global batch,
+each replica's means summed over the data axes.  The mean probability's
+gradient is summed over them too: every replica's loss holds the same
+load-balance term, and the step averages the replicas' gradients.
 """
 from __future__ import annotations
 
@@ -35,7 +48,7 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import collectives as CL
-from repro_torch.sharding.rules import MODEL_AXIS
+from repro_torch.sharding.rules import MODEL_AXIS, axes_size, data_axes
 
 
 class MoE(nn.Module):
@@ -153,9 +166,21 @@ def _combine(out: torch.Tensor, gate_vals: torch.Tensor, idx: torch.Tensor,
     return y.reshape(G, t, k, d).sum(2)
 
 
-def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d) -> (y (b, s, d), aux ()).
+def _replicas(p: MoE, train: bool) -> Tuple[str, ...]:
+    """The data axes (of more than one rank) whose replicas each hold
+    their rows of a training step's batch; none outside training or
+    without a rank mesh."""
+    mesh = p.mesh
+    if not train or mesh is None:
+        return ()
+    return tuple(a for a in data_axes(mesh) if mesh.shape[a] > 1)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, sp: bool = False,
+              train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, s, d) -> (y (b, s, d), aux ()); with ``sp`` y is the rank's
+    block of the sequence; with ``train`` on a rank mesh x is a data
+    replica's rows of the global batch (the module docstring).
 
     Routing: softmax over experts, top-k per token, renormalised gates;
     per group of :func:`group_and_capacity`, each expert takes the first C
@@ -164,25 +189,43 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig
     ``x.dtype`` (the gates rounded to it), as in the reference."""
     b, s, d = x.shape
     E = cfg.padded_experts
-    gsz, C = group_and_capacity(b, s, cfg)
+    dp_axes = _replicas(p, train)
+    dp = axes_size(p.mesh, dp_axes) if dp_axes else 1
+    gsz, C = group_and_capacity(b * dp, s, cfg)
+    if (b * s) % gsz:
+        raise ValueError(f"{cfg.name}: a routing group of {gsz} tokens "
+                         f"spans the rows of {dp} data replicas ({b} x {s} "
+                         f"tokens a replica)")
     xg = x.reshape(b * s // gsz, gsz, d)
     probs, gate_vals, gate_idx = _route(p, xg, cfg)      # (G, t, E), (G, t, k)
     # Switch load-balance loss: mean probability x fraction routed (top-1)
+    me = probs.mean((0, 1))
     ce = (gate_idx[..., :1] == torch.arange(E, device=x.device)
           ).float().mean((0, 1))
-    aux = cfg.router_aux_weight * E * (probs.mean((0, 1)) * ce).sum()
-    xe, idx, pos, keep = _dispatch(xg, gate_idx, E, C)
+    for a in dp_axes:
+        me = CL.sum_over(me, p.mesh, a, backward_sum=True)
+        ce = CL.sum_over(ce, p.mesh, a)
+    if dp > 1:
+        me, ce = me / dp, ce / dp
+    aux = cfg.router_aux_weight * E * (me * ce).sum()
+    xe, idx, pos, keep = _dispatch(CL.copy_to(xg, p.mesh, MODEL_AXIS),
+                                   gate_idx, E, C)
     first, n_e = p.experts
     if n_e < E:
         # this rank's experts only: a pair routed elsewhere adds nothing
         keep = keep & (idx >= first) & (idx < first + n_e)
         idx = (idx - first).clamp(0, n_e - 1)
         xe = xe[first:first + n_e]
-    y = _combine(_experts(p, xe), gate_vals, idx, pos, keep)
-    y = CL.all_reduce(y, p.mesh, MODEL_AXIS).to(x.dtype)
-    y = y.reshape(b, s, d)
+    y = _combine(_experts(p, xe), CL.copy_to(gate_vals, p.mesh, MODEL_AXIS),
+                 idx, pos, keep)
+    if sp:
+        y = CL.scatter_dim(y.reshape(b, s, d), p.mesh, MODEL_AXIS,
+                           1).to(x.dtype)
+    else:
+        y = CL.reduce_from(y, p.mesh, MODEL_AXIS).to(x.dtype)
+        y = y.reshape(b, s, d)
     if p.shared is not None:
-        y = y + p.shared(x)
+        y = y + p.shared(x, sp)
     return y, aux
 
 

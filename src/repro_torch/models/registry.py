@@ -28,8 +28,10 @@ from torch import nn
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import MODEL_AXIS
 
 LM = T.LM
@@ -85,14 +87,23 @@ def head_weights(params: Params, cfg: ModelConfig) -> torch.Tensor:
 def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
                max_len: int, src_embeds: Optional[torch.Tensor] = None,
                dtype: torch.dtype = torch.bfloat16,
-               device: Optional[torch.device] = None) -> dict:
+               device: Optional[torch.device] = None,
+               seq_shard: bool = False) -> dict:
     """Decode state for :func:`decode_step` on ``device`` (the GPU by
     default): KV caches of ``max_len`` positions, SSM conv histories (in
     ``dtype``) and f32 states, and ``pos``.  Enc-dec runs the encoder on
     ``src_embeds`` (needed) and keeps every layer's cross K/V; its batch
     is ``src_embeds``'s and ``batch_size`` is ignored, as in the
-    reference."""
+    reference.  For a rank's shard (:func:`shard_params`) it is the rank's
+    part of the whole cache under ``sharding.rules.cache_specs`` on the
+    rank's device (``seq_shard``: the KV sequence over ("data",
+    "model")), with its ``"layout"`` (:func:`_rank_cache`); ``device`` is
+    then ignored."""
     _check_cfg(params, cfg)
+    mesh = getattr(params, "mesh", None)
+    if mesh is not None and mesh.distributed:
+        return _rank_cache(params, cfg, batch_size, max_len, src_embeds,
+                           dtype, seq_shard)
     if cfg.n_enc_layers > 0:
         if src_embeds is None:
             raise ValueError("enc-dec decode needs encoder inputs "
@@ -102,10 +113,103 @@ def make_cache(params: Params, cfg: ModelConfig, batch_size: int,
     return T.init_kv_cache(cfg, batch_size, max_len, dtype, device)
 
 
+def _whole_cache(cfg: ModelConfig, batch: int, max_len: int,
+                 s_src: int, dtype: torch.dtype) -> dict:
+    """The whole decode cache's shapes and types, on the meta device."""
+    if cfg.n_enc_layers == 0:
+        return T.init_kv_cache(cfg, batch, max_len, dtype, "meta")
+    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    x = (cfg.n_layers, batch, s_src, cfg.n_kv_heads, cfg.d_head)
+    meta = dict(dtype=dtype, device="meta")
+    return {"xk": torch.empty(x, **meta), "xv": torch.empty(x, **meta),
+            "k": torch.empty(kv, **meta), "v": torch.empty(kv, **meta),
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def _rank_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int,
+                src_embeds, dtype, seq_shard: bool) -> dict:
+    """A rank's decode cache: every tensor of the whole cache cut to the
+    rank's part under ``rules.cache_specs`` (batch over the data axes, KV
+    heads over "model" or the sequence over "model" — or over ("data",
+    "model") with ``seq_shard`` —, SSM states by head and conv histories
+    by channel), zero, on the rank's device; an enc-dec's cross K/V from
+    the rank's encoder on its rows of ``src_embeds``.  ``"layout"`` holds
+    the rank's rows (``transformer._Rows``) and the cuts of its self and
+    cross KV caches (``layers.KVCut``, None when the family has none)."""
+    from repro_torch.sharding import rules
+    mesh = params.mesh
+    dev = next(params.parameters()).device
+    if cfg.n_enc_layers > 0:
+        if src_embeds is None:
+            raise ValueError("enc-dec decode needs encoder inputs "
+                             "(src_embeds)")
+        batch = src_embeds.shape[0]
+    s_src = src_embeds.shape[1] if src_embeds is not None else 0
+    whole = _whole_cache(cfg, batch, max_len, s_src, dtype)
+    specs = rules.cache_specs(whole, mesh, cfg, seq_shard=seq_shard)
+    # one set of rows a rank: the KV caches' (with seq_shard every rank
+    # decodes every row of its segment), which the SSM states and the
+    # append-buffer ring follow
+    lead = specs["k"] if "k" in specs else specs["ssm"]["state"]
+    axes = lead[1]
+
+    def rows_of(tree):
+        return {k: (rows_of(v) if isinstance(v, dict) else
+                    v[:1] + (axes,) + v[2:] if len(v) > 2 else v)
+                for k, v in tree.items()}
+
+    specs = rows_of(specs)
+
+    def local(tree, spec):
+        return {k: (local(v, spec[k]) if isinstance(v, dict) else
+                    torch.zeros(rules.shard_shape(v.shape, spec[k], mesh),
+                                dtype=v.dtype, device=dev))
+                for k, v in tree.items()}
+
+    cache = local(whole, specs)
+    rows = T._Rows(batch, mesh, rules.axes_of(axes))
+    kv = (L.KVCut(specs["k"][1:], max_len, mesh) if "k" in specs
+          else None)
+    xkv = None
+    if cfg.n_enc_layers > 0:
+        xkv = L.KVCut(specs["xk"][1:], s_src, mesh)
+        memory = ED.encode(params, rows.take(src_embeds).to(dev))
+        for li, layer in enumerate(params.dec_layers):
+            for buf, t in zip((cache["xk"], cache["xv"]),
+                              _cross_part(layer.xattn, memory, xkv, mesh)):
+                buf[li].copy_(t)
+    cache["layout"] = {"rows": rows, "kv": kv, "xkv": xkv}
+    return cache
+
+
+@torch.no_grad()
+def _cross_part(attn: L.Attention, memory: torch.Tensor, cut, mesh):
+    """The rank's part of one layer's cross K/V under ``cut``: its heads,
+    or every head on its segment of the source positions (zero past the
+    source's end)."""
+    if not cut.whole_heads:
+        return L.cross_kv(attn, memory)
+    k, v = attn.project_kv(memory, None, None, all_heads=True)
+    if attn.mesh is not None and attn.kv_heads is None:
+        k, v = (C.all_gather(t, mesh, MODEL_AXIS).permute(1, 2, 0, 3, 4)
+                .flatten(2, 3) for t in (k, v))
+    out = []
+    for t in (k, v):
+        seg = t[:, cut.offset:cut.offset + cut.S_l]
+        pad = cut.S_l - seg.shape[1]
+        if pad:
+            seg = torch.cat([seg, seg.new_zeros((seg.shape[0], pad)
+                                                + seg.shape[2:])], 1)
+        out.append(seg)
+    return out
+
+
 def decode_step(params: Params, cache: dict, batch: dict,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     """One-token decode at ``cache["pos"]`` -> (logits (b, V), cache),
-    the cache advanced in place."""
+    the cache advanced in place.  With a rank's cache (:func:`make_cache`
+    of a rank's shard) ``batch`` is the whole batch: the logits are the
+    rank's rows and its slice of the vocab."""
     _check_cfg(params, cfg)
     if cfg.n_enc_layers > 0:
         return ED.decode_step_encdec(params, cache, batch["tokens"])
@@ -161,11 +265,12 @@ def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
     On a rank mesh it returns the rank's local model: each of the whole
     model's tensors cut to the rank's slice (``rules.local_shard``) and
     copied to the rank's device, sharing no memory with the whole, in a new
-    module whose attention, MLPs, MoE layers and vocab know their cut
-    (``models/layers.py``, ``models/moe.py``) and whose ``mesh`` is set.
-    Tensor parallelism covers the attention decoder's families (dense,
-    MoE, VLM); the others on a model axis of more than one device raise
-    ``NotImplementedError``."""
+    module of the family's own kind (``T.LM`` or ``ED.EncDec``) whose
+    attention, MLPs, MoE layers, Mamba2 blocks and vocab know their cut
+    (``models/layers.py``, ``models/moe.py``, ``models/ssm.py``) and whose
+    ``mesh`` is set; every family is cut.  A whole model on the meta
+    device gives a local model on the meta device (the dry run's
+    representative rank)."""
     from repro_torch.sharding import rules
     _check_cfg(params, cfg)
     specs = rules.param_specs(params, cfg, mesh)
@@ -174,13 +279,10 @@ def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
         if all(p.device == dev for p in params.parameters()):
             return params
         return copy.deepcopy(params).to(dev)
-    m = mesh.shape[MODEL_AXIS]
-    if m > 1 and (cfg.n_enc_layers or cfg.family not in ("dense", "moe",
-                                                         "vlm")):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel execution of the {cfg.family} "
-            f"family (a model axis of {m}) is not ported")
-    local = T.LM(cfg, torch.device("meta"), None).requires_grad_(False)
+    if next(params.parameters()).is_meta:
+        dev = torch.device("meta")
+    kind = ED.EncDec if cfg.n_enc_layers > 0 else T.LM
+    local = kind(cfg, torch.device("meta"), None).requires_grad_(False)
     whole = dict(params.named_parameters())
     for name, spec in specs.items():
         full = whole[name]
@@ -191,20 +293,25 @@ def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
         owner, _, leaf = name.rpartition(".")
         mod = local.get_submodule(owner) if owner else local
         mod._parameters[leaf] = nn.Parameter(shard, requires_grad=False)
-    assert not any(p.is_meta for p in local.parameters()), \
+    assert set(specs) == {n for n, _ in local.named_parameters()}, \
         f"{cfg.name}: a parameter has no sharding spec"
     _mark_cut(local, cfg, mesh)
     return local.eval()
 
 
-def _mark_cut(model: T.LM, cfg: ModelConfig, mesh) -> None:
+def _mark_cut(model: Params, cfg: ModelConfig, mesh) -> None:
     """Tell the rank's modules how they are cut (the head guards and the
-    expert rule of ``sharding/rules.py``)."""
+    expert rule of ``sharding/rules.py``; a Mamba2 block's heads and the
+    groups they read)."""
     m = mesh.shape[MODEL_AXIS]
     r = mesh.coord(MODEL_AXIS)
     H, K, E = cfg.n_heads, cfg.n_kv_heads, cfg.padded_experts
     model.mesh = mesh
     for mod in model.modules():
+        if isinstance(mod, S.Mamba2) and m > 1:
+            mod.mesh = mesh
+            mod.heads, mod.groups = _ssm_cut(cfg, m, r)
+            continue
         if isinstance(mod, L.Attention) and H % m == 0:
             mod.mesh, mod.n_heads = mesh, H // m
             if K % m == 0:
@@ -224,6 +331,58 @@ def _mark_cut(model: T.LM, cfg: ModelConfig, mesh) -> None:
             mod.mesh = mesh
             if E % m == 0:
                 mod.experts = (r * (E // m), E // m)
+
+
+def _ssm_cut(cfg: ModelConfig, m: int, r: int):
+    """((first, count) of rank ``r``'s heads of a Mamba2 block on a model
+    axis of ``m``, (first, count) of the groups they read)."""
+    H, G = cfg.n_ssm_heads, cfg.ssm_groups
+    hpg = H // G
+    if H % m:
+        raise ValueError(f"{cfg.name}: {H} SSM heads do not split over a "
+                         f"model axis of {m}")
+    hl = H // m
+    if hl % hpg and hpg % hl:
+        raise ValueError(f"{cfg.name}: {hl} SSM heads a rank do not split "
+                         f"into whole groups of {hpg} heads")
+    return (r * hl, hl), (r * hl // hpg, max(hl // hpg, 1))
+
+
+def partial_grads(model: Params) -> Tuple[str, ...]:
+    """The names of a rank's replicated parameters that it applies to
+    activations cut over "model", so that its gradient of each is a part
+    of the whole, summed over "model" before the update: the qk-norm
+    scales of a cut attention; its whole K/V projections when the rank
+    keeps some of their heads (``kv_heads``); a cut Mamba2 block's
+    ``wB`` / ``wC`` and their convs (the rank's heads read them) and its
+    gate norm's scale (the rank applies its slice); with
+    ``cfg.seq_parallel`` the decoder layers' norm scales, which act on the
+    rank's block of the sequence.  Empty on a model axis of one rank.
+    Everything else replicated acts on replicated activations — the
+    embedding's and the final norm's, the MoE router (its gates enter
+    the cut work through ``collectives.copy_to``) — and its gradient is
+    whole on every rank."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or mesh.shape[MODEL_AXIS] == 1:
+        return ()
+    names = []
+    for prefix, mod in model.named_modules():
+        pre = f"{prefix}." if prefix else ""
+        if isinstance(mod, L.Attention) and mod.mesh is not None:
+            names += [f"{pre}{n}.scale" for n in ("q_norm", "k_norm")
+                      if getattr(mod, n) is not None]
+            if mod.kv_heads is not None:
+                names += [f"{pre}{n}" for n, _ in mod.named_parameters()
+                          if n.startswith(("wk.", "wv."))]
+        elif isinstance(mod, S.Mamba2) and mod.mesh is not None:
+            names += [f"{pre}{n}" for n in ("wB.weight", "wC.weight",
+                                              "conv_B", "conv_C", "conv_bB",
+                                              "conv_bC", "gate_norm.scale")]
+        elif isinstance(mod, T.DecoderLayer) and model.cfg.seq_parallel \
+                and model.cfg.n_heads % mesh.shape[MODEL_AXIS] == 0:
+            names += [f"{pre}ln1.scale", f"{pre}ln2.scale"]
+    have = dict(model.named_parameters())
+    return tuple(n for n in names if n in have)
 
 
 def greedy_token(params: Params, logits: torch.Tensor) -> torch.Tensor:

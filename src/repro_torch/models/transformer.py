@@ -55,7 +55,15 @@ over "data" so that every replica writes every row into its arena (the
 arena is replicated over "data", bit for bit), an MoE layer routes the
 whole batch, as the unsharded layer does, and a fused dispatch's tokens
 are all-gathered once at its end.  A prefill chunk (one row) runs
-replicated over "data".
+replicated over "data".  The forward trains on a rank's shard: its
+collectives carry gradients (``sharding/collectives.py``), and with
+``cfg.seq_parallel`` the dense body keeps the residual stream cut over
+"model" along the sequence between blocks (the reference's
+``_sp_constraint``): each block's input all-gathered at its entry, its
+row-parallel outputs reduce-scattered.  The generic decode takes a
+rank's cache from ``registry.make_cache`` (its ``"layout"``: the rows it
+holds and how its KV caches are cut, ``layers.KVCut``); a cache cut
+over the sequence decodes by segments merged across the ranks.
 """
 from __future__ import annotations
 
@@ -71,6 +79,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import MODEL_AXIS, axes_size, block_index
 
 Arena = Dict[str, torch.Tensor]
 SlotCache = Dict[str, torch.Tensor]
@@ -256,22 +265,49 @@ def init_block_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
 
 
 def _mlp_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ModelConfig,
-                  rows: Optional["_Rows"] = None
+                  rows: Optional["_Rows"] = None, sp: bool = False,
+                  train: bool = False
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x + the layer's MLP or MoE of ln2(x), the MoE's aux loss or None).
     The MoE routes with ``cfg``, the model's config (not one kept in the
     layer), so a copy of the config set on the model changes its
     capacity.  With ``rows`` cutting the batch over "data" the MoE routes
     the whole batch (its groups and capacity span every row, as the
-    unsharded layer's do) and keeps this rank's rows."""
+    unsharded layer's do) and keeps this rank's rows.  With ``sp`` x is
+    the rank's block of the sequence: ln2(x) is all-gathered along it
+    and the output reduce-scattered back.  ``train``: x holds a data
+    replica's rows of a training step (``moe.moe_apply``)."""
     h = layer.ln2(x)
+    if sp:
+        mod = layer.mlp if layer.moe is None else layer.moe
+        h = C.gather_dim(h, mod.mesh, MODEL_AXIS, 1)
+        if layer.moe is None:
+            return x + layer.mlp(h, sp=True), None
+        y, aux = M.moe_apply(layer.moe, h, cfg, sp=True, train=train)
+        return x + y, aux
     if layer.moe is None:
         return x + layer.mlp(h), None
     if rows is not None and rows.cut:
         y, aux = M.moe_apply(layer.moe, rows.gather(h), cfg)
         return x + y[rows.lo:rows.hi], aux
-    y, aux = M.moe_apply(layer.moe, h, cfg)
+    y, aux = M.moe_apply(layer.moe, h, cfg, train=train)
     return x + y, aux
+
+
+def _seq_parallel(model: LM, s: int) -> bool:
+    """True when the forward keeps the residual stream cut over "model"
+    along the sequence (``cfg.seq_parallel`` on a rank mesh whose model
+    axis has more than one rank); it needs the sequence to split over the
+    axis and the attention to be cut."""
+    cfg, mesh = model.cfg, model.mesh
+    if not cfg.seq_parallel or mesh is None or mesh.shape[MODEL_AXIS] == 1:
+        return False
+    m = mesh.shape[MODEL_AXIS]
+    if s % m or cfg.n_heads % m:
+        raise ValueError(f"{cfg.name}: seq_parallel needs the sequence "
+                         f"({s}) and the query heads ({cfg.n_heads}) to "
+                         f"split over the model axis ({m})")
+    return True
 
 
 # =============================================================================
@@ -302,13 +338,15 @@ def forward_lm(model: LM, tokens: Optional[torch.Tensor], *,
     (:func:`~repro_torch.models.layers.remat`; "collectives" checkpoints a
     decoder layer's attention and MLP halves apart, keeping their outputs;
     the SSM families recompute a layer, the hybrid a group with its shared
-    block); without it the forward runs under ``no_grad``."""
+    block); without it the forward runs under ``no_grad``.  On a rank
+    mesh the model is the rank's shard and the logits its vocab slice;
+    its collectives carry gradients, the training forward's batch is a
+    data replica's rows (an MoE routes with the global batch's groups and
+    load-balance statistics), and with ``cfg.seq_parallel`` the dense
+    body's residual stream is cut along the sequence between blocks
+    (:func:`_seq_parallel`)."""
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
-    if train and model.mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training a rank's shard is not ported (its "
-            f"collectives carry no gradient)")
     with L.grad_mode(train):
         return _forward_lm(model, tokens, mrope_positions, inputs_embeds,
                            return_hidden, train)
@@ -324,12 +362,19 @@ def _forward_lm(model: LM, tokens, mrope_positions, inputs_embeds,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in _DENSE_BODY:
+        sp = _seq_parallel(model, x.shape[1])
+        if sp:
+            x = C.split_dim(x, model.mesh, MODEL_AXIS, 1)
+
         def attn(x, layer, w, cos, sin):
-            return L.attention_apply(layer.attn, layer.ln1(x), cos, sin,
-                                     window=w)
+            h = layer.ln1(x)
+            if sp:
+                h = C.gather_dim(h, model.mesh, MODEL_AXIS, 1)
+            return L.attention_apply(layer.attn, h, cos, sin, window=w,
+                                     sp=sp)
 
         def mlp(x, layer):
-            return _mlp_residual(layer, x, cfg)
+            return _mlp_residual(layer, x, cfg, sp=sp, train=train)
 
         # "collectives" keeps each half's output: the halves checkpointed
         # apart; any other policy checkpoints the layer whole
@@ -347,6 +392,8 @@ def _forward_lm(model: LM, tokens, mrope_positions, inputs_embeds,
             x, a = block(x, layer, w, cos, sin)
             if a is not None:
                 aux = aux + a
+        if sp:
+            x = C.gather_dim(x, model.mesh, MODEL_AXIS, 1)
     else:
         sh = model.shared
         cos = sin = None
@@ -423,7 +470,23 @@ def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor, *,
     cfg = model.cfg
     check_supported(cfg, GENERIC_FAMILIES)
     pos = cache["pos"]
+    layout = cache.get("layout")
+    rows, cut = None, None
+    if layout is not None:          # a rank's cache (registry.make_cache)
+        rows, cut = layout["rows"], layout["kv"]
+        tokens = rows.take(tokens)
+        if mrope_positions is not None:
+            mrope_positions = rows.take(mrope_positions.transpose(0, 1)
+                                        ).transpose(0, 1)
     x = model.embed_tokens(tokens)
+
+    def self_attn(attn, h, cos, sin, ck, cv, w):
+        if cut is not None and cut.whole_heads:
+            return L.attention_decode_seq_apply(attn, h, cos, sin, ck, cv,
+                                                pos, cut, window=w)
+        return L.attention_decode_apply(attn, h, cos, sin, ck, cv, pos,
+                                        window=w)
+
     if cfg.family in _DENSE_BODY:
         split = cfg.decode_window > 0
         for li, (layer, (w, (cos, sin))) in enumerate(zip(
@@ -433,12 +496,11 @@ def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor, *,
                 a = L.attention_decode_split_apply(
                     layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
                     cache["v"][li], cache["sk"][li], cache["sv"][li], pos,
-                    cache["prefix_len"], window=w)
+                    cache["prefix_len"], window=w, cut=cut)
             else:
-                a = L.attention_decode_apply(
-                    layer.attn, layer.ln1(x), cos, sin, cache["k"][li],
-                    cache["v"][li], pos, window=w)
-            x, _ = _mlp_residual(layer, x + a, cfg)
+                a = self_attn(layer.attn, layer.ln1(x), cos, sin,
+                              cache["k"][li], cache["v"][li], w)
+            x, _ = _mlp_residual(layer, x + a, cfg, rows)
     else:
         sh = model.shared
         if sh is not None:
@@ -449,9 +511,8 @@ def decode_step_lm(model: LM, cache: KVCache, tokens: torch.Tensor, *,
                 {key: buf[li] for key, buf in cache["ssm"].items()})
             if sh is not None and (li + 1) % cfg.attn_every == 0:
                 g = li // cfg.attn_every
-                x = x + L.attention_decode_apply(
-                    sh.attn, sh.ln1(x), cos, sin, cache["k"][g],
-                    cache["v"][g], pos)
+                x = x + self_attn(sh.attn, sh.ln1(x), cos, sin,
+                                  cache["k"][g], cache["v"][g], 0)
                 x = x + sh.mlp(sh.ln2(x))
     cache["pos"] = pos + 1
     return model.logits(x)[:, 0, :], cache
@@ -573,14 +634,17 @@ def prefill_paged_lm(model: LM, tokens: torch.Tensor, arena: Arena,
 
 class _Rows:
     """The decode rows a rank computes: ``lo .. hi`` of a batch of ``b``,
-    the rank's equal block when ``mesh``'s "data" axis (of more than one
-    rank) divides ``b`` (``cut``), else all of them."""
+    the rank's equal block when ``mesh``'s ``axes`` (of more than one
+    rank together; "data" by default) divide ``b`` (``cut``), else all of
+    them."""
 
-    def __init__(self, b: int, mesh):
-        n = mesh.shape.get("data", 1) if mesh is not None else 1
-        self.mesh, self.cut = mesh, n > 1 and b % n == 0
+    def __init__(self, b: int, mesh, axes=("data",)):
+        axes = tuple(a for a in axes if mesh is not None
+                     and mesh.shape.get(a, 1) > 1)
+        n = axes_size(mesh, axes) if axes else 1
+        self.mesh, self.axes, self.cut = mesh, axes, n > 1 and b % n == 0
         per = b // n if self.cut else b
-        self.lo = mesh.coord("data") * per if self.cut else 0
+        self.lo = block_index(mesh, axes) * per if self.cut else 0
         self.hi = self.lo + per
 
     def take(self, x: torch.Tensor) -> torch.Tensor:
@@ -589,7 +653,10 @@ class _Rows:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's rows of ``x`` (its leading dim), in row order."""
-        return C.gather_rows(x, self.mesh, "data") if self.cut else x
+        if self.cut:
+            for a in reversed(self.axes):
+                x = C.gather_rows(x, self.mesh, a)
+        return x
 
 
 def _decode_paged_rows(model: LM, arena: Arena, tokens: torch.Tensor,

@@ -221,6 +221,19 @@ def axes_size(mesh, axes) -> int:
     return n
 
 
+def axes_of(ax) -> Tuple[str, ...]:
+    """A spec entry's mesh axes as a tuple (none for an uncut dim)."""
+    return () if not ax else (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def block_index(mesh, axes) -> int:
+    """This rank's block index over ``axes`` (the first the slowest)."""
+    block = 0
+    for a in axes:
+        block = block * mesh.shape[a] + mesh.coord(a)
+    return block
+
+
 def fit_axes(mesh, axes, size: int) -> Optional[Tuple[str, ...]]:
     """Largest prefix of ``axes`` whose product divides ``size`` (a batch
     of 1 keeps its batch dim unsharded)."""
@@ -369,12 +382,8 @@ def local_shard(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     for dim, ax in enumerate(spec):
         if not ax:
             continue
-        axes = (ax,) if isinstance(ax, str) else tuple(ax)
-        block = 0
-        for a in axes:
-            block = block * mesh.shape[a] + mesh.coord(a)
         n = want[dim]
-        lo = min(block * n, full.shape[dim])
+        lo = min(block_index(mesh, axes_of(ax)) * n, full.shape[dim])
         piece = out.narrow(dim, lo, min(n, full.shape[dim] - lo))
         if piece.shape[dim] < n:
             pad = list(piece.shape)

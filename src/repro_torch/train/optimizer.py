@@ -11,7 +11,10 @@ dimensions in its stacked layout, so every per-layer leaf decays (a norm
 scale is (L, d) there) and of the unstacked ones only the matrices; the
 port's per-layer tensors are 1-D, so the mask comes from the reference's
 layout (``models/bridge.py`` ``decay_mask``), never from the port's own
-``ndim``.  Parameters are updated in place.
+``ndim``.  Parameters are updated in place.  On a rank mesh the step
+takes a ``train/parallel.py`` ``Plan``: the global norm of the whole
+gradient, and each parameter's update on the slice of it that the rank's
+moments cover (ZeRO-1), by the same arithmetic.
 """
 from __future__ import annotations
 
@@ -68,14 +71,29 @@ def global_norm(grads: Grads) -> torch.Tensor:
         [g.float().square().sum() for g in grads.values()]).sum())
 
 
+def _leaf(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor,
+          m0: torch.Tensor, v0: torch.Tensor, scale, bc1, bc2, lr,
+          decay: bool):
+    """One tensor's AdamW step -> (the new value of p, m, v)."""
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.float() * scale
+    m = b1 * m0 + (1 - b1) * g
+    v = b2 * v0 + (1 - b2) * g.square()
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    if decay:                         # decoupled weight decay
+        delta = delta + cfg.weight_decay * p.float()
+    return p - (lr * delta).to(p.dtype), m, v
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Grads, opt_state: dict,
-                 params: nn.Module) -> Tuple[nn.Module, dict, dict]:
+                 params: nn.Module, plan=None
+                 ) -> Tuple[nn.Module, dict, dict]:
     """One AdamW step on ``params`` (updated in place) from ``grads`` keyed
     by parameter name -> (params, the new optimizer state, {"grad_norm",
-    "lr"})."""
+    "lr"}).  ``plan`` (``train/parallel.py``) on a rank mesh."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if plan is None else plan.global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     t = step.float()
@@ -86,13 +104,19 @@ def adamw_update(cfg: AdamWConfig, grads: Grads, opt_state: dict,
     m_new: Dict[str, torch.Tensor] = {}
     v_new: Dict[str, torch.Tensor] = {}
     for name, p in params.named_parameters():
-        g = grads[name].float() * scale
-        m = b1 * opt_state["m"][name] + (1 - b1) * g
-        v = b2 * opt_state["v"][name] + (1 - b2) * g.square()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if decay[name]:               # decoupled weight decay
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p - (lr * delta).to(p.dtype))
+        m0, v0 = opt_state["m"][name], opt_state["v"][name]
+        if plan is not None:
+            m_new[name], v_new[name] = plan.update(
+                name, p, grads[name], m0, v0,
+                lambda p_, g_, m_, v_, d=decay[name]: _leaf(
+                    cfg, p_, g_, m_, v_, scale, bc1, bc2, lr, d))
+            continue
+        new, m, v = _leaf(cfg, p, grads[name], m0, v0, scale, bc1, bc2, lr,
+                          decay[name])
+        p.copy_(new)
         m_new[name], v_new[name] = m, v
     metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, {"m": m_new, "v": v_new, "step": step}, metrics
+    state = {"m": m_new, "v": v_new, "step": step}
+    if "zero1" in opt_state:
+        state["zero1"] = opt_state["zero1"]
+    return params, state, metrics

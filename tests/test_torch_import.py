@@ -50,7 +50,8 @@ def test_importing_every_port_module_leaves_jax_out():
                 "repro_torch.launch.mesh", "repro_torch.launch.steps",
                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
                 "repro_torch.configs.shapes", "repro_torch.launch.ranks",
-                "repro_torch.sharding.collectives"):
+                "repro_torch.sharding.collectives",
+                "repro_torch.train.parallel"):
         assert mod in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -10,7 +10,8 @@
   cell and a train cell, whose per-device bytes (parameters, ZeRO-1
   moments, cache, inputs) equal those that the reference's own specs
   imply on its own shapes — a shard being ``ceil(dim / axis sizes)`` —
-  with their FLOP ratios printed; and the CLI on one cell;
+  with their FLOP ratios printed and their counted collectives filling
+  the roofline's collective term; and the CLI on one cell;
 * ``RealEngine(mesh=make_mesh_for(1, device="cpu"))``, paged and
   disaggregated: streams and counters equal to the port's unsharded
   engine's and to the reference's unsharded engine's, on the workloads of
@@ -171,12 +172,15 @@ def test_dryrun_cell_bytes_match_reference_specs(shape, small_train_cell):
         want["opt_bytes"] = 0
     got = {k: rec["memory"][k] for k in want}
     assert got == want
-    assert rec["collectives"] is None and rec["devices"] == 256
+    coll = rec["collectives"]
+    assert set(coll) == {"collective_wire_bytes", "collective_counts",
+                         "total_collective_bytes"}
+    assert coll["total_collective_bytes"] > 0 and rec["devices"] == 256
     assert rec["dot_flops_per_device"] > 0
     assert rec["model_flops_per_device"] == \
         RLJ.model_flops_per_device(arch, shape, 256)
     row = RLT.roofline_row(rec)
-    assert row["t_collective_s"] is None and row["fits_hbm"]
+    assert row["t_collective_s"] > 0 and row["fits_hbm"]
     print(f"dryrun {arch} {shape}: FLOPs a device "
           f"{rec['dot_flops_per_device']:.4g}, model/counted "
           f"{rec['useful_flops_ratio']:.4f}, bytes {got}")
