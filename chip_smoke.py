@@ -231,7 +231,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12,
               "float32 as split bf16": 989e12 / 3}
-SPLIT_BF16 = ("paged_prefill_attention", "flash_attention", "ssd_chunked")
+SPLIT_BF16 = ("paged_prefill_attention", "flash_attention", "ssd_chunked",
+              "flash_attention_bwd")
 # (atol, rtol) of a kernel against its plain version: f32 differs in the
 # order of its sums; both accumulate bf16 inputs in f32, so a bf16 output
 # differs by about one bf16 rounding of the output (relative 2**-8); the
@@ -3507,18 +3508,38 @@ def phase_train_kernels() -> dict:
     autograd through the plain version, dQ, dK and dV, f32 and bf16, at
     ``BWD_CASES``: each gradient within ``BWD_TOL`` of the plain one's
     largest magnitude, the lse within 1e-4 of ``flash_attention_lse_ref``.
-    Prints, for each case, the backward's time, the plain backward's, one
-    SDPA backward (a yardstick, never called by the port) and the bound,
-    and the same three for forward + backward.  The bound: ``10 dh`` flops
-    per visible (query head, key) pair over the peak for the input type
-    (f32: the CUDA cores' 67 TFLOP/s, where this kernel computes), or the
+    Two launches must give the same bits (no atomics; the dK/dV splits
+    are summed in a fixed order).  Prints, for each case, its dK/dV split
+    count (``bwd_split_plan``), the backward's time, the plain backward's,
+    one SDPA backward (a yardstick, never called by the port) and the
+    bound, and the same three for forward + backward.  The bound: ``10
+    dh`` flops per visible (query head, key) pair over the peak for the
+    input type (bf16 989 TFLOP/s; f32 as split bf16 pairs on the tensor
+    cores, 989/3, with the CUDA cores' 67 TFLOP/s printed beside), or the
     bytes (q, k, v, o, dO, lse read, dq, dk, dv written) over 3.35 TB/s.
-    Returns the record of the qwen3 4 x 1024 f32 case, the full-width
-    training step's shape."""
+    First, the split planner's CTAs an SM (``BWD_CTAS_PER_SM``) against
+    the occupancy calculator's count for the dK/dV kernel: equal at dh
+    128, no more at the cases' other head dims.  Returns the record of the
+    qwen3 4 x 1024 f32 case, the full-width training step's shape."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref as REF
+    held = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = PA.BWD_CTAS_PER_SM[dtype]
+        for dh in sorted({TRAIN_ATTN[c[0]]["dh"] for c in BWD_CASES}):
+            n = _build.extension().flash_bwd_ctas_per_sm(
+                dtype == torch.bfloat16, dh)
+            _check(n == plan if dh == 128 else n >= plan,
+                   f"flash_attention_bwd {dtype} dh={dh}: an SM holds {n} "
+                   f"dK/dV CTAs, BWD_CTAS_PER_SM says {plan}")
+            held[f"{str(dtype)[6:]} dh={dh}"] = n
+    print(f"kernel flash_attention_bwd: dK/dV CTAs an SM {held} "
+          f"(BWD_CTAS_PER_SM f32 {PA.BWD_CTAS_PER_SM[torch.float32]}, bf16 "
+          f"{PA.BWD_CTAS_PER_SM[torch.bfloat16]})")
     records = {}
     for i, (model, b, sq, skv, causal, window) in enumerate(BWD_CASES):
         shape = TRAIN_ATTN[model]
@@ -3538,7 +3559,14 @@ def phase_train_kernels() -> dict:
             args = dict(causal=causal, window=window)
             out, lse = FA.flash_attention(q, k, v, return_lse=True, **args)
             grads = FA.flash_attention_bwd(q, k, v, out, lse, do, **args)
+            again = FA.flash_attention_bwd(q, k, v, out, lse, do, **args)
             torch.cuda.synchronize()
+            _check(all(torch.equal(a, c) for a, c in zip(grads, again)),
+                   f"flash_attention_bwd {label}: two launches differ")
+            n_split = PA.bwd_split_plan(b, sq, skv, H, k.shape[2],
+                                        _build.sm_count(q.device),
+                                        PA.BWD_CTAS_PER_SM[dtype])
+            del again
             lse_ref = REF.flash_attention_lse_ref(q, k, **args)
             lse_err = (lse - lse_ref).abs().max().item()
             _check(lse_err <= 1e-4 * max(1.0, lse_ref.abs().max().item()),
@@ -3572,7 +3600,8 @@ def phase_train_kernels() -> dict:
             print(f"kernel flash_attention_bwd {label}: max err / max |plain| "
                   f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} (limit "
                   f"{BWD_TOL[dname]}{spread}); max_abs_err {abs_err:.3g}; lse "
-                  f"max |err| {lse_err:.3g}")
+                  f"max |err| {lse_err:.3g}; n_split {n_split}; two launches "
+                  f"bit-equal")
             # timings: the backward alone (graphs kept), and forward +
             # backward, for the kernel, the plain version and SDPA
             qq, kq, vq = (t.detach().transpose(1, 2).contiguous()
@@ -3612,7 +3641,7 @@ def phase_train_kernels() -> dict:
             del o_ref, leaves, ref, o_lib
             pairs = _visible_pairs(sq, skv, causal, window) * H * b
             elt = q.element_size()
-            n_bytes = (5 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
+            n_bytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
             bound_ms, bound_by = _bound_ms(n_bytes, 10 * dh * pairs, dname,
                                            "flash_attention_bwd")
             cc_ms, _ = _bound_ms(n_bytes, 10 * dh * pairs, dname,
@@ -5366,11 +5395,15 @@ def phase_tp_train_kernels() -> dict:
     at a rank's shapes of phase 20's meshes (``TP_FLASH``, ``TP_SSD``,
     ``TP_SEGMENT``), held to their plain versions (``TOL``, ``SSD_TOL``,
     ``SSD_BWD_TOL``, ``LSE_TOL``) and timed beside them and, where one
-    PyTorch call computes the same, that call (SDPA)."""
+    PyTorch call computes the same, that call (SDPA).  Two launches of
+    the flash backward must give the same bits; its split count is
+    printed."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref as REF
     from repro_torch.kernels import ssd_scan as SSD
     f32 = torch.float32
@@ -5398,6 +5431,15 @@ def phase_tp_train_kernels() -> dict:
     o_ref = REF.flash_attention_ref(*leaves, causal=True)
     ref = torch.autograd.grad(o_ref, leaves, do, retain_graph=True)
     grads = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    again = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, c) for a, c in zip(grads, again)),
+           f"flash_attention_bwd_rank {label}: two launches differ")
+    del again
+    n_split = PA.bwd_split_plan(b, sq, sq, K * g, K, _build.sm_count(q.device),
+                                PA.BWD_CTAS_PER_SM[f32])
+    print(f"kernel flash_attention_bwd_rank {label}: n_split {n_split}; two "
+          f"launches bit-equal")
     err = max((a - w).abs().max().item() / w.abs().max().item()
               for a, w in zip(grads, ref))
     qq, kq, vq = (t.detach().transpose(1, 2).contiguous().requires_grad_()
@@ -5412,7 +5454,7 @@ def phase_tp_train_kernels() -> dict:
         lambda: torch.autograd.grad(o_ref, leaves, do, retain_graph=True),
         lambda: torch.autograd.grad(o_lib, (qq, kq, vq), do_lib,
                                     retain_graph=True),
-        4 * (5 * q.numel() + 4 * k.numel() + lse.numel()), 10 * dh * pairs)
+        4 * (4 * q.numel() + 4 * k.numel() + lse.numel()), 10 * dh * pairs)
     rec["flash_attention_bwd_rank"]["max_abs_err"] = max(
         (a - w).abs().max().item() for a, w in zip(grads, ref))
     del q, k, v, do, out, lse, want, leaves, o_ref, ref, grads, qq, kq, vq

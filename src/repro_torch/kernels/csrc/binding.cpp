@@ -84,21 +84,29 @@ void flash(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// part: the backward's f32 scratch, an empty tensor when it needs none
 void flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
                const torch::Tensor& v, const torch::Tensor& out,
                const torch::Tensor& dout, const torch::Tensor& lse,
                torch::Tensor delta, torch::Tensor dq, torch::Tensor dk,
-               torch::Tensor dv, int64_t tq, bool causal, int64_t window,
+               torch::Tensor dv, torch::Tensor part, int64_t tq,
+               int64_t n_split, bool causal, int64_t window,
                double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(repro_torch::launch_flash_bwd(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k.data_ptr(),
       v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(),
       delta.data_ptr<float>(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-      q.size(0), q.size(1), k.size(1), q.size(2), k.size(2), q.size(3), tq,
-      causal, window, static_cast<float>(sm_scale),
+      scratch(part), q.size(0), q.size(1), k.size(1), q.size(2), k.size(2),
+      q.size(3), tq, n_split, causal, window, static_cast<float>(sm_scale),
       at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+int64_t flash_bwd_ctas_per_sm(bool bf16, int64_t dh) {
+  int n = 0;
+  C10_CUDA_CHECK(repro_torch::flash_bwd_ctas_per_sm(bf16, dh, &n));
+  return n;
 }
 
 // states: an empty tensor when the caller needs none
@@ -149,6 +157,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash", &flash, "contiguous flash attention (CUDA)");
   m.def("flash_bwd", &flash_bwd,
         "gradient of the contiguous flash attention (CUDA)");
+  m.def("flash_bwd_ctas_per_sm", &flash_bwd_ctas_per_sm,
+        "dK/dV CTAs of the flash backward an SM holds (CUDA)");
   m.def("ssd", &ssd, "Mamba2 SSD chunked scan (CUDA)");
   m.def("ssd_bwd", &ssd_bwd, "gradient of the Mamba2 SSD chunked scan (CUDA)");
 }

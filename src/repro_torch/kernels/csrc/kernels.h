@@ -81,17 +81,27 @@ cudaError_t launch_flash(bool bf16, const void* q, const void* k,
                          int skv, int H, int K, int dh, int tq, bool causal,
                          int window, float sm_scale, cudaStream_t stream);
 
-// Its gradient (flash_backward.cu), three kernels on the CUDA cores in f32:
-// q, out, dout, dq (b, sq, H, dh); k, v, dk, dv (b, skv, K, dh), all of one
-// type; lse (b, H, sq) f32 from launch_flash; delta (b, H, sq) f32 scratch;
-// tq queries per dQ CTA (64 / g); dh at most 128.  Returns the error of
-// raising a kernel's shared-memory limit or of a launch.
+// Its gradient (flash_backward.cu), on the tensor cores: q, out, dout, dq
+// (b, sq, H, dh); k, v, dk, dv (b, skv, K, dh), all of one type; lse (b,
+// H, sq) f32 from launch_flash; delta (b, H, sq) f32 scratch; tq queries
+// per dQ CTA (64 / g); dh at most 128.  n_split CTAs share each 64-key
+// block's dK / dV walk.  scratch, f32 (null when empty): with n_split > 1,
+// 2 * n_split * b * skv * K * dh floats first (each split's dK, then its
+// dV), summed in a fixed order by a kernel of the same call; then, for f32
+// inputs, q, k, v and dO split into bf16 hi / lo pairs (2 * (b sq H dh + b
+// skv K dh) floats).  Returns the error of raising a kernel's
+// shared-memory limit or of a launch.
 cudaError_t launch_flash_bwd(bool bf16, const void* q, const void* k,
                              const void* v, const void* out, const void* dout,
                              const float* lse, float* delta, void* dq,
-                             void* dk, void* dv, int b, int sq, int skv, int H,
-                             int K, int dh, int tq, bool causal, int window,
+                             void* dk, void* dv, float* scratch, int b,
+                             int sq, int skv, int H, int K, int dh, int tq,
+                             int n_split, bool causal, int window,
                              float sm_scale, cudaStream_t stream);
+
+// *n: the dK/dV CTAs of launch_flash_bwd that one SM of the current
+// device holds at head dim dh (the occupancy calculator's count).
+cudaError_t flash_bwd_ctas_per_sm(bool bf16, int dh, int* n);
 
 // x (b, s, H, P), B and C (b, s, G, N), all of one type (f32 or bf16);
 // dt (b, s, H) and A (H,) f32; y (b, s, H, P) and state (b, H, P, N) f32;

@@ -28,13 +28,19 @@ of it for f32 inputs.
 trains through the jnp ``blocked_attention`` — so this is the gradient of
 the function the contiguous form computes.  With ``return_lse`` the
 forward also writes each row's log-sum-exp (b, H, sq) f32; the backward
-takes q, k, v, the output, the lse and dO and runs three kernels on the
-CUDA cores in f32: ``delta = rowsum(dO ∘ O)``; dK/dV, one CTA per (64
-keys, KV head, batch row) walking its group's heads and the query blocks
-that see its keys (P recomputed as ``exp(S·scale − lse)``), summed over
-the group in registers and written once, without atomics; and dQ on the
-forward's tiling.  Its bound is its operations, ``10 dh`` flops per
-visible (query head, key) pair.
+takes q, k, v, the output, the lse and dO: ``delta = rowsum(dO ∘ O)``;
+dK/dV, a CTA per 64 keys of a KV head walking its group's (head, 64-query
+block) items, P recomputed as ``exp(S·scale − lse)``; and dQ on the
+forward's tiling, S and dP recomputed — no atomics.  Every product runs
+on the tensor cores (``mma.sync`` m16n8k16, f32 accumulators), as the
+forward's: bf16 inputs take one product each, P and dS rounded to bf16;
+f32 inputs split every operand into a bf16 pair (hi·hi + hi·lo + lo·hi).
+When the dK/dV CTAs fall short of the card, :func:`~repro_torch.kernels.
+paged_attention.bwd_split_plan` cuts each key block's walk over several
+CTAs, whose f32 partials a second kernel of the call sums in a fixed
+order: the gradient is the same bits from run to run.  Its bound is its
+operations, ``10 dh`` flops per visible (query head, key) pair, at the
+bf16 peak, or a third of it for f32 inputs.
 
 **Paged chunked prefill** (:func:`paged_prefill_attention`,
 ``csrc/paged_prefill.cu``): the C queries of one prompt chunk, at absolute
@@ -77,15 +83,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import PREFILL_CTAS_PER_SM, \
-    partial_floats, split_plan
+from repro_torch.kernels.paged_attention import BWD_CTAS_PER_SM, \
+    PREFILL_CTAS_PER_SM, bwd_split_plan, partial_floats, split_plan
 from repro_torch.kernels.ref import flash_attention_bwd_ref, \
     flash_attention_ref, paged_prefill_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "FlashAttentionFn",
            "paged_prefill_attention", "paged_prefill_attention_ref",
-           "flash_queries_per_cta"]
+           "flash_queries_per_cta", "bwd_scratch_floats"]
 
 
 def flash_queries_per_cta(g: int) -> int:
@@ -150,7 +156,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward takes (f32 or bf16, g <= 64, dh a multiple of 4 up to 128,
     causal, full or windowed, sq != skv).  CUDA tensors only; returns (dq,
     dk, dv) in the inputs' type, dk and dv summed over each KV head's group
-    in f32 and written once (deterministic)."""
+    in f32 — across the splits of :func:`~repro_torch.kernels.
+    paged_attention.bwd_split_plan` in a fixed order — and rounded once
+    (deterministic)."""
     _check_flash("flash_attention_bwd", q, k, v)
     b, sq, H, dh = q.shape
     if any(t.shape != q.shape or t.dtype != q.dtype
@@ -165,16 +173,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(b, H, sq)} float32 tensor on q's device, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     scale = dh ** -0.5 if sm_scale is None else float(sm_scale)
+    K = k.shape[2]
+    n_split = bwd_split_plan(b, sq, k.shape[1], H, K,
+                             _build.sm_count(q.device),
+                             BWD_CTAS_PER_SM[q.dtype])
     delta = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+    part = torch.empty((bwd_scratch_floats(q, k, n_split),),
+                       dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _build.extension().flash_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                 flash_queries_per_cta(H // k.shape[2]),
-                                 bool(causal), int(window), scale)
+                                 part, flash_queries_per_cta(H // K),
+                                 n_split, bool(causal), int(window), scale)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+
+
+def bwd_scratch_floats(q: torch.Tensor, k: torch.Tensor,
+                       n_split: int) -> int:
+    """f32 words of the backward's scratch (``csrc/flash_backward.cu``):
+    the splits' dK and dV partials when ``n_split > 1``, then, for f32
+    inputs, q, k, v and dO as bf16 hi / lo pairs (one word an element)."""
+    part = 2 * n_split * k.numel() if n_split > 1 else 0
+    hilo = 2 * (q.numel() + k.numel()) if q.dtype == torch.float32 else 0
+    return part + hilo
 
 
 class FlashAttentionFn(torch.autograd.Function):

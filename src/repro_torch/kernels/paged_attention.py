@@ -46,7 +46,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
-           "split_plan", "partial_floats", "decode_chunks"]
+           "split_plan", "partial_floats", "decode_chunks", "bwd_split_plan",
+           "BWD_CTAS_PER_SM"]
 
 # a split holds at least this many positions (one staged block of the
 # prefill kernel; four tiles of the decode kernel's ring)
@@ -102,6 +103,45 @@ def split_plan(n_pages: int, block_size: int, n_groups: int, n_sm: int,
     ctas = ctas_per_sm * n_sm
     want = max(1, min(MAX_SPLITS, 2 * ctas // max(n_groups, 1)))
     return min(want, -(-n_pages // min_pages)), min_pages, ctas
+
+
+# the flash backward's dK/dV CTAs (csrc/flash_backward.cu): a CTA owns
+# BWD_KEYS keys of one KV head; a key block's walk is cut over at most
+# BWD_MAX_SPLITS CTAs, which sizes the partials' scratch; an SM holds one
+# f32 CTA (8 warps, 205 KiB of shared memory at dh 128) or two bf16 ones
+# (4 warps, 103 KiB): BWD_CTAS_PER_SM copies what BwdWarps and BwdSmem set
+# there, and chip_smoke.py holds it to the occupancy calculator's count
+# (flash_bwd_ctas_per_sm) on the card
+BWD_KEYS = 64
+BWD_MAX_SPLITS = 16
+# a split takes at least this many (head, 64-query block) items: with
+# fewer, writing and summing the partials costs more than the split gains
+BWD_MIN_SPLIT_ITEMS = 4
+BWD_CTAS_PER_SM = {torch.float32: 1, torch.bfloat16: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_split_plan(b: int, sq: int, skv: int, H: int, K: int, n_sm: int,
+                   ctas_per_sm: int) -> int:
+    """n_split of the flash backward's dK/dV launch (q (b, sq, H, dh)
+    against k, v (b, skv, K, dh)) on ``n_sm`` SMs that hold
+    ``ctas_per_sm`` of its CTAs each (``BWD_CTAS_PER_SM``), from shapes
+    only.  A CTA owns 64 keys of one KV head and walks its group's (query
+    head, 64-query block) items; when the ``b x K x cdiv(skv, 64)`` CTAs
+    fall short of what the card holds, each key block's walk is cut over
+    ``n_split`` CTAs — by heads first, then by query range: contiguous
+    shares of the head-major items — enough for two waves, so that a
+    causal grid's heavy first blocks do not set its time alone; at most
+    ``BWD_MAX_SPLITS``, and at least ``BWD_MIN_SPLIT_ITEMS`` of the
+    longest walk's items (g x cdiv(sq, 64)) a split.  The splits' f32
+    partials are summed in a fixed order in the same call."""
+    ctas = b * K * -(-skv // BWD_KEYS)
+    slots = ctas_per_sm * n_sm
+    if ctas >= slots:
+        return 1
+    items = H // K * -(-sq // BWD_KEYS)
+    return max(1, min(BWD_MAX_SPLITS, items // BWD_MIN_SPLIT_ITEMS,
+                      -(-2 * slots // ctas)))
 
 
 def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor,

@@ -95,10 +95,12 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             sm_scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """The backward kernel's formulas, step by step, in f32: P = exp(S ·
-    scale − lse) on the visible keys (0 elsewhere), delta = rowsum(dO ∘ O),
-    dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − delta), dK = dSᵀ q · scale and
-    dQ = dS K · scale, dK and dV summed over each KV head's group.  q, o,
+    """The backward kernel's formulas, step by step, in full f32 (the
+    kernel multiplies on the tensor cores: bf16 inputs with P and dS
+    rounded to bf16, f32 inputs as split bf16 pairs): P = exp(S · scale −
+    lse) on the visible keys (0 elsewhere), delta = rowsum(dO ∘ O), dV =
+    Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − delta), dK = dSᵀ q · scale and dQ =
+    dS K · scale, dK and dV summed over each KV head's group.  q, o,
     do (b, sq, H, dh); k, v (b, skv, K, dh); lse (b, H, sq) f32.  Returns
     (dq, dk, dv) in the inputs' types."""
     b, sq, H, dh = q.shape

@@ -211,8 +211,8 @@ class _PlainExt:
             lse.copy_(REFT.flash_attention_lse_ref(
                 q, k, causal=causal, window=window, sm_scale=scale))
 
-    def flash_bwd(self, q, k, v, out, dout, lse, delta, dq, dk, dv, tq,
-                  causal, window, scale):
+    def flash_bwd(self, q, k, v, out, dout, lse, delta, dq, dk, dv, part,
+                  tq, n_split, causal, window, scale):
         self.calls.append(("flash_bwd", tuple(delta.shape)))
         for dst, src in zip((dq, dk, dv), REFT.flash_attention_bwd_ref(
                 q, k, v, out, lse, dout, causal=causal, window=window,
