@@ -149,7 +149,8 @@ Phases, each printing its result lines:
    against autograd through the plain scan, dx / ddt / dA / dB / dC in
    f32 and bf16 (``SSD_BWD_CASES``: mamba2's and zamba2's training shape
    4 x 1024, mamba2 1 x 4096 with 32-column slices, a SMOKE shape, a G =
-   2 case), each timed beside the plain backward and its bound; (b) six
+   2 case), two launches bit-equal, each timed beside the plain backward
+   and its bound; (b) six
    SMOKE configs (dense, MoE, VL with M-RoPE positions, enc-dec, SSM,
    hybrid) trained on the card against the CPU from the same weights; (c)
    qwen3-1.7b at full width in f32, 2 steps of 4 x 1024 tokens (28
@@ -232,7 +233,7 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12,
               "float32 as split bf16": 989e12 / 3}
 SPLIT_BF16 = ("paged_prefill_attention", "flash_attention", "ssd_chunked",
-              "flash_attention_bwd")
+              "flash_attention_bwd", "ssd_chunked_bwd")
 # (atol, rtol) of a kernel against its plain version: f32 differs in the
 # order of its sums; both accumulate bf16 inputs in f32, so a bf16 output
 # differs by about one bf16 rounding of the output (relative 2**-8); the
@@ -3670,15 +3671,18 @@ SSD_BWD_CASES = (("mamba2", 4, 1024), ("zamba2", 4, 1024),
                  ("mamba2", 1, 4096), ("smoke", 2, 64), ("g2", 2, 1024))
 # the scan's backward against autograd through the plain scan: the largest
 # |difference| over the plain gradient's largest magnitude, per gradient.
-# f32: BWD_TOL's 1e-4 (orders of summation; the plain version's f32
-# cumsum of dt A, whose rounding exp turns into relative error, where the
-# kernel takes it in f64): on the H100 the readings reach 4.5e-5 (ddt).
+# f32: BWD_TOL's 1e-4 (orders of summation; the kernel's split-bf16
+# products; the plain version's f32 cumsum of dt A, whose rounding exp
+# turns into relative error, where the kernel takes it in f64): on the
+# H100 the readings reach 4.96e-5 (ddt; 4.5e-5 with the earlier f32
+# CUDA-core kernel).
 # bf16: both widen the bf16 inputs and sum in f32, and round dx, dB and
 # dC to bf16 (relative 2**-8); the limit is set by the plain version's
 # own spread between bf16 inputs and the f32 inputs they were rounded
 # from, which phase 17a prints beside each case: 1.9e-3 to 6.1e-3 at
-# these shapes on the card, the kernel up to 2.7e-3 from the plain
-# version; the limit is about three times the largest spread
+# these shapes on the card, the kernel up to 4.3e-3 from the plain
+# version (the earlier f32 CUDA-core kernel 2.7e-3); the limit is about
+# three times the largest spread
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
 
@@ -3689,12 +3693,16 @@ def _ssd_fwd_ops(b: int, s: int, H: int, P: int, N: int, c: int) -> float:
     return b * H * (s // c) * (c * (c + 1) * (N + P) + 4 * c * N * P)
 
 
-def _ssd_bwd_ops(b: int, s: int, H: int, P: int, N: int, c: int) -> float:
-    """Flops of the scan's gradient: per (head, chunk) c (c + 1) / 2 (2 P +
-    3 N) multiply-adds within the chunk (dy X^T, S, dC, dB, dX on the pairs
-    j <= i) and 4 c P N for the states' (dy C^T, dy h0, X dh1, dh1 B)."""
-    return 2 * b * H * (s // c) * (c * (c + 1) // 2 * (2 * P + 3 * N)
-                                   + 4 * c * P * N)
+def _ssd_bwd_ops(b: int, s: int, H: int, G: int, P: int, N: int,
+                 c: int) -> float:
+    """Flops the scan's gradient needs: per (head, chunk) c (c + 1) / 2 2 P
+    multiply-adds within the chunk (dy X^T and dX's (S o L)^T dy on the
+    pairs j <= i) and 4 c P N for the states' (dy C^T, dy h0, X dh1, dh1 B);
+    per (group, chunk) c (c + 1) / 2 3 N (S = C B^T, and dC = (sum_h M_h) B
+    and dB = (sum_h M_h)^T C, as B and C are the group's)."""
+    pairs = c * (c + 1) // 2
+    return 2 * b * (s // c) * (H * (pairs * 2 * P + 4 * c * P * N)
+                               + G * pairs * 3 * N)
 
 
 def phase_train_ssd_kernels() -> dict:
@@ -3703,18 +3711,35 @@ def phase_train_ssd_kernels() -> dict:
     autograd through ``ssd_chunked_ref`` at ``SSD_BWD_CASES``, f32 and
     bf16: the chunk states within ``SSD_TOL`` of the plain forward's, each
     of dx, ddt, dA, dB and dC within ``SSD_BWD_TOL`` of the plain one's
-    largest magnitude.  Prints, for each case, the backward's time, the
-    plain backward's and the bound (no single PyTorch call computes the
-    scan or its gradient, so there is no library time), and the forward's
-    with and without the states.  The bound: ``_ssd_bwd_ops`` over the
-    peak for the input type (f32: the CUDA cores' 67 TFLOP/s, where this
-    kernel computes), or the bytes (x, B, C, dt, A, dy and the chunk
+    largest magnitude, and two launches of the backward bit-equal (every
+    sum in a fixed order).  Checks that an SM holds
+    ``SSD_BWD_CTAS_PER_SM`` chunk-pass CTAs, the planner's assumption, and
+    prints each case's head block (``ssd_bwd_plan``).  Prints, for each
+    case, the backward's time, the plain backward's and the bound (no
+    single PyTorch call computes the scan or its gradient, so there is no
+    library time), and the forward's with and without the states.  The
+    bound: ``_ssd_bwd_ops`` over the peak for the input type (f32: split
+    bf16 on the tensor cores, 989/3 TFLOP/s, with the CUDA cores' 67
+    printed beside it), or the bytes (x, B, C, dt, A, dy and the chunk
     states read, dx, ddt, dA, dB and dC written) over 3.35 TB/s.  Returns
     the record of mamba2's 4 x 1024 f32 case, the full-width training
     step's shape."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ref as REF
     from repro_torch.kernels import ssd_scan as SSD
+    ext = _build.extension()
+    for model in ("mamba2", "zamba2"):
+        sh = SSD_SHAPES[model]
+        held = [ext.ssd_bwd_ctas_per_sm(bf16, sh["chunk"], sh["N"], sh["P"])
+                for bf16 in (False, True)]
+        _check(held == [SSD.SSD_BWD_CTAS_PER_SM] * 2,
+               f"ssd_chunked_bwd {model}: an SM holds {held} f32 / bf16 "
+               f"chunk-pass CTAs, the planner takes "
+               f"{SSD.SSD_BWD_CTAS_PER_SM}")
+        print(f"kernel ssd_chunked_bwd {model}: chunk-pass CTAs an SM f32 "
+              f"{held[0]} bf16 {held[1]} (SSD_BWD_CTAS_PER_SM "
+              f"{SSD.SSD_BWD_CTAS_PER_SM})")
     records = {}
     for i, (model, b, s) in enumerate(SSD_BWD_CASES):
         chunk = SSD_SHAPES[model]["chunk"]
@@ -3730,12 +3755,18 @@ def phase_train_ssd_kernels() -> dict:
                          for j, t in enumerate(x32))
             x, dt, A, B, C = args
             H, P, G, N = x.shape[2], x.shape[3], B.shape[2], B.shape[3]
+            hb = SSD.ssd_bwd_plan(b, s, H, G, chunk,
+                                  _build.sm_count(x.device))
             label = (f"{model} b={b} s={s} H={H} P={P} G={G} N={N} "
                      f"c={chunk} {dname}")
             _, _, states = SSD.ssd_chunked(*args, chunk=chunk,
                                            return_states=True)
             grads = SSD.ssd_chunked_bwd(*args, states, dy, chunk=chunk)
+            again = SSD.ssd_chunked_bwd(*args, states, dy, chunk=chunk)
             torch.cuda.synchronize()
+            _check(all(torch.equal(a, c) for a, c in zip(grads, again)),
+                   f"ssd_chunked_bwd {label}: two launches differ")
+            del again
             _, _, states_ref = REF.ssd_chunked_ref(*args, chunk,
                                                    return_states=True)
             st_err = (states - states_ref).abs().max().item()
@@ -3785,7 +3816,8 @@ def phase_train_ssd_kernels() -> dict:
                   f"{errs_s} (limit {SSD_BWD_TOL[dname]}{spread}; on the "
                   f"plain forward's chunk states {ps_s}); max_abs_err "
                   f"{abs_err:.3g}; chunk states max |err| {st_err:.3g} "
-                  f"(limit {st_lim:.3g})")
+                  f"(limit {st_lim:.3g}); two launches bit-equal; heads a "
+                  f"chunk-pass CTA {hb}")
             bwd_ms = _time_ms(lambda: SSD.ssd_chunked_bwd(
                 *args, states, dy, chunk=chunk), reps=10, warmup=2)
             plain_ms = _time_ms(lambda: torch.autograd.grad(
@@ -3808,7 +3840,7 @@ def phase_train_ssd_kernels() -> dict:
             n_bytes = (2 * elt * (x.numel() + B.numel() + C.numel())
                        + 4 * (2 * dt.numel() + 2 * A.numel() + dy.numel()
                               + states.numel()))
-            n_ops = _ssd_bwd_ops(b, s, H, P, N, chunk)
+            n_ops = _ssd_bwd_ops(b, s, H, G, P, N, chunk)
             bound_ms, bound_by = _bound_ms(n_bytes, n_ops, dname,
                                            "ssd_chunked_bwd")
             cc_ms, _ = _bound_ms(n_bytes, n_ops, dname, "ssd_chunked_bwd",
@@ -4163,7 +4195,8 @@ def phase_train_full_ssm(smi: str) -> dict:
             pairs = b * cfg.n_heads * s * (s + 1) // 2
             return (8 * n_params * b * s
                     + L * (2 * _ssd_fwd_ops(b, s, H, P, N, c)
-                           + _ssd_bwd_ops(b, s, H, P, N, c))
+                           + _ssd_bwd_ops(b, s, H, cfg.ssm_groups, P,
+                                          N, c))
                     + 18 * cfg.d_head * pairs * G)
         counts, model, state, step = _train_full_steps(
             f"train full [{smi}]", cfg, TRAIN_SSM_OPT, per_step, flops, {
@@ -5396,8 +5429,8 @@ def phase_tp_train_kernels() -> dict:
     ``TP_SEGMENT``), held to their plain versions (``TOL``, ``SSD_TOL``,
     ``SSD_BWD_TOL``, ``LSE_TOL``) and timed beside them and, where one
     PyTorch call computes the same, that call (SDPA).  Two launches of
-    the flash backward must give the same bits; its split count is
-    printed."""
+    the flash backward, and of the SSD backward, must give the same bits;
+    the flash backward's split count is printed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build
@@ -5487,6 +5520,11 @@ def phase_tp_train_kernels() -> dict:
     gen.manual_seed(73)
     dy = torch.randn(x.shape, device="cuda", generator=gen)
     grads = SSD.ssd_chunked_bwd(*args, states, dy, chunk=c)
+    again = SSD.ssd_chunked_bwd(*args, states, dy, chunk=c)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, w) for a, w in zip(grads, again)),
+           f"ssd_chunked_bwd_rank {label}: two launches differ")
+    del again
     leaves = [t.detach().requires_grad_() for t in args]
     yl, _ = REF.ssd_chunked_ref(*leaves, c)
     ref = torch.autograd.grad(yl, leaves, dy, retain_graph=True)
@@ -5499,7 +5537,7 @@ def phase_tp_train_kernels() -> dict:
         lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True),
         None, 2 * io + 4 * (dt.numel() + A.numel() + dy.numel()
                             + states.numel()),
-        _ssd_bwd_ops(b, s, H, P, N, c), reps=5)
+        _ssd_bwd_ops(b, s, H, sh["G"], P, N, c), reps=5)
     rec["ssd_chunked_bwd_rank"]["max_abs_err"] = max(
         (a.float() - w.float()).abs().max().item() for a, w in zip(grads, ref))
     del args, x, dt, A, B, C, y, st, states, y_ref, st_ref, dy, grads

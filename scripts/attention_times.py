@@ -165,7 +165,8 @@ def _device_ms_by_kernel(fn, reps: int = 5) -> dict:
         if t is None:
             t = e.cuda_time_total
         if t > 0:
-            name = e.key.split("(")[0].replace("repro_torch::", "")
+            name = (e.key.replace("(anonymous namespace)::", "")
+                    .split("(")[0].replace("repro_torch::", ""))
             out[name] = round(out.get(name, 0.0) + t / 1e3 / reps, 5)
     return out
 

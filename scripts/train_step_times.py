@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Wall and device time of qwen3-1.7b's full-width f32 training step —
-chip_smoke's phase 17c: 4 x 1024 tokens of the synthetic stream, full
-activation checkpointing, AdamW — for the source tree given, to compare two
-versions of the port on one card in one call.
+"""Wall and device time of a full-width f32 training step — chip_smoke's
+phase 17c: 4 x 1024 tokens of the synthetic stream, full activation
+checkpointing, AdamW — of qwen3-1.7b (the default), mamba2-2.7b or
+zamba2-2.7b, for the source tree given, to compare two versions of the
+port on one card in one call.
 
     PYTHONPATH=src:. python3 scripts/train_step_times.py [--src DIR]
-        [--label L] [--steps N]
+        [--label L] [--steps N] [--model NAME]
 
 Needs one GPU.  ``--src`` is the ``src`` directory whose ``repro_torch`` is
 timed (default: this checkout's); its kernels build into that tree's own
 ``build/repro_torch_ext/``.  The model, its optimizer and the batches are
-chip_smoke's (``TRAIN_OPT``, ``_train_batch``, weights from seed 0).  One
-warm-up step, then ``--steps`` timed steps (each waits for its loss), then
-one step under ``torch.profiler``: the device's busy time (every device
-event once) and the flash backward's kernels' share of it.  Prints one line
-``{"label": ..., "device": ..., "steps_ms": [...], "ms": mean, "busy_ms":
-..., "flash_bwd_ms": ...}``.  Run it for two trees in turns (A, B, B, A)
-in one call and compare within the call.
+chip_smoke's (``TRAIN_OPT``, for the SSM models ``TRAIN_SSM_OPT``;
+``_train_batch``; weights from seed 0).  One warm-up step, then
+``--steps`` timed steps (each waits for its loss), then one step under
+``torch.profiler``: the device's busy time (every device event once) and
+the flash backward's and the SSD scan backward's kernels' shares of it.
+Prints one line ``{"label": ..., "model": ..., "device": ...,
+"steps_ms": [...], "ms": mean, "busy_ms": ..., "flash_bwd_ms": ...,
+"ssd_bwd_ms": ...}``.  Run it for two trees in turns (A, B, B, A) in one
+call and compare within the call.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--model", default="qwen3-1.7b",
+                    choices=("qwen3-1.7b", "mamba2-2.7b", "zamba2-2.7b"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as CS          # its port imports are inside functions
@@ -50,8 +55,9 @@ def main() -> int:
     from repro_torch.models import registry as R
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_loop as TL
-    cfg = get_config("qwen3-1.7b").with_(dtype=torch.float32)
-    opt = O.AdamWConfig(**CS.TRAIN_OPT)
+    cfg = get_config(args.model).with_(dtype=torch.float32)
+    opt = O.AdamWConfig(**(CS.TRAIN_OPT if args.model == "qwen3-1.7b"
+                           else CS.TRAIN_SSM_OPT))
     state = TL.make_train_state(R.init_params(cfg, seed=0), opt)
     step = TL.make_train_step(cfg, opt)
     b, s = CS.TRAIN_FULL_BATCH, CS.TRAIN_FULL_SEQ
@@ -71,13 +77,15 @@ def main() -> int:
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in dev) / 1e3
-    bwd = sum(e.self_device_time_total for e in dev
-              if "flash_bwd" in e.key) / 1e3
-    print(json.dumps({"label": args.label,
+    by = {part: sum(e.self_device_time_total for e in dev
+                    if part in e.key) / 1e3
+          for part in ("flash_bwd", "ssd_bwd")}
+    print(json.dumps({"label": args.label, "model": args.model,
                       "device": torch.cuda.get_device_name(0),
                       "steps_ms": [round(w, 1) for w in walls],
                       "ms": sum(walls) / len(walls), "busy_ms": busy,
-                      "flash_bwd_ms": bwd}))
+                      "flash_bwd_ms": by["flash_bwd"],
+                      "ssd_bwd_ms": by["ssd_bwd"]}))
     return 0
 
 

@@ -124,7 +124,9 @@ void ssd(const torch::Tensor& x, const torch::Tensor& dt,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// dstate: an empty tensor for a zero gradient of the final state
+// dstate: an empty tensor for a zero gradient of the final state.  The
+// scratch of C B^T and of <dh1, h0>'s parts is sized here from the kernels'
+// own layout (ssd_bwd_scratch).
 void ssd_bwd(const torch::Tensor& x, const torch::Tensor& dt,
              const torch::Tensor& A, const torch::Tensor& B,
              const torch::Tensor& C, const torch::Tensor& states,
@@ -132,19 +134,32 @@ void ssd_bwd(const torch::Tensor& x, const torch::Tensor& dt,
              torch::Tensor dh1, torch::Tensor dx, torch::Tensor ddt,
              torch::Tensor dA_part, torch::Tensor dB_part,
              torch::Tensor dC_part, torch::Tensor dA, torch::Tensor dB,
-             torch::Tensor dC, int64_t chunk, int64_t ps) {
+             torch::Tensor dC, int64_t chunk, int64_t hb) {
   const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t b = x.size(0), s = x.size(1), H = x.size(2), P = x.size(3);
+  const int64_t G = B.size(2), N = B.size(3), nc = s / chunk;
+  int s_len = 0, nsl = 0;
+  repro_torch::ssd_bwd_scratch(chunk, P, N, &s_len, &nsl);
+  const auto f32 = x.options().dtype(at::kFloat);
+  torch::Tensor S = torch::empty({b, nc, G, s_len}, f32);
+  torch::Tensor hh = torch::empty({b, nc, H, nsl}, f32);
   C10_CUDA_CHECK(repro_torch::launch_ssd_bwd(
       x.scalar_type() == at::kBFloat16, x.data_ptr(), dt.data_ptr<float>(),
       A.data_ptr<float>(), B.data_ptr(), C.data_ptr(),
       states.data_ptr<float>(), dy.data_ptr<float>(),
       dstate.numel() ? dstate.data_ptr<float>() : nullptr,
-      dh1.data_ptr<float>(), dx.data_ptr(), ddt.data_ptr<float>(),
-      dA_part.data_ptr<float>(), dB_part.data_ptr<float>(),
-      dC_part.data_ptr<float>(), dA.data_ptr<float>(), dB.data_ptr(),
-      dC.data_ptr(), x.size(0), x.size(1), x.size(2), x.size(3), B.size(2),
-      B.size(3), chunk, ps, at::cuda::getCurrentCUDAStream()));
+      S.data_ptr<float>(), dh1.data_ptr<float>(), hh.data_ptr<float>(),
+      dx.data_ptr(), ddt.data_ptr<float>(), dA_part.data_ptr<float>(),
+      dB_part.data_ptr<float>(), dC_part.data_ptr<float>(),
+      dA.data_ptr<float>(), dB.data_ptr(), dC.data_ptr(), b, s, H, P, G, N,
+      chunk, hb, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+int64_t ssd_bwd_ctas_per_sm(bool bf16, int64_t chunk, int64_t N, int64_t P) {
+  int n = 0;
+  C10_CUDA_CHECK(repro_torch::ssd_bwd_ctas_per_sm(bf16, chunk, N, P, &n));
+  return n;
 }
 
 }  // namespace
@@ -161,4 +176,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "dK/dV CTAs of the flash backward an SM holds (CUDA)");
   m.def("ssd", &ssd, "Mamba2 SSD chunked scan (CUDA)");
   m.def("ssd_bwd", &ssd_bwd, "gradient of the Mamba2 SSD chunked scan (CUDA)");
+  m.def("ssd_bwd_ctas_per_sm", &ssd_bwd_ctas_per_sm,
+        "chunk-pass CTAs of the SSD scan's gradient an SM holds (CUDA)");
 }

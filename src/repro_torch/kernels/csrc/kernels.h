@@ -114,21 +114,32 @@ cudaError_t launch_ssd(bool bf16, const void* x, const float* dt,
                        float* state, float* states, int b, int s, int H, int P,
                        int G, int N, int chunk, int ps, cudaStream_t stream);
 
-// Its gradient (ssd_backward.cu), three kernels on the CUDA cores in f32:
-// x, dx (b, s, H, P) and B, C, dB, dC (b, s, G, N), all of one type; dt,
-// ddt (b, s, H), A, dA (H,), dy (b, s, H, P) f32; states from launch_ssd;
-// dstate (b, H, P, N) f32, the final state's gradient, or null for zero.
-// Scratch, f32: dh1 (b, nc, H, P, N); dA_part (b, nc, H); dB_part, dC_part
-// (b, s, H, N).  chunk and N at most 128, P at most 64, ps the P columns
-// of a reverse-pass CTA.  Returns the error of raising a kernel's
-// shared-memory limit or of a launch.
+// Its gradient (ssd_backward.cu), four kernels on the tensor cores: x, dx
+// (b, s, H, P) and B, C, dB, dC (b, s, G, N), all of one type; dt, ddt (b,
+// s, H), A, dA (H,), dy (b, s, H, P) f32; states from launch_ssd; dstate
+// (b, H, P, N) f32, the final state's gradient, or null for zero.  Scratch,
+// f32: S (b, nc, G, s_len) and hh (b, nc, H, nsl), s_len and nsl from
+// ssd_bwd_scratch; dh1 (b, nc, H, P, N); dA_part (b, nc, H); dB_part,
+// dC_part (b, s, H / hb, N).  chunk and N at most 128, P at most 64; hb (at
+// most 16) the heads a chunk-pass CTA walks, dividing H / G.  Returns the
+// error of raising a kernel's shared-memory limit or of a launch.
 cudaError_t launch_ssd_bwd(bool bf16, const void* x, const float* dt,
                            const float* A, const void* B, const void* C,
                            const float* states, const float* dy,
-                           const float* dstate, float* dh1, void* dx,
-                           float* ddt, float* dA_part, float* dB_part,
-                           float* dC_part, float* dA, void* dB, void* dC,
-                           int b, int s, int H, int P, int G, int N,
-                           int chunk, int ps, cudaStream_t stream);
+                           const float* dstate, float* S, float* dh1,
+                           float* hh, void* dx, float* ddt, float* dA_part,
+                           float* dB_part, float* dC_part, float* dA, void* dB,
+                           void* dC, int b, int s, int H, int P, int G, int N,
+                           int chunk, int hb, cudaStream_t stream);
+
+// The floats launch_ssd_bwd's scratch takes per (row, chunk): *s_len of S a
+// group (the 16 x 16 tiles of C B^T on or below the diagonal, in the
+// kernels' padded layout) and *nsl of hh a head (one part of <dh1, h0> per
+// state-pass CTA).
+void ssd_bwd_scratch(int chunk, int P, int N, int* s_len, int* nsl);
+
+// *n: the chunk-pass CTAs of launch_ssd_bwd that one SM of the current
+// device holds at these widths (the occupancy calculator's count).
+cudaError_t ssd_bwd_ctas_per_sm(bool bf16, int chunk, int N, int P, int* n);
 
 }  // namespace repro_torch

@@ -311,22 +311,25 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B's and C's types.
 
     Per head and chunk, with a = dt A, cum its inclusive cumsum, X = dt x,
-    L_ij = exp(cum_i - cum_j) for j <= i, S = C Bᵀ, w_j = exp(cum_last -
-    cum_j), h0 / h1 the states entering / leaving the chunk: the reverse
-    carry dh0 = exp(cum_last) dh1 + Σ_i exp(cum_i) dy_i C_iᵀ gives each
-    chunk's dh1; then M = L ∘ (dy Xᵀ), dX = (S∘L)ᵀ dy + w (dh1 B), dC = M B
-    + exp(cum) (dy h0), dB = Mᵀ C + w (X dh1), and dcum = rowsum(S∘M) -
-    colsum(S∘M) + o - r (o_i = exp(cum_i) dy_i·h0 C_i, r_j = w_j X_jᵀ dh1
-    B_j), the last position also taking exp(cum_last) <dh1, h0> + Σ r; da
-    is dcum's reverse cumsum.  The cumsum and the differences that go into
-    exp are f64, the rest f32."""
+    L_ij = exp(cum_i - cum_j) for j <= i, S = C Bᵀ (once per group), w_j =
+    exp(cum_last - cum_j), h0 / h1 the states entering / leaving the chunk:
+    the reverse carry dh0 = exp(cum_last) dh1 + Σ_i exp(cum_i) dy_i C_iᵀ
+    gives each chunk's dh1; then M = L ∘ (dy Xᵀ), dX = (S∘L)ᵀ dy + w (B
+    dh1ᵀ), and, B and C being the group's, dC = (Σ_h M) B + Σ_h exp(cum) (dy
+    h0) and dB = (Σ_h M)ᵀ C + Σ_h w (X dh1) over the group's heads; dcum =
+    rowsum(S∘M) - colsum(S∘M) + o - r (o_i = exp(cum_i) dy_i·h0 C_i, r_j =
+    w_j X_j·(B dh1ᵀ)_j), the last position also taking exp(cum_last) <dh1,
+    h0> + Σ r; da is dcum's reverse cumsum.  The cumsum and the
+    differences that go into exp are f64, the rest f32."""
     b, s, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     nc, hpg = s // chunk, H // G
     xc = x.float().reshape(b, nc, chunk, H, P)
     dtc = dt.float().reshape(b, nc, chunk, H)
-    Bh = B.float().repeat_interleave(hpg, dim=2).reshape(b, nc, chunk, H, N)
-    Ch = C.float().repeat_interleave(hpg, dim=2).reshape(b, nc, chunk, H, N)
+    Bc = B.float().reshape(b, nc, chunk, G, N)
+    Cc = C.float().reshape(b, nc, chunk, G, N)
+    Bh = Bc.repeat_interleave(hpg, dim=3)                            # (b, nc, l, H, N)
+    Ch = Cc.repeat_interleave(hpg, dim=3)
     dyc = dy.float().reshape(b, nc, chunk, H, P)
     X = xc * dtc[..., None]
     # the chunk's cumsum and the differences that go into exp in f64, as
@@ -346,23 +349,28 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "bihp,bihn->bhpn", ecum[:, k, :, :, None] * dyc[:, k], Ch[:, k])
     dh1 = torch.stack(dh1, dim=1)                                    # (b, nc, H, P, N)
 
-    # each chunk on its own
+    # each chunk on its own; S once per group
     ct = cum.permute(0, 1, 3, 2)                                     # (b, nc, H, l)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
     Lm = torch.exp((ct[..., :, None] - ct[..., None, :]).float()
                    .masked_fill(~mask, float("-inf")))               # (b, nc, H, i, j)
-    S = torch.einsum("bkihn,bkjhn->bkhij", Ch, Bh)
+    S = torch.einsum("bkign,bkjgn->bkgij", Cc, Bc)
+    Sh = S.repeat_interleave(hpg, dim=2)                             # (b, nc, H, i, j)
     M = Lm * torch.einsum("bkihp,bkjhp->bkhij", dyc, X)
-    R = S * M
+    R = Sh * M
     dyh0 = torch.einsum("bkihp,bkhpn->bkihn", dyc, h0)
     xdh1 = torch.einsum("bkjhp,bkhpn->bkjhn", X, dh1)
-    dX = torch.einsum("bkhij,bkihp->bkjhp", S * Lm, dyc) + \
-        w[..., None] * torch.einsum("bkhpn,bkjhn->bkjhp", dh1, Bh)
-    dC = torch.einsum("bkhij,bkjhn->bkihn", M, Bh) + ecum[..., None] * dyh0
-    dB = torch.einsum("bkhij,bkihn->bkjhn", M, Ch) + w[..., None] * xdh1
+    bdh1 = torch.einsum("bkjhn,bkhpn->bkjhp", Bh, dh1)
+    dX = torch.einsum("bkhij,bkihp->bkjhp", Sh * Lm, dyc) + \
+        w[..., None] * bdh1
+    Msum = M.reshape(b, nc, G, hpg, chunk, chunk).sum(3)             # (b, nc, G, i, j)
+    dC = torch.einsum("bkgij,bkjgn->bkign", Msum, Bc) + \
+        (ecum[..., None] * dyh0).reshape(b, nc, chunk, G, hpg, N).sum(4)
+    dB = torch.einsum("bkgij,bkign->bkjgn", Msum, Cc) + \
+        (w[..., None] * xdh1).reshape(b, nc, chunk, G, hpg, N).sum(4)
     o = ecum * (dyh0 * Ch).sum(-1)                                   # (b, nc, l, H)
-    r = w * (xdh1 * Bh).sum(-1)
+    r = w * (X * bdh1).sum(-1)
     dcum = (R.sum(-1) - R.sum(-2)).permute(0, 1, 3, 2) + o - r
     last = ecum[:, :, -1] * (dh1 * h0).sum((-1, -2)) + r.sum(2)      # (b, nc, H)
     dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + last[:, :, None]],
@@ -372,8 +380,8 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dx = (dtc[..., None] * dX).reshape(b, s, H, P)
     ddt = ((xc * dX).sum(-1) + A.float() * da).reshape(b, s, H)
     dA = (dtc * da).sum((0, 1, 2))
-    dB = dB.reshape(b, s, G, hpg, N).sum(3)
-    dC = dC.reshape(b, s, G, hpg, N).sum(3)
+    dB = dB.reshape(b, s, G, N)
+    dC = dC.reshape(b, s, G, N)
     return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
             dC.to(C.dtype))
 

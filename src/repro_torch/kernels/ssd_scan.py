@@ -25,15 +25,20 @@ the state stay within 2e-4 of max |f32 scan| (``chip_smoke.SSD_TOL``).
 What bounds it on the H100: bytes for bf16 inputs (x, B, C read once, the
 f32 y written: 0.157 ms at mamba2's 4 × 4096 tokens, against ~146 GFLOP
 of split bf16 MMAs, 0.148 ms at the tensor cores' peak).  One C·Bᵀ per
-group rather than per head is later work.
+group rather than per head is later work for the forward (the backward
+takes it once per group).
 
 Training: the forward also writes the state entering each chunk when
 asked (``return_states``), and :func:`ssd_chunked_bwd` runs the scan's
-gradient (``csrc/ssd_backward.cu``: a reverse pass over the chunks for
-the states' gradients, a chunk-parallel pass for dx, ddt and per-head
-partials of dB, dC and dA, and a fixed-order sum of the partials, all on
-the CUDA cores in f32 and without atomics).  :class:`SsdChunkedFn` joins
-the two for autograd.
+gradient (``csrc/ssd_backward.cu``): C·Bᵀ once per (batch row, group,
+chunk) into scratch; a reverse pass over the chunks for the states'
+gradients, one tensor-core product a chunk; a chunk pass in which a CTA
+walks a block of ``hb`` heads of one group (:func:`ssd_bwd_plan`) for dx,
+ddt and the dA partials, summing dB and dC over the block so that one f32
+partial per head block reaches memory; and a fixed-order sum of the
+partials.  Every product runs on the tensor cores (split bf16 for f32
+operands, the c × c ones on the triangle's tiles only), without atomics.
+:class:`SsdChunkedFn` joins the two for autograd.
 
 The plain PyTorch versions are :func:`~repro_torch.kernels.ref.
 ssd_chunked_ref` and :func:`~repro_torch.kernels.ref.ssd_chunked_bwd_ref`;
@@ -51,7 +56,15 @@ from repro_torch.kernels.ref import ssd_chunked_bwd_ref, ssd_chunked_ref
 
 __all__ = ["ssd_chunked", "ssd_chunked_ref", "ssd_chunked_bwd",
            "ssd_chunked_bwd_ref", "SsdChunkedFn", "check_ssd_inputs",
-           "p_slice"]
+           "p_slice", "ssd_bwd_plan", "SSD_BWD_CTAS_PER_SM",
+           "SSD_BWD_MAX_HEADS"]
+
+# CTAs of the backward's chunk pass an SM holds (one: 203 KB of shared
+# memory in f32, 185 KB in bf16, at mamba2's widths); chip_smoke.py checks
+# it against the extension's ssd_bwd_ctas_per_sm
+SSD_BWD_CTAS_PER_SM = 1
+# the most heads a chunk-pass CTA walks (kSbMaxHeads in the kernel)
+SSD_BWD_MAX_HEADS = 16
 
 
 def p_slice(P: int, bh: int = 0, n_sm: int = 0) -> int:
@@ -63,6 +76,32 @@ def p_slice(P: int, bh: int = 0, n_sm: int = 0) -> int:
     if ps == _build.SSD_SLICE and bh * (P // ps) < n_sm:
         return ps // 2
     return ps
+
+
+def ssd_bwd_plan(b: int, s: int, H: int, G: int, chunk: int,
+                 n_sm: int) -> int:
+    """``hb``, the heads of one group that a chunk-pass CTA of
+    :func:`ssd_chunked_bwd` walks, from shapes only (no host sync): a
+    divisor of ``H / G`` up to ``SSD_BWD_MAX_HEADS`` whose ``b × (s /
+    chunk) × H / hb`` CTAs fill the ``n_sm × SSD_BWD_CTAS_PER_SM`` slots
+    (where there are that many (row, chunk, head) items).  The CTAs run in
+    waves of that many; a CTA takes about hb + 1 heads' time (its own
+    work: C·Bᵀ and B or C staged, the summed M's products), so the plan
+    takes the ``hb`` of the fewest waves × (hb + 1), the largest on a tie,
+    which also sends the fewest f32 partials of dB and dC (one per head
+    block) through memory.  At mamba2's 80 heads on 132 SMs, 4 x 1024 tokens: 10
+    heads, 256 CTAs in 2 waves."""
+    hpg = H // G
+    units = b * (s // chunk) * H
+    slots = max(1, n_sm * SSD_BWD_CTAS_PER_SM)
+    best, best_cost = 1, None
+    for hb in range(1, min(hpg, SSD_BWD_MAX_HEADS) + 1):
+        if hpg % hb or units // hb < min(units, slots):
+            continue
+        cost = -(-(units // hb) // slots) * (hb + 1)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = hb, cost
+    return best
 
 
 def check_ssd_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -148,8 +187,8 @@ def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dt, A, B, C as there; ``states`` the chunk states from its forward
     with ``return_states``; ``dy`` (b, s, H, P) f32 the gradient of y;
     ``dstate`` (b, H, P, N) f32 that of the final state, or None for zero.
-    Takes what the forward takes, with P at most 64 (the chunk-parallel
-    pass holds all of P in one CTA).  CUDA tensors only; returns (dx, ddt,
+    Takes what the forward takes, with P at most 64 (the chunk pass holds
+    all of P in one CTA).  CUDA tensors only; returns (dx, ddt,
     dA, dB, dC) in x's, dt's, A's, B's and C's types, every sum in a
     fixed order (deterministic)."""
     check_ssd_inputs(x, dt, A, B, C, chunk)
@@ -173,17 +212,17 @@ def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"ssd_chunked_bwd: {name} must be a contiguous "
                              f"{shape} float32 tensor on x's device, got "
                              f"{got}")
+    hb = ssd_bwd_plan(b, s, H, G, chunk, _build.sm_count(x.device))
     dh1 = torch.empty((b, nc, H, P, N), **f32)
     dA_part = torch.empty((b, nc, H), **f32)
-    dB_part = torch.empty((b, s, H, N), **f32)
-    dC_part = torch.empty((b, s, H, N), **f32)
+    dB_part = torch.empty((b, s, H // hb, N), **f32)
+    dC_part = torch.empty((b, s, H // hb, N), **f32)
     dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
     ddt, dA = torch.empty_like(dt), torch.empty_like(A)
     _build.extension().ssd_bwd(
         x, dt, A, B, C, states, dy,
         torch.empty((0,), **f32) if dstate is None else dstate, dh1, dx, ddt,
-        dA_part, dB_part, dC_part, dA, dB, dC, int(chunk),
-        p_slice(P, b * H, _build.sm_count(x.device)))
+        dA_part, dB_part, dC_part, dA, dB, dC, int(chunk), hb)
     ssd_chunked_bwd.launches += 1
     return dx, ddt, dA, dB, dC
 

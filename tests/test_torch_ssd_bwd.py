@@ -193,10 +193,10 @@ class _PlainExt:
         state.copy_(st_r)
 
     def ssd_bwd(self, x, dt, A, B, C, states, dy, dstate, dh1, dx, ddt,
-                dA_part, dB_part, dC_part, dA, dB, dC, chunk, ps):
+                dA_part, dB_part, dC_part, dA, dB, dC, chunk, hb):
         self.calls.append(("ssd_bwd", tuple(states.shape), tuple(dh1.shape),
-                           tuple(dB_part.shape), dstate.numel() > 0, chunk,
-                           ps))
+                           tuple(dB_part.shape), tuple(dC_part.shape),
+                           dstate.numel() > 0, chunk, hb))
         grads = REFT.ssd_chunked_bwd_ref(x, dt, A, B, C, states, dy,
                                          dstate if dstate.numel() else None,
                                          chunk)
@@ -258,10 +258,11 @@ def test_autograd_function_runs_the_backward_kernel(no_card, name, final):
         assert g.dtype == leaf.dtype and g.shape == leaf.shape, gname
         _close(g, w, gname)
     nc, ps = s // chunk, SSDT.p_slice(P, b * H, N_SM)
+    hb = SSDT.ssd_bwd_plan(b, s, H, G, chunk, N_SM)
     assert no_card.calls == [
         ("ssd", (b, nc, H, P, N), chunk, ps),
-        ("ssd_bwd", (b, nc, H, P, N), (b, nc, H, P, N), (b, s, H, N), final,
-         chunk, ps)]
+        ("ssd_bwd", (b, nc, H, P, N), (b, nc, H, P, N), (b, s, H // hb, N),
+         (b, s, H // hb, N), final, chunk, hb)]
     assert SSDT.ssd_chunked.launches == n_fwd + 1
     assert SSDT.ssd_chunked_bwd.launches == n_bwd + 1
 
